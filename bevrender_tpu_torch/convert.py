@@ -1,0 +1,73 @@
+"""flax variable tree -> the port's ``state_dict``.
+
+``flax_to_state_dict`` takes ``{"params": ..., "batch_stats": ...}`` as
+nested dicts of numpy arrays (the JAX package's ``BEVRenderModel.init``
+output, moved to numpy) and returns tensors under the port's module names,
+which follow the flax names:
+
+* conv kernels (kh, kw, in/groups, out) -> weight (out, in/groups, kh, kw);
+* dense kernels (in, out) -> weight (out, in);
+* LayerNorm / BatchNorm ``scale`` -> ``weight``;
+* ``batch_stats`` mean / var -> ``running_mean`` / ``running_var``, with a
+  zero ``num_batches_tracked``;
+* the leading depth axis of ``stage{s}/layers/*`` (the flax scan stack)
+  -> ``stage{s}.layers.{i}.*``;
+* ``bev_embedding`` and ``rpe_table`` as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+
+def _leaves(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
+    else:
+        yield path, np.asarray(tree)
+
+
+def _unstack(path: tuple, arr: np.ndarray):
+    """Split the scan depth axis of ``.../stage{s}/layers/...`` leaves."""
+    if "layers" not in path:
+        return [(path, arr)]
+    i = path.index("layers")
+    return [(path[: i + 1] + (str(d),) + path[i + 1:], arr[d])
+            for d in range(arr.shape[0])]
+
+
+def _param(name: str, arr: np.ndarray):
+    if name == "kernel":
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 2:
+            return "weight", arr.T
+        raise ValueError(f"kernel of rank {arr.ndim} has no mapping")
+    if name == "scale":
+        return "weight", arr
+    if name in ("bias", "rpe_table", "bev_embedding"):
+        return name, arr
+    raise ValueError(f"unknown flax parameter {name!r}")
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32))  # a copy
+
+
+def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(variables["params"]):
+        for p, a in _unstack(path, arr):
+            name, a = _param(p[-1], a)
+            out[".".join(p[:-1] + (name,))] = _tensor(a)
+    for path, arr in _leaves(variables.get("batch_stats", {})):
+        for p, a in _unstack(path, arr):
+            stat = {"mean": "running_mean", "var": "running_var"}[p[-1]]
+            prefix = ".".join(p[:-1])
+            out[f"{prefix}.{stat}"] = _tensor(a)
+            out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return out

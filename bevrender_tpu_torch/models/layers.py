@@ -1,0 +1,155 @@
+"""Shared building blocks on NHWC tensors (counterpart of
+bevrender_tpu/models/layers.py:29-197).
+
+Precision follows flax: ``Conv`` and ``Dense`` with ``compute_dtype=bf16``
+cast their input, weight and bias to bf16 and return bf16; with ``None``
+they compute in the promoted type of input and weight. Params stay float32.
+Norms compute in float32 and return float32, as flax's do for a bf16 input.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def compute_dtype(name: str) -> Optional[torch.dtype]:
+    """``ModelConfig.dtype`` -> the conv/dense compute dtype (None = f32)."""
+    return torch.bfloat16 if name in ("bfloat16", "bf16") else None
+
+
+def _dtype(x: torch.Tensor, w: torch.Tensor, cd: Optional[torch.dtype]):
+    return cd if cd is not None else torch.promote_types(x.dtype, w.dtype)
+
+
+class Conv(nn.Conv2d):
+    """flax ``nn.Conv`` on NHWC. ``padding`` is symmetric per side; flax's
+    default SAME equals 0 for every 1x1 conv and for the stride-(2,1)
+    offset conv at even heights, which are the only SAME uses here."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=1,
+                 padding=0, groups: int = 1, bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, groups=groups, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _dtype(x, self.weight, self.compute_dtype)
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
+                     self.stride, self.padding, self.dilation, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` over the last axis."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _dtype(x, self.weight, self.compute_dtype)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm``: eps 1e-6, float32 out."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm`` (eps 1e-5, momentum 0.9 = torch 0.1) on NHWC,
+    float32 out."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def make_norm(norm: str):
+    """Factory of the conv-net norm (``make_norm``, layers.py:37). Only
+    ``batch`` is on the render+register path of the port so far."""
+    if norm != "batch":
+        raise NotImplementedError(f"norm={norm!r} is not ported yet")
+    return BatchNorm
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth; identity at eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class ConvMLP(nn.Module):
+    """1x1 expand, + depthwise 3x3 branch, GELU, 1x1 project
+    (``ConvMLP``, layers.py:111)."""
+
+    def __init__(self, dim: int, expansion: int, cd=None):
+        super().__init__()
+        hidden = dim * expansion
+        self.linear1 = Conv(dim, hidden, 1, compute_dtype=cd)
+        self.dwc = Conv(hidden, hidden, 3, padding=1, groups=hidden,
+                        compute_dtype=cd)
+        self.linear2 = Conv(hidden, dim, 1, compute_dtype=cd)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.linear1(x)
+        x = x + self.dwc(x)
+        return self.linear2(gelu(x))
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, seed: int) -> nn.Module:
+    """Seeded initialisation following the JAX package's initialisers
+    (layers.py:160-197, bevrender.py:45-49): Kaiming normal (fan_out) for
+    convs, Xavier uniform for dense layers, zero biases, unit norms, a
+    trunc-normal(0.01) rpe table and a uniform [0, 1) BEV embedding. The
+    numbers differ from JAX's for the same seed; only the distributions
+    match."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, mod in module.named_modules():
+        if isinstance(mod, Conv):
+            nn.init.kaiming_normal_(mod.weight, mode="fan_out",
+                                    nonlinearity="relu", generator=gen)
+        elif isinstance(mod, Dense):
+            nn.init.xavier_uniform_(mod.weight, generator=gen)
+        if isinstance(mod, (Conv, Dense)) and mod.bias is not None:
+            mod.bias.zero_()
+        if isinstance(mod, (LayerNorm, BatchNorm)):
+            mod.reset_parameters()
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "rpe_table":
+            nn.init.trunc_normal_(p, std=1.0, a=-2.0, b=2.0, generator=gen)
+            p.mul_(0.01)
+        elif leaf == "bev_embedding":
+            p.uniform_(0.0, 1.0, generator=gen)
+    return module

@@ -1,0 +1,63 @@
+"""Guards of the PyTorch port: it imports no JAX, flax or JAX-package code,
+and its entry points never drop to the CPU on their own."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "bevrender_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", "")
+              in ("__import__",) and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [
+        (f.relative_to(ROOT).as_posix(), name)
+        for f in files for name in _imported(f)
+        if name.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+def test_scan_sees_forbidden_imports(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import jax.numpy as jnp\nfrom bevrender_tpu.ops import x\n"
+                 "from bevrender_tpu_torch import y\n")
+    assert list(_imported(p)) == ["jax.numpy", "bevrender_tpu.ops",
+                                  "bevrender_tpu_torch"]
+
+
+def test_pipeline_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from bevrender_tpu_torch import config
+    from bevrender_tpu_torch.inference.register import RegistrationPipeline
+
+    cfg = config.Config()
+    cfg.model = config.tiny_model_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RegistrationPipeline(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RegistrationPipeline(cfg, device="cuda")
