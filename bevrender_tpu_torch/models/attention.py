@@ -9,6 +9,7 @@ order, so the port keeps them as they come.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -32,11 +33,17 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2, 4).reshape(B, M, G * Hpg * ch)
 
 
+@functools.lru_cache(maxsize=None)
+def _offset_range(hk: int, wk: int, dtype: torch.dtype, device: torch.device):
+    # made once per shape: a host-to-device copy per call would stall the
+    # stream at every site
+    return torch.tensor([1.0 / (hk - 1.0), 1.0 / (wk - 1.0)], dtype=dtype,
+                        device=device)
+
+
 def _offset_scale(off: torch.Tensor, hk: int, wk: int, factor: float):
     """tanh-bounded offset range (attention.py:117-123)."""
-    rng = torch.tensor([1.0 / (hk - 1.0), 1.0 / (wk - 1.0)], dtype=off.dtype,
-                       device=off.device)
-    return torch.tanh(off) * rng * factor
+    return torch.tanh(off) * _offset_range(hk, wk, off.dtype, off.device) * factor
 
 
 def _grouped(x: torch.Tensor, G: int) -> torch.Tensor:

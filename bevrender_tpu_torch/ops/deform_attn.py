@@ -133,6 +133,46 @@ def site_consumer(q, k, v, bias, scale: float) -> torch.Tensor:
     return torch.matmul(p.to(bf).float().transpose(-1, -2), v.to(bf).float())
 
 
+def site_consumer_online(q, k, v, bias, scale: float) -> torch.Tensor:
+    """The ``fused_site`` kernel's own arithmetic, in PyTorch: an online
+    softmax over tiles of ``KEY_TILE`` keys in base 2, with p = exp2(s - running
+    max) rounded to bf16 before it multiplies V and the sum l taken from
+    the unrounded p. Every float32 rounding of the kernel happens here in
+    the same order: float64 holds each exact product and sum before it is
+    rounded once, as an ``fmaf`` rounds it, and l and O accumulate one key
+    at a time. The same function as ``site_consumer`` up to where p is
+    rounded; used to hold the kernel to its own arithmetic."""
+    bf, f64 = torch.bfloat16, torch.float64
+    qd = q.to(bf).to(f64)
+    kd = k.to(bf).to(f64)
+    vd = v.to(bf).to(f64)
+    bt = bias.float().transpose(-1, -2)  # (B, G, Hpg, M, N)
+    sc = float(np.float32(scale))
+    log2e = float(np.float32(1.4426950408889634))
+    mrun = torch.full(q.shape[:-1], -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(mrun)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    tile = _fused_site_kernel.KEY_TILE
+    for n0 in range(0, k.shape[-2], tile):
+        kt = kd[..., n0:n0 + tile, :].unsqueeze(-3)  # (..., 1, nk, ch)
+        qk = (qd[..., :, None, 0] * kt[..., 0]).float()  # exact
+        for c in range(1, q.shape[-1]):  # fmaf per channel
+            qk = (qk.to(f64) + qd[..., :, None, c] * kt[..., c]).float()
+        s = (sc * qk.to(f64) + bt[..., n0:n0 + tile].to(f64)).float() * log2e
+        mnew = torch.maximum(mrun, s.amax(dim=-1))
+        alpha = torch.exp2(mrun - mnew)
+        l = l * alpha
+        o = o * alpha[..., None]
+        p = torch.exp2(s - mnew[..., None])  # (..., M, nk)
+        pb = p.to(bf).to(f64)
+        for j in range(p.shape[-1]):
+            l = l + p[..., j]
+            o = (o.to(f64) + pb[..., j, None]
+                 * vd[..., None, n0 + j, :]).float()  # fmaf per key
+        mrun = mnew
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
 def site_plain(q, k, v, k_pos, table, H: int, W: int, scale: float,
                compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of the ``fused_site`` kernel (``_site_xla`` with the
@@ -185,8 +225,9 @@ def fused_site(q, k, v, k_pos, table, H: int, W: int,
 def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
                               scale: float, fuse_site: bool) -> torch.Tensor:
     """One lattice attention site. ``fuse_site`` (eval) with head width
-    <= 8 takes the fused kernel; every other site computes the bias alone
-    and the plain consumer does the rest (deform_attn.py:866-917)."""
+    <= 8 takes the fused kernel (built for widths 4 and 8; another width
+    raises on the card); every other site computes the bias alone and the
+    plain consumer does the rest (deform_attn.py:866-917)."""
     if fuse_site and q.shape[-1] <= 8:
         return fused_site(q, k, v, k_pos, rpe_table, H, W, scale)
     return site_consumer(q, k, v, lattice_bias(rpe_table, k_pos, H, W), scale)

@@ -1,4 +1,4 @@
-// Fused lattice attention site for narrow heads (ch <= 8):
+// Fused lattice attention site for narrow heads (ch 4 or 8):
 //   out[b, g, h, m, :] = sum_n softmax_n(bias[n, m] + scale * q[m] . k[n]) v[n]
 // with the rpe bias built in registers, an online softmax over key tiles,
 // and neither bias nor scores written to device memory.
@@ -17,7 +17,11 @@
 // the zero-padded (g, h) table in shared memory (64 x 357 x 2 B = 46 KB for
 // the flagship's SCA) and walks the keys in tiles of KT, staged in shared
 // memory. Scores are kept in base 2 (scaled by log2 e) so the softmax uses
-// exp2.
+// exp2. The score of a pair is written with explicit roundings (fmaf for
+// q . k and for scale * qk + bias, then one rounded multiply by log2 e), so
+// ops/deform_attn.py::site_consumer_online can repeat it in PyTorch.
+//
+// Head widths: 4 and 8, the two the supported models give it.
 
 #include "lattice_common.cuh"
 
@@ -99,10 +103,10 @@ __global__ void __launch_bounds__(THREADS) fused_site_kernel(
       if (j < nk) {
         float qk = 0.0f;
 #pragma unroll
-        for (int c = 0; c < CH; ++c) qk = fmaf(qf[c], sk[j * CH + c], qk);
+        for (int c = 0; c < CH; ++c) qk = __fmaf_rn(qf[c], sk[j * CH + c], qk);
         const float bias =
             lattice::bias_at(tq + sbase[j], Xp, gcol, swy[j], sf[j]);
-        s[j] = (bias + scale * qk) * LOG2E;
+        s[j] = __fmul_rn(__fmaf_rn(scale, qk, bias), LOG2E);
         tmax = fmaxf(tmax, s[j]);
       }
     }
@@ -171,13 +175,7 @@ extern "C" int fused_site_launch(const void* table, const void* ys,
     return launch<C>(table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, B, G, \
                      Hpg, Ht, Wt, Xp, N, H, W, scale, s);
   switch (ch) {
-    SITE_CASE(1)
-    SITE_CASE(2)
-    SITE_CASE(3)
     SITE_CASE(4)
-    SITE_CASE(5)
-    SITE_CASE(6)
-    SITE_CASE(7)
     SITE_CASE(8)
     default:
       return (int)cudaErrorInvalidValue;

@@ -11,8 +11,9 @@
 // Bound: bytes. The output (B * G * Hpg * N * M * 2 bytes) dominates; the
 // inputs are the table and 16 bytes of geometry per key. A block takes one
 // (b, g) and a run of keys and loads the group's table once; each thread
-// computes VEC consecutive outputs of one (key, head) row and stores them
-// as one 16-byte vector when VEC is 8.
+// computes VEC = 8 consecutive outputs of one (key, head) row and stores
+// them as one 16-byte vector, so H * W must be a multiple of 8 (the wrapper
+// checks it).
 
 #include "lattice_common.cuh"
 
@@ -24,7 +25,8 @@ __device__ __forceinline__ unsigned pack2(float a, float b) {
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
 }
 
-template <int VEC>
+constexpr int VEC = 8;
+
 __global__ void lattice_bias_kernel(
     const __nv_bfloat16* __restrict__ table,  // (G, Hpg, Ht, Wt)
     const int* __restrict__ ys, const int* __restrict__ ms,  // (B, G, N)
@@ -68,36 +70,13 @@ __global__ void lattice_bias_kernel(
       }
     }
     __nv_bfloat16* dst = out + ((((size_t)b * G + g) * Hpg + h) * N + n) * M + m;
-    if (VEC == 8) {
-      uint4 pk;
-      pk.x = pack2(vals[0], vals[1]);
-      pk.y = pack2(vals[2], vals[3]);
-      pk.z = pack2(vals[4], vals[5]);
-      pk.w = pack2(vals[6], vals[7]);
-      *reinterpret_cast<uint4*>(dst) = pk;
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) dst[e] = __float2bfloat16_rn(vals[e]);
-    }
+    uint4 pk;
+    pk.x = pack2(vals[0], vals[1]);
+    pk.y = pack2(vals[2], vals[3]);
+    pk.z = pack2(vals[4], vals[5]);
+    pk.w = pack2(vals[6], vals[7]);
+    *reinterpret_cast<uint4*>(dst) = pk;
   }
-}
-
-template <int VEC>
-int launch(const void* table, const void* ys, const void* ms, const void* wy,
-           const void* fx, const void* u0, const void* gcomb, void* out,
-           int B, int G, int Hpg, int Ht, int Wt, int Xp, int N, int H, int W,
-           int keys_per_block, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)Hpg * (Ht + 2 * lattice::PAD) * Xp * sizeof(__nv_bfloat16);
-  int rc = lattice::set_smem((const void*)lattice_bias_kernel<VEC>, smem);
-  if (rc) return rc;
-  dim3 grid((N + keys_per_block - 1) / keys_per_block, G, B);
-  lattice_bias_kernel<VEC><<<grid, 256, smem, stream>>>(
-      (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
-      (const float*)wy, (const float*)fx, (const int*)u0,
-      (const float*)gcomb, (__nv_bfloat16*)out, G, Hpg, Ht, Wt, Xp, N, H, W,
-      keys_per_block);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -109,10 +88,16 @@ extern "C" int lattice_bias_launch(const void* table, const void* ys,
                                    int Hpg, int Ht, int Wt, int Xp, int N,
                                    int H, int W, int keys_per_block,
                                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((H * W) % 8 == 0)
-    return launch<8>(table, ys, ms, wy, fx, u0, gcomb, out, B, G, Hpg, Ht, Wt,
-                     Xp, N, H, W, keys_per_block, s);
-  return launch<1>(table, ys, ms, wy, fx, u0, gcomb, out, B, G, Hpg, Ht, Wt,
-                   Xp, N, H, W, keys_per_block, s);
+  if ((H * W) % VEC != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)Hpg * (Ht + 2 * lattice::PAD) * Xp * sizeof(__nv_bfloat16);
+  int rc = lattice::set_smem((const void*)lattice_bias_kernel, smem);
+  if (rc) return rc;
+  dim3 grid((N + keys_per_block - 1) / keys_per_block, G, B);
+  lattice_bias_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
+      (const float*)wy, (const float*)fx, (const int*)u0,
+      (const float*)gcomb, (__nv_bfloat16*)out, G, Hpg, Ht, Wt, Xp, N, H, W,
+      keys_per_block);
+  return (int)cudaGetLastError();
 }

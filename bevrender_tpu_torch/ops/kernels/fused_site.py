@@ -9,22 +9,24 @@ import torch
 from bevrender_tpu_torch.ops.kernels._launch import call, check
 
 launches = 0  # kernel launches since the last reset (ops.kernels.reset_counts)
+HEAD_WIDTHS = (4, 8)  # the kernel's instances (csrc/fused_site.cu)
+KEY_TILE = 32  # keys per online-softmax step, KT in csrc/fused_site.cu
 
 
 def fused_site_cuda(table, ys, ms, wy, f, u0, g, Xp: int, q, k, v, H: int,
                     W: int, scale: float) -> torch.Tensor:
     """table (G, Hpg, 2H-1, Wt) bf16; geometry as ``lattice_bias_cuda``;
-    q (B, G, Hpg, H*W, ch), k and v (B, G, Hpg, N, ch) bf16 with ch <= 8
-    -> (B, G, Hpg, H*W, ch) float32."""
+    q (B, G, Hpg, H*W, ch), k and v (B, G, Hpg, N, ch) bf16 with ch in
+    ``HEAD_WIDTHS`` -> (B, G, Hpg, H*W, ch) float32."""
     global launches
     G, Hpg, Ht, Wt = table.shape
     B, _, N = ys.shape
     ch = q.shape[-1]
     dev = table.device
+    if ch not in HEAD_WIDTHS:
+        raise ValueError(f"fused site takes head widths {HEAD_WIDTHS}, got {ch}")
     if dev.type != "cuda":
         raise ValueError("fused_site_cuda takes CUDA tensors")
-    if not 1 <= ch <= 8:
-        raise ValueError(f"fused site takes head widths 1..8, got {ch}")
     check("table", table, torch.bfloat16, (G, Hpg, 2 * H - 1, Wt), dev)
     for name, t, dt in (("ys", ys, torch.int32), ("ms", ms, torch.int32),
                         ("wy", wy, torch.float32), ("f", f, torch.float32)):

@@ -16,11 +16,14 @@ def lattice_bias_cuda(table, ys, ms, wy, f, u0, g, Xp: int, H: int,
     """table (G, Hpg, 2H-1, Wt) bf16; ys, ms (B, G, N) int32 window starts
     in the zero-padded table of width ``Xp``; wy, f (B, G, N) float32;
     u0 (W,) int32, g (W,) float32 -> (B, G, Hpg, N, H*W) bf16. The
-    geometry comes from ``ops.deform_attn.lattice_geometry``."""
+    geometry comes from ``ops.deform_attn.lattice_geometry``. H*W must be a
+    multiple of 8 (the kernel stores 8 outputs at once)."""
     global launches
     G, Hpg, Ht, Wt = table.shape
     B, _, N = ys.shape
     dev = table.device
+    if (H * W) % 8:
+        raise ValueError(f"lattice bias kernel takes H*W a multiple of 8, got {H * W}")
     if dev.type != "cuda":
         raise ValueError("lattice_bias_cuda takes CUDA tensors")
     check("table", table, torch.bfloat16, (G, Hpg, 2 * H - 1, Wt), dev)
