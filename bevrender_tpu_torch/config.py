@@ -1,6 +1,6 @@
 """Configuration of the port: the fields of bevrender_tpu/config.py's
-``ModelConfig`` that the render+register path reads, with the same names and
-defaults, plus ``flagship_config`` and ``tiny_model_config``
+``ModelConfig`` that the ported paths read and its ``TrainConfig``, with the
+same names and defaults, plus ``flagship_config`` and ``tiny_model_config``
 (config.py:338-396 there). The window length is the input's T axis."""
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ class ModelConfig:
     expansion: int = 4
     bev_depth_dim: int = 5
     scale_offset_range: bool = True
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.2
     backbone: str = "ResNet18"  # ResNet18 | PatchProjection
     decoder_hid_dim: int = 64
@@ -43,8 +45,56 @@ class ModelConfig:
 
 
 @dataclass
+class TrainConfig:
+    """Own copy of ``TrainConfig`` (bevrender_tpu/config.py:126-164), same
+    names and defaults. ``data_axis`` and ``model_axis`` (mesh axis names of
+    the JAX package's GSPMD sharding) are left out: nothing in the port reads
+    them. ``steps_per_dispatch`` stays: the trainer accepts it and runs k
+    plain steps, since the one-dispatch ``lax.scan`` it selects in the JAX
+    package is a device of TPU dispatch. ``fused_bwd`` and ``site_remat``
+    are the port's own: they replace the JAX package's trace-time
+    environment knobs BEVRENDER_FUSED_BWD and BEVRENDER_SITE_REMAT."""
+
+    seed: int = 15213
+    total_epochs: int = 100
+    batch_size: int = 2
+    k_fold: int = 5
+    epoch_per_fold: int = 10
+    num_workers: int = 4
+    pin_memory: bool = True
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
+    eps: float = 1e-8
+    warmup_epochs: int = 5
+    grad_clip_norm: float = 1.0
+    loss_type: str = "MSE"  # substring-matched, see training.trainer.select_losses
+    validation_frequency: int = 1
+    validation_metric: str = "LOSS"  # LOSS | RECALL
+    apply_validation: bool = True
+    save_ckpt: bool = True
+    save_val_results: bool = False
+    distributed: bool = False
+    use_wandb: bool = False
+    wandb_log_img_freq_train: int = 50
+    wandb_log_img_freq_val: int = 20
+    ckpt_dir: str = ""  # empty: <the system's temporary directory>/bevrender_ckpt
+    work_dir: str = ""  # filled with ckpt_dir/<unix time>
+    split_inf_set: bool = False
+    inf_set_ratio: float = 0.1
+    log_every_steps: int = 10
+    steps_per_dispatch: int = 1
+    # final-pass sites of head width <= 8 take the fused site with its fused
+    # backward kernel instead of bias kernel + plain consumer
+    fused_bwd: bool = False
+    # "nothing": a plain-consumer site saves its inputs only and recomputes
+    # bias, scores and softmax in the backward; "none": autograd keeps all
+    site_remat: str = "nothing"
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def flagship_config(**overrides) -> Config:

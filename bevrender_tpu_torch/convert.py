@@ -13,6 +13,9 @@ which follow the flax names:
 * the leading depth axis of ``stage{s}/layers/*`` (the flax scan stack)
   -> ``stage{s}.layers.{i}.*``;
 * ``bev_embedding`` and ``rpe_table`` as they are.
+
+``train_state_to_torch`` does the same for a whole training state: the
+optax AdamW moments have the shapes of the parameters and map as they do.
 """
 
 from __future__ import annotations
@@ -71,3 +74,33 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
             out[f"{prefix}.{stat}"] = _tensor(a)
             out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def train_state_to_torch(params, batch_stats, opt_state):
+    """The JAX package's ``TrainState`` -> the port's.
+
+    ``params`` and ``batch_stats`` as for ``flax_to_state_dict``;
+    ``opt_state`` is ``{"mu": tree, "nu": tree, "count": int}``, the first
+    and second moments and the update count of optax's ``scale_by_adam``
+    state as numpy. Returns ``(state_dict, adamw)`` where ``adamw`` is
+    ``{"step": count, "exp_avg": {name: tensor}, "exp_avg_sq": {...}}``
+    under the port's parameter names; ``load_adamw_state`` puts it into a
+    ``torch.optim.AdamW`` over the same model."""
+    state_dict = flax_to_state_dict({"params": params,
+                                     "batch_stats": batch_stats or {}})
+    adamw = {"step": int(np.asarray(opt_state["count"])),
+             "exp_avg": flax_to_state_dict({"params": opt_state["mu"]}),
+             "exp_avg_sq": flax_to_state_dict({"params": opt_state["nu"]})}
+    return state_dict, adamw
+
+
+def load_adamw_state(optimizer: torch.optim.Optimizer, net: torch.nn.Module,
+                     adamw) -> None:
+    """Fill ``optimizer`` (AdamW over ``net.parameters()``) with the moments
+    and step count from ``train_state_to_torch``."""
+    for name, p in net.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(adamw["step"])),
+            "exp_avg": adamw["exp_avg"][name].to(p.device, p.dtype),
+            "exp_avg_sq": adamw["exp_avg_sq"][name].to(p.device, p.dtype),
+        }

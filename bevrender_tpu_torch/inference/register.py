@@ -1,6 +1,6 @@
 """Render + register (counterpart of bevrender_tpu/inference/register.py:
 ``RegistrationPipeline.__init__/render/build_tile_database/register``
-:40-110, 210-301).
+:40-110, 210-301, and ``evaluate_recall`` :374).
 
 Render an aerial view from a window of surround-camera frames, flatten and
 L2-normalise it, and take the top-k of the distance ``2 - 2 * sim`` to a
@@ -16,6 +16,8 @@ import torch
 
 from bevrender_tpu_torch import resolve_device
 from bevrender_tpu_torch.config import Config
+from bevrender_tpu_torch.data.prefetch import DataLoader, device_prefetch
+from bevrender_tpu_torch.losses.recall import recall_at_k
 from bevrender_tpu_torch.models.bevrender import BEVRenderNet
 from bevrender_tpu_torch.models.layers import init_params
 
@@ -107,3 +109,18 @@ class RegistrationPipeline:
         sims = torch.matmul(emb, db.T).float()
         neg_dist, idx = torch.topk(-(2.0 - 2.0 * sims), min(top_k, db.shape[0]))
         return out, idx, -neg_dist
+
+    @torch.no_grad()
+    def evaluate_recall(self, dataset, batch_size: int = 1) -> Dict[str, float]:
+        """Paired recall@1/5/10 over a dataset of (camera window, map tile):
+        each render's embedding against every tile's."""
+        cams, maps = [], []
+        loader = DataLoader(dataset, batch_size, shuffle=False, drop_last=False)
+        for batch in device_prefetch(iter(loader), self.device):
+            out = self.net(batch["camera"], batch["vehicle_pose"],
+                           batch["vehicle_type"])
+            cams.append(_l2n(out.reshape(out.shape[0], -1)).float())
+            tiles = batch["map"].float()
+            maps.append(_l2n(tiles.reshape(tiles.shape[0], -1)))
+        r1, r5, r10 = recall_at_k(torch.cat(cams), torch.cat(maps), (1, 5, 10))
+        return {"R@1": float(r1), "R@5": float(r5), "R@10": float(r10)}

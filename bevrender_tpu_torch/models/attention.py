@@ -16,7 +16,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bevrender_tpu_torch.models.layers import Conv, Dense, LayerNorm, gelu
+from bevrender_tpu_torch.models.layers import (
+    Conv,
+    Dense,
+    Dropout,
+    LayerNorm,
+    gelu,
+)
 from bevrender_tpu_torch.ops.deform_attn import streamed_deform_attention
 from bevrender_tpu_torch.ops.grid_sample import grid_sample_2d, normalized_grid
 
@@ -46,6 +52,37 @@ def _offset_scale(off: torch.Tensor, hk: int, wk: int, factor: float):
     return torch.tanh(off) * _offset_range(hk, wk, off.dtype, off.device) * factor
 
 
+class _Site(nn.Module):
+    """What TSA and SCA share around ``streamed_deform_attention``: the
+    kernel choice of a training pass (``set_site_options``), attention
+    dropout and its generator, and the dropout after ``proj_out``."""
+
+    def __init__(self, attn_drop_rate: float, proj_drop_rate: float):
+        super().__init__()
+        self.attn_drop_rate = attn_drop_rate
+        self.proj_drop = Dropout(proj_drop_rate)
+        self.fused_bwd = False
+        self.site_remat = "nothing"
+        self.generator = None
+
+    def _site_kwargs(self, ch: int) -> dict:
+        return dict(
+            scale=ch ** -0.5, fuse_site=not self.training,
+            fused_bwd=self.fused_bwd, site_remat=self.site_remat,
+            dropout_rate=self.attn_drop_rate if self.training else 0.0,
+            generator=self.generator)
+
+
+def set_site_options(module: nn.Module, *, fused_bwd: bool,
+                     site_remat: str) -> None:
+    """Kernel choice of the training pass for every attention site under
+    ``module`` (``TrainConfig.fused_bwd`` / ``site_remat``)."""
+    for mod in module.modules():
+        if isinstance(mod, _Site):
+            mod.fused_bwd = fused_bwd
+            mod.site_remat = site_remat
+
+
 def _grouped(x: torch.Tensor, G: int) -> torch.Tensor:
     """(B, H, W, C) -> (B * G, H, W, C / G)."""
     B, H, W, C = x.shape
@@ -53,14 +90,15 @@ def _grouped(x: torch.Tensor, G: int) -> torch.Tensor:
         B * G, H, W, C // G)
 
 
-class TSADeformableAttention(nn.Module):
+class TSADeformableAttention(_Site):
     """Keys sampled from the aligned previous BEV (or the query itself when
     there is no history) around a strided reference grid."""
 
     def __init__(self, dim: int, n_heads: int, n_groups: int, stride: int,
                  kernel_size: int, bev: int, scale_offset_range: bool = True,
-                 offset_range_factor: float = 0.5, cd=None):
-        super().__init__()
+                 offset_range_factor: float = 0.5, cd=None,
+                 attn_drop_rate: float = 0.0, proj_drop_rate: float = 0.0):
+        super().__init__(attn_drop_rate, proj_drop_rate)
         self.dim, self.n_heads, self.G = dim, n_heads, n_groups
         self.scale_offset_range = scale_offset_range
         self.factor = offset_range_factor
@@ -104,12 +142,13 @@ class TSADeformableAttention(nn.Module):
             _split_heads(v, G, Hpg),
             pos.reshape(B, G, N, 2),
             self.rpe_table.reshape(G, Hpg, 2 * H - 1, 2 * W - 1),
-            H, W, scale=ch ** -0.5, fuse_site=not self.training,
+            H, W, **self._site_kwargs(ch),
         )
-        return self.proj_out(_merge_heads(out).reshape(B, H, W, C))
+        return self.proj_drop(
+            self.proj_out(_merge_heads(out).reshape(B, H, W, C)))
 
 
-class SCADeformableAttention(nn.Module):
+class SCADeformableAttention(_Site):
     """BEV queries attend into each camera view around the projected voxel
     reference points, with a per-view offset head; views fold into one site
     call when G >= 4 (attention.py:324-325)."""
@@ -117,8 +156,9 @@ class SCADeformableAttention(nn.Module):
     def __init__(self, dim: int, n_heads: int, n_groups: int,
                  bev_depth_dim: int, bev: int, n_views: int = 3,
                  scale_offset_range: bool = True,
-                 offset_range_factor: float = 5.0, cd=None):
-        super().__init__()
+                 offset_range_factor: float = 5.0, cd=None,
+                 attn_drop_rate: float = 0.0, proj_drop_rate: float = 0.0):
+        super().__init__(attn_drop_rate, proj_drop_rate)
         self.dim, self.n_heads, self.G = dim, n_heads, n_groups
         self.d = bev_depth_dim
         self.V = n_views
@@ -179,7 +219,7 @@ class SCADeformableAttention(nn.Module):
         rpe = self.rpe_table.reshape(G, Hpg, 2 * H - 1, 2 * W * d - 1)
         view_pos = [self._view_pos(qg, v, reference_points[v], B, H, W)
                     for v in range(V)]
-        attn = dict(scale=ch ** -0.5, fuse_site=not self.training)
+        attn = self._site_kwargs(ch)
 
         if G >= 4:
             pos = torch.stack(view_pos, dim=1).reshape(B * V, G, -1, 2)
@@ -201,4 +241,4 @@ class SCADeformableAttention(nn.Module):
                     view_pos[view], rpe, H, W, **attn)
                 outs.append(_merge_heads(o).reshape(B, H, W, C))
             out = torch.cat(outs, dim=-1)
-        return self.proj_out(out)
+        return self.proj_drop(self.proj_out(out))

@@ -44,20 +44,23 @@ class EncoderLayer(nn.Module):
     def __init__(self, dim: int, bev: int, bev_depth_dim: int, n_heads: int,
                  n_groups: int, stride: int, kernel_size: int, n_views: int,
                  expansion: int, scale_offset_range: bool,
-                 drop_path_rate: float = 0.0, cd=None):
+                 drop_path_rate: float = 0.0, cd=None,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0):
         super().__init__()
         self.layer_norm = LayerNorm(dim)
         self.drop_path = DropPath(drop_path_rate)
         self.tsa_lpu = Conv(dim, dim, 3, padding=1, groups=dim, compute_dtype=cd)
         self.temporal_self_attn = TSADeformableAttention(
             dim, n_heads, n_groups, stride, kernel_size, bev,
-            scale_offset_range, cd=cd)
-        self.tsa_mlp = ConvMLP(dim, expansion, cd)
+            scale_offset_range, cd=cd, attn_drop_rate=attn_drop_rate,
+            proj_drop_rate=drop_rate)
+        self.tsa_mlp = ConvMLP(dim, expansion, cd, drop_rate)
         self.sca_lpu = Conv(dim, dim, 3, padding=1, groups=dim, compute_dtype=cd)
         self.spatial_cross_attn = SCADeformableAttention(
             dim, n_heads, n_groups, bev_depth_dim, bev, n_views,
-            scale_offset_range, cd=cd)
-        self.sca_mlp = ConvMLP(dim, expansion, cd)
+            scale_offset_range, cd=cd, attn_drop_rate=attn_drop_rate,
+            proj_drop_rate=drop_rate)
+        self.sca_mlp = ConvMLP(dim, expansion, cd, drop_rate)
 
     def forward(self, bev_query: torch.Tensor, img_feat: torch.Tensor,
                 prev_bev: Optional[torch.Tensor],
@@ -108,7 +111,8 @@ class BEVEncoder(nn.Module):
                 kernel_size=cfg.kernel_sizes[s], n_views=cfg.num_views,
                 expansion=cfg.expansion,
                 scale_offset_range=cfg.scale_offset_range,
-                drop_path_rate=cfg.drop_path_rate, cd=cd))
+                drop_path_rate=cfg.drop_path_rate, cd=cd,
+                drop_rate=cfg.drop_rate, attn_drop_rate=cfg.attn_drop_rate))
 
     def forward(self, bev_query: torch.Tensor, images: torch.Tensor,
                 prev_bev: Optional[torch.Tensor], vehicle_pose: torch.Tensor,

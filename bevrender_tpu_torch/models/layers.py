@@ -70,13 +70,24 @@ class LayerNorm(nn.LayerNorm):
 
 class BatchNorm(nn.BatchNorm2d):
     """flax ``nn.BatchNorm`` (eps 1e-5, momentum 0.9 = torch 0.1) on NHWC,
-    float32 out."""
+    float32 out. Eval mode normalises with the running statistics. Train
+    mode follows flax and not ``nn.BatchNorm2d``: the batch variance is the
+    biased E[x^2] - E[x]^2 in float32, clipped at 0, and that same biased
+    variance updates ``running_var`` (torch stores the unbiased one)."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x = x.float()
+        if not self.training:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        mean = x.mean(dim=(0, 1, 2))
+        var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 def make_norm(norm: str):
@@ -93,37 +104,70 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; identity at eval."""
+    """Per-sample stochastic depth; identity at eval. The mask comes from
+    ``generator`` (``set_generator``), or PyTorch's default generator when
+    none is set."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                          generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: elementwise, kept values divided by the keep
+    rate; identity at eval. Draws from ``generator`` like ``DropPath``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-class ConvMLP(nn.Module):
-    """1x1 expand, + depthwise 3x3 branch, GELU, 1x1 project
-    (``ConvMLP``, layers.py:111)."""
+def set_generator(module: nn.Module, generator) -> None:
+    """Give every stochastic submodule (drop path, dropout, attention
+    dropout) the ``torch.Generator`` it draws from. The trainer seeds one
+    generator per step from (seed, step), as the JAX package folds the step
+    into its dropout key."""
+    for mod in module.modules():
+        if hasattr(mod, "generator"):
+            mod.generator = generator
 
-    def __init__(self, dim: int, expansion: int, cd=None):
+
+class ConvMLP(nn.Module):
+    """1x1 expand, dropout, + depthwise 3x3 branch, GELU, 1x1 project,
+    dropout (``ConvMLP``, layers.py:111)."""
+
+    def __init__(self, dim: int, expansion: int, cd=None,
+                 drop_rate: float = 0.0):
         super().__init__()
         hidden = dim * expansion
+        self.drop = Dropout(drop_rate)
         self.linear1 = Conv(dim, hidden, 1, compute_dtype=cd)
         self.dwc = Conv(hidden, hidden, 3, padding=1, groups=hidden,
                         compute_dtype=cd)
         self.linear2 = Conv(hidden, dim, 1, compute_dtype=cd)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.linear1(x)
+        x = self.drop(self.linear1(x))
         x = x + self.dwc(x)
-        return self.linear2(gelu(x))
+        return self.drop(self.linear2(gelu(x)))
 
 
 @torch.no_grad()

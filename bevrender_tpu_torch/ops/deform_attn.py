@@ -13,12 +13,16 @@ The queries are the regular ``H x W`` lattice and the table height is
 starts plus fractions (``lattice_geometry``). Window starts are clipped, so
 a key displaced past the pad reads a clamped window, not zeros.
 
-Two hand-written CUDA kernels carry this on the card (``ops/kernels``):
-``lattice_bias`` computes the bias alone (sites with head width > 8, whose
-scores, softmax and AV stay plain PyTorch here), and ``fused_site`` computes
-bias, scores, an online softmax and AV in one pass (head width <= 8). The
-functions ``lattice_bias`` and ``fused_site`` below launch them for CUDA
-tensors and run their plain versions for CPU tensors.
+Hand-written CUDA kernels carry this on the card (``ops/kernels``):
+``lattice_bias`` computes the bias alone (sites with head width > 8, and
+every site of a training pass unless ``fused_bwd`` is chosen; scores,
+softmax and AV stay plain PyTorch there) and ``lattice_bias_bwd`` is its
+backward; ``fused_site`` computes bias, scores, an online softmax and AV in
+one pass (head width <= 8, no gradient), ``fused_site_lse`` also returns
+the logsumexp and ``fused_site_bwd`` is the flash-style backward of that
+site. The functions ``lattice_bias``, ``fused_site`` and ``fused_site_train``
+below launch them for CUDA tensors and run their plain versions, with
+autograd, for CPU tensors.
 
 Shapes (B batch, G groups, Hpg heads per group, ch head width, M = H * W
 queries, N keys): q (B, G, Hpg, M, ch); k, v (B, G, Hpg, N, ch);
@@ -32,10 +36,17 @@ import functools
 import numpy as np
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from bevrender_tpu_torch.ops.kernels import fused_site as _fused_site_kernel
+from bevrender_tpu_torch.ops.kernels import fused_site_bwd as _site_bwd_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias as _bias_kernel
+from bevrender_tpu_torch.ops.kernels import lattice_bias_bwd as _bias_bwd_kernel
 
 PAD = 4
+# float32 constants of the site kernels, which keep their scores in base 2
+LOG2E = float(np.float32(1.4426950408889634))
+LN2 = float(np.float32(0.6931471805599453))
 
 
 def static_comb(table_shape, W: int):
@@ -119,21 +130,27 @@ def lattice_bias_plain(table: torch.Tensor, k_pos: torch.Tensor, H: int,
     return bias.permute(0, 1, 5, 2, 3, 4).reshape(B, G, Hpg, N, H * W).float()
 
 
-def site_consumer(q, k, v, bias, scale: float) -> torch.Tensor:
+def site_consumer(q, k, v, bias, scale: float, keep=None,
+                  dropout_rate: float = 0.0) -> torch.Tensor:
     """Scores, softmax over keys and AV on an n-major bias (``_site_xla``):
     K, Q, p and V are rounded to bf16 and multiplied with float32 sums. The
     softmax is written out as ``jax.nn.softmax`` computes it; over the keys
     axis (-2) it also avoids PyTorch's slow softmax path for a non-last
-    axis. Returns (B, G, Hpg, M, ch) float32."""
+    axis. ``keep`` (bool, the shape of the scores) is an attention-dropout
+    mask: kept probabilities are divided by ``1 - dropout_rate``. Autograd
+    runs through it: the training path differentiates this function.
+    Returns (B, G, Hpg, M, ch) float32."""
     bf = torch.bfloat16
     s = torch.matmul(k.to(bf).float(), q.to(bf).float().transpose(-1, -2))
     s = s * scale + bias.float()  # (B, G, Hpg, N, M)
     e = torch.exp(s - s.amax(dim=-2, keepdim=True))
     p = e / e.sum(dim=-2, keepdim=True)
+    if keep is not None:
+        p = torch.where(keep, p / (1.0 - dropout_rate), torch.zeros_like(p))
     return torch.matmul(p.to(bf).float().transpose(-1, -2), v.to(bf).float())
 
 
-def site_consumer_online(q, k, v, bias, scale: float) -> torch.Tensor:
+def site_consumer_online(q, k, v, bias, scale: float, return_lse: bool = False):
     """The ``fused_site`` kernel's own arithmetic, in PyTorch: an online
     softmax over tiles of ``KEY_TILE`` keys in base 2, with p = exp2(s - running
     max) rounded to bf16 before it multiplies V and the sum l taken from
@@ -141,14 +158,15 @@ def site_consumer_online(q, k, v, bias, scale: float) -> torch.Tensor:
     the same order: float64 holds each exact product and sum before it is
     rounded once, as an ``fmaf`` rounds it, and l and O accumulate one key
     at a time. The same function as ``site_consumer`` up to where p is
-    rounded; used to hold the kernel to its own arithmetic."""
+    rounded; used to hold the kernel to its own arithmetic. With
+    ``return_lse`` also the logsumexp (B, G, Hpg, M) in natural-log units as
+    the ``fused_site_lse`` instance writes it."""
     bf, f64 = torch.bfloat16, torch.float64
     qd = q.to(bf).to(f64)
     kd = k.to(bf).to(f64)
     vd = v.to(bf).to(f64)
     bt = bias.float().transpose(-1, -2)  # (B, G, Hpg, M, N)
     sc = float(np.float32(scale))
-    log2e = float(np.float32(1.4426950408889634))
     mrun = torch.full(q.shape[:-1], -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(mrun)
     o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -158,7 +176,7 @@ def site_consumer_online(q, k, v, bias, scale: float) -> torch.Tensor:
         qk = (qd[..., :, None, 0] * kt[..., 0]).float()  # exact
         for c in range(1, q.shape[-1]):  # fmaf per channel
             qk = (qk.to(f64) + qd[..., :, None, c] * kt[..., c]).float()
-        s = (sc * qk.to(f64) + bt[..., n0:n0 + tile].to(f64)).float() * log2e
+        s = (sc * qk.to(f64) + bt[..., n0:n0 + tile].to(f64)).float() * LOG2E
         mnew = torch.maximum(mrun, s.amax(dim=-1))
         alpha = torch.exp2(mrun - mnew)
         l = l * alpha
@@ -170,49 +188,157 @@ def site_consumer_online(q, k, v, bias, scale: float) -> torch.Tensor:
             o = (o.to(f64) + pb[..., j, None]
                  * vd[..., None, n0 + j, :]).float()  # fmaf per key
         mrun = mnew
-    return o / torch.clamp(l, min=1e-30)[..., None]
+    lsafe = torch.clamp(l, min=1e-30)
+    out = o / lsafe[..., None]
+    if return_lse:
+        return out, (mrun + torch.log2(lsafe)) * LN2
+    return out
 
 
 def site_plain(q, k, v, k_pos, table, H: int, W: int, scale: float,
                compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of the ``fused_site`` kernel (``_site_xla`` with the
-    plain bias)."""
+    plain bias). Autograd through it is the plain version of the
+    ``fused_site_bwd`` kernel."""
     bias = lattice_bias_plain(table, k_pos, H, W, compute_dtype)
     return site_consumer(q, k, v, bias, scale)
 
 
-def _kernel_args(table, k_pos, H: int, W: int):
-    for t in (table, k_pos):
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the lattice CUDA kernels are forward-only; run under "
-                "torch.no_grad()"
-            )
+def site_plain_lse(q, k, v, k_pos, table, H: int, W: int, scale: float,
+                   compute_dtype=torch.bfloat16):
+    """Plain version of the ``fused_site_lse`` instance: ``site_plain`` and
+    the logsumexp of the scores over the keys, (B, G, Hpg, M)."""
+    bf = torch.bfloat16
+    bias = lattice_bias_plain(table, k_pos, H, W, compute_dtype)
+    s = torch.matmul(k.to(bf).float(), q.to(bf).float().transpose(-1, -2))
+    lse = torch.logsumexp(s * scale + bias, dim=-2)
+    return site_consumer(q, k, v, bias, scale), lse
+
+
+def site_bwd_online(q, k, v, k_pos, table, H: int, W: int, scale: float,
+                    dout, lse, dsum):
+    """The ``fused_site_bwd`` kernel's own roundings, in PyTorch, on whole
+    (B, G, Hpg, N, M) tensors: the bias lerped in float32 from the
+    bf16-rounded table, scores in base 2, p = exp2(s - lse) from the given
+    logsumexp, p, ds and dO rounded to bf16 before they multiply, float32
+    sums, and the unrounded ds as the cotangent of the bias. Scores, p, dp
+    and ds repeat the kernel's float32 roundings one by one; only the order
+    of the float32 sums of the outputs differs from the kernel (its atomics
+    have none), so the two agree far more closely than either does with
+    autograd through ``site_plain``, which rounds elsewhere. ``dsum`` is rowsum(dO * O).
+    Returns (dq, dk, dv, dtable, dk_pos), float32."""
+    bf, f64 = torch.bfloat16, torch.float64
+    tb = table.detach().to(bf).float().requires_grad_()
+    kp = k_pos.detach().clone().requires_grad_()
+    with torch.enable_grad():
+        bias = lattice_bias_plain(tb, kp, H, W, torch.float32)
+    with torch.no_grad():
+        qd, kd, vd = (t.detach().to(bf).to(f64) for t in (q, k, v))
+        dob = dout.to(bf).to(f64)  # (B, G, Hpg, M, ch)
+        # q . k and v . dO as the kernel's fmaf chains: float64 holds each
+        # exact product and sum before it is rounded once
+        qk = (kd[..., :, None, 0] * qd[..., None, :, 0]).float()  # (.., N, M)
+        dp = (vd[..., :, None, 0] * dob[..., None, :, 0]).float()
+        for c in range(1, q.shape[-1]):
+            qk = (qk.to(f64) + kd[..., :, None, c] * qd[..., None, :, c]).float()
+            dp = (dp.to(f64) + vd[..., :, None, c] * dob[..., None, :, c]).float()
+        sc = float(np.float32(scale))
+        s2 = (sc * qk.to(f64) + bias.to(f64)).float() * LOG2E
+        p = torch.exp2(s2 - (lse * LOG2E)[..., None, :])
+        ds = p * (dp - dsum[..., None, :])
+        dsb = ds.to(bf).float()
+        qf, kf = qd.float(), kd.float()
+        dv = torch.matmul(p.to(bf).float(), dob.float())
+        dk = sc * torch.matmul(dsb, qf)
+        dq = sc * torch.matmul(dsb.transpose(-1, -2), kf)
+    dtable, dkpos = torch.autograd.grad(bias, (tb, kp), ds)
+    return dq, dk, dv, dtable, dkpos
+
+
+def _geometry_args(table, k_pos, H: int, W: int):
+    """(ys, ms, wy, f, u0, g, Xp) as the kernels take them; wy and f carry
+    the graph back to ``k_pos`` (the integer starts carry no gradient)."""
     ys, ms, wy, f = lattice_geometry(table.shape, k_pos, H, W)
     u0, g = _comb_tensors(table.shape[3], W, table.device)
-    tb = table.detach().to(torch.bfloat16).contiguous()
-    return (tb, ys.contiguous(), ms.contiguous(), wy.contiguous(),
-            f.contiguous(), u0, g, padded_width(table.shape[3], W))
+    return (ys.contiguous(), ms.contiguous(), wy.contiguous(), f.contiguous(),
+            u0, g, padded_width(table.shape[3], W))
+
+
+def _kernel_args(table, k_pos, H: int, W: int):
+    """The kernels' leading arguments, detached: the bf16 table and
+    ``_geometry_args``."""
+    return (table.detach().to(torch.bfloat16).contiguous(),
+            *_geometry_args(table, k_pos.detach(), H, W))
+
+
+class _LatticeBiasFn(torch.autograd.Function):
+    """``lattice_bias`` kernel forward, ``lattice_bias_bwd`` kernel backward.
+    Differentiable inputs: the table and the fractions wy, f."""
+
+    @staticmethod
+    def forward(ctx, table, wy, f, ys, ms, u0, g, Xp, H, W):
+        tb = table.to(torch.bfloat16).contiguous()
+        ctx.save_for_backward(tb, ys, ms, wy, f, u0, g)
+        ctx.meta = (Xp, H, W, table.dtype)
+        return _bias_kernel.lattice_bias_cuda(tb, ys, ms, wy, f, u0, g, Xp, H, W)
+
+    @staticmethod
+    def backward(ctx, gout):
+        Xp, H, W, dtype = ctx.meta
+        dtable, dwy, df = _bias_bwd_kernel.lattice_bias_bwd_cuda(
+            *ctx.saved_tensors, Xp, gout.contiguous(), H, W)
+        return (dtable.to(dtype), dwy, df) + (None,) * 7
+
+
+class _FusedSiteTrainFn(torch.autograd.Function):
+    """``fused_site_lse`` kernel forward, ``fused_site_bwd`` kernel backward.
+    Saves q, k, v in bf16, the geometry, the output and the logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, table, wy, f, ys, ms, u0, g, Xp, H, W, scale):
+        bf = torch.bfloat16
+        tb = table.to(bf).contiguous()
+        qb, kb, vb = (t.to(bf).contiguous() for t in (q, k, v))
+        out, lse = _fused_site_kernel.fused_site_lse_cuda(
+            tb, ys, ms, wy, f, u0, g, Xp, qb, kb, vb, H, W, scale)
+        ctx.save_for_backward(tb, ys, ms, wy, f, u0, g, qb, kb, vb, out, lse)
+        ctx.meta = (Xp, H, W, scale, q.dtype, k.dtype, v.dtype, table.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        Xp, H, W, scale, qd, kd, vd, td = ctx.meta
+        *args, out, lse = ctx.saved_tensors
+        dout = dout.float().contiguous()
+        dsum = (dout * out).sum(dim=-1)  # D of the flash backward
+        dq, dk, dv, dtable, dwy, df = _site_bwd_kernel.fused_site_bwd_cuda(
+            *args[:7], Xp, *args[7:], dout, lse, dsum, H, W, scale)
+        return (dq.to(qd), dk.to(kd), dv.to(vd), dtable.to(td), dwy,
+                df) + (None,) * 8
 
 
 def lattice_bias(table, k_pos, H: int, W: int) -> torch.Tensor:
     """n-major rpe bias (B, G, Hpg, N, H*W): the CUDA kernel (bf16 out) for
-    CUDA tensors, the plain version (bf16 lerps, float32 out) for CPU."""
+    CUDA tensors, with the ``lattice_bias_bwd`` kernel as its backward; the
+    plain version (bf16 lerps, float32 out, autograd) for CPU."""
     if not table.is_cuda:
         return lattice_bias_plain(table, k_pos, H, W)
-    return _bias_kernel.lattice_bias_cuda(*_kernel_args(table, k_pos, H, W), H, W)
+    ys, ms, wy, f, u0, g, Xp = _geometry_args(table, k_pos, H, W)
+    return _LatticeBiasFn.apply(table, wy, f, ys, ms, u0, g, Xp, H, W)
 
 
 def fused_site(q, k, v, k_pos, table, H: int, W: int,
                scale: float) -> torch.Tensor:
-    """Whole attention site (B, G, Hpg, M, ch) float32: the fused CUDA
-    kernel for CUDA tensors, the plain version for CPU."""
+    """Whole attention site (B, G, Hpg, M, ch) float32, no gradient: the
+    fused CUDA kernel for CUDA tensors, the plain version for CPU. The
+    site that trains is ``fused_site_train``."""
     if not q.is_cuda:
         return site_plain(q, k, v, k_pos, table, H, W, scale)
-    for t in (q, k, v):
+    for t in (q, k, v, k_pos, table):
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                "the fused site kernel is forward-only; run under torch.no_grad()"
+                "the fused site kernel is forward-only; run under "
+                "torch.no_grad(), or take fused_site_train"
             )
     bf = torch.bfloat16
     return _fused_site_kernel.fused_site_cuda(
@@ -222,12 +348,137 @@ def fused_site(q, k, v, k_pos, table, H: int, W: int,
     )
 
 
+def fused_site_train(q, k, v, k_pos, table, H: int, W: int,
+                     scale: float) -> torch.Tensor:
+    """The fused site with a fused backward (``fused_site_attention_train``,
+    deform_attn.py:689-807): on CUDA tensors the ``fused_site_lse`` kernel
+    forward and the ``fused_site_bwd`` kernel backward, with the chain from
+    dwy, df to ``k_pos`` left to autograd; on CPU tensors the plain version
+    with autograd."""
+    if not q.is_cuda:
+        return site_plain(q, k, v, k_pos, table, H, W, scale)
+    ys, ms, wy, f, u0, g, Xp = _geometry_args(table, k_pos, H, W)
+    return _FusedSiteTrainFn.apply(q, k, v, table, wy, f, ys, ms, u0, g, Xp,
+                                   H, W, float(scale))
+
+
+SITE_REMAT_MODES = ("nothing", "none")
+
+
+def _maybe_remat(fn, site_remat: str, *tensors):
+    """Run ``fn(*tensors)``; with ``site_remat="nothing"`` and a gradient to
+    take, save only the inputs and recompute the rest in the backward
+    (``jax.checkpoint(nothing_saveable)``, deform_attn.py:810-834)."""
+    if site_remat not in SITE_REMAT_MODES:
+        raise ValueError(f"site_remat must be one of {SITE_REMAT_MODES}, "
+                         f"got {site_remat!r}")
+    if (site_remat == "nothing" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        return checkpoint(fn, *tensors, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*tensors)
+
+
+def _keep_mask(shape, rate: float, generator, device):
+    """Dropout mask drawn outside any recomputed region, so a backward that
+    recomputes sees the same mask."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
-                              scale: float, fuse_site: bool) -> torch.Tensor:
-    """One lattice attention site. ``fuse_site`` (eval) with head width
-    <= 8 takes the fused kernel (built for widths 4 and 8; another width
-    raises on the card); every other site computes the bias alone and the
-    plain consumer does the rest (deform_attn.py:866-917)."""
-    if fuse_site and q.shape[-1] <= 8:
+                              scale: float, fuse_site: bool,
+                              fused_bwd: bool = False,
+                              site_remat: str = "nothing",
+                              dropout_rate: float = 0.0,
+                              generator=None) -> torch.Tensor:
+    """One lattice attention site (deform_attn.py:866-917).
+
+    ``fuse_site`` (eval) with head width <= 8 takes the fused kernel (built
+    for widths 4 and 8; another width raises on the card). ``fused_bwd``
+    with head width <= 8 and no ``fuse_site`` (training) takes the fused
+    site with its fused backward. Every other site computes the bias alone
+    and the plain consumer does the rest, under ``site_remat``: "nothing"
+    saves the site's inputs only and recomputes bias, scores and softmax in
+    the backward, "none" lets autograd keep what it wants. Attention
+    dropout (``dropout_rate`` > 0, drawn from ``generator``) always takes
+    the plain consumer."""
+    use_dropout = dropout_rate > 0.0
+    narrow = q.shape[-1] <= 8
+    if fuse_site and narrow and not use_dropout:
         return fused_site(q, k, v, k_pos, rpe_table, H, W, scale)
-    return site_consumer(q, k, v, lattice_bias(rpe_table, k_pos, H, W), scale)
+    if not fuse_site and fused_bwd and narrow and not use_dropout:
+        return fused_site_train(q, k, v, k_pos, rpe_table, H, W, scale)
+    keep = None
+    if use_dropout:
+        keep = _keep_mask(k.shape[:-1] + (q.shape[-2],), dropout_rate,
+                          generator, q.device)
+
+    def full_site(q, k, v, k_pos, table):
+        return site_consumer(q, k, v, lattice_bias(table, k_pos, H, W), scale,
+                             keep, dropout_rate)
+
+    return _maybe_remat(full_site, site_remat, q, k, v, k_pos, rpe_table)
+
+
+def bilinear_table_lookup(table, disp) -> torch.Tensor:
+    """Bilinear read of the rpe table (G, Hpg, Ht, Wt) at displacements
+    ``disp`` (B, G, m, N, 2), (y, x) in [-1, 1], zeros outside, as
+    ``F.grid_sample(align_corners=True)`` (``_bilinear_table_lookup``,
+    deform_attn.py:43). Returns (B, G, Hpg, m, N)."""
+    G, Hpg, Ht, Wt = table.shape
+    rows = table.permute(0, 2, 3, 1).reshape(G * Ht * Wt, Hpg)
+    gbase = (torch.arange(G, device=table.device) * (Ht * Wt)).view(1, G, 1, 1)
+    py = (disp[..., 0] + 1.0) * 0.5 * (Ht - 1)
+    px = (disp[..., 1] + 1.0) * 0.5 * (Wt - 1)
+    y0 = torch.floor(py)
+    x0 = torch.floor(px)
+    wy1 = py - y0
+    wx1 = px - x0
+
+    def corner(yc, xc, w):
+        inb = (yc >= 0.0) & (yc <= Ht - 1.0) & (xc >= 0.0) & (xc <= Wt - 1.0)
+        yi = torch.clamp(yc, 0.0, Ht - 1.0).long()
+        xi = torch.clamp(xc, 0.0, Wt - 1.0).long()
+        vals = rows[gbase + yi * Wt + xi]  # (B, G, m, N, Hpg)
+        return vals * torch.where(inb, w, torch.zeros_like(w))[..., None]
+
+    out = (corner(y0, x0, (1 - wy1) * (1 - wx1))
+           + corner(y0, x0 + 1.0, (1 - wy1) * wx1)
+           + corner(y0 + 1.0, x0, wy1 * (1 - wx1))
+           + corner(y0 + 1.0, x0 + 1.0, wy1 * wx1))
+    return out.permute(0, 1, 4, 2, 3)
+
+
+def _dense_chunk(qc, qpos_c, k, v, k_pos, table, scale):
+    s = torch.matmul(qc, k.transpose(-1, -2)) * scale  # (B, G, Hpg, m, N)
+    disp = (qpos_c[None, None, :, None, :] - k_pos[:, :, None, :, :]) * 0.5
+    p = torch.softmax(s + bilinear_table_lookup(table, disp), dim=-1)
+    return torch.matmul(p, v)
+
+
+def chunked_deform_attention(q, k, v, q_pos, k_pos, rpe_table, *,
+                             scale: float, chunk: int = 512,
+                             site_remat: str = "nothing") -> torch.Tensor:
+    """The non-lattice branch of the JAX package's
+    ``streamed_deform_attention`` (deform_attn.py:918-965), without its
+    dropout: any query positions ``q_pos`` (M, 2), the bias by
+    ``bilinear_table_lookup``, the queries in chunks of ``chunk`` so that
+    scores exist for one chunk at a time (each chunk under ``site_remat``).
+    Plain PyTorch; the oracle of the lattice path's gradient tests."""
+    M = q.shape[-2]
+    outs = []
+    for m0 in range(0, M, min(chunk, M)):
+        def one_chunk(qc, k, v, k_pos, table, qpos_c=q_pos[m0:m0 + chunk]):
+            return _dense_chunk(qc, qpos_c, k, v, k_pos, table, scale)
+
+        outs.append(_maybe_remat(one_chunk, site_remat,
+                                 q[..., m0:m0 + chunk, :], k, v, k_pos,
+                                 rpe_table))
+    return torch.cat(outs, dim=-2)
+
+
+def dense_deform_attention_reference(q, k, v, q_pos, k_pos, rpe_table, *,
+                                     scale: float) -> torch.Tensor:
+    """Unchunked reference (deform_attn.py:968): the whole (M, N) scores and
+    bias at once."""
+    return _dense_chunk(q, q_pos, k, v, k_pos, rpe_table, scale)

@@ -21,6 +21,12 @@
 // q . k and for scale * qk + bias, then one rounded multiply by log2 e), so
 // ops/deform_attn.py::site_consumer_online can repeat it in PyTorch.
 //
+// With a non-null `lse` the kernel also writes the softmax's logsumexp per
+// (head, query) in natural-log units, the residual of the training backward
+// (fused_site_bwd.cu). That instance replaces fused_attn.py
+// ::fused_site_call_lse / _site_kernel_lse; its output equals the plain
+// instance's bit for bit.
+//
 // Head widths: 4 and 8, the two the supported models give it.
 
 #include "lattice_common.cuh"
@@ -30,6 +36,7 @@ namespace {
 constexpr int KT = 32;
 constexpr int THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int CH>
 __global__ void __launch_bounds__(THREADS) fused_site_kernel(
@@ -41,6 +48,7 @@ __global__ void __launch_bounds__(THREADS) fused_site_kernel(
     const __nv_bfloat16* __restrict__ k,  // (B, G, Hpg, N, CH)
     const __nv_bfloat16* __restrict__ v,  // (B, G, Hpg, N, CH)
     float* __restrict__ out,              // (B, G, Hpg, M, CH)
+    float* __restrict__ lse,              // (B, G, Hpg, M) or null
     int G, int Hpg, int Ht, int Wt, int Xp, int N, int H, int W,
     float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -133,14 +141,16 @@ __global__ void __launch_bounds__(THREADS) fused_site_kernel(
     float* op = out + ((size_t)bgh * M + m) * CH;
 #pragma unroll
     for (int c = 0; c < CH; ++c) op[c] = o[c] / lsafe;
+    // scores are in base 2: back to natural-log units, once
+    if (lse != nullptr) lse[(size_t)bgh * M + m] = (mrun + log2f(lsafe)) * LN2;
   }
 }
 
 template <int CH>
 int launch(const void* table, const void* ys, const void* ms, const void* wy,
            const void* fx, const void* u0, const void* gcomb, const void* q,
-           const void* k, const void* v, void* out, int B, int G, int Hpg,
-           int Ht, int Wt, int Xp, int N, int H, int W, float scale,
+           const void* k, const void* v, void* out, void* lse, int B, int G,
+           int Hpg, int Ht, int Wt, int Xp, int N, int H, int W, float scale,
            cudaStream_t stream) {
   const size_t smem = (size_t)KT * CH * 2 * sizeof(float) +
                       (size_t)KT * 3 * sizeof(float) +
@@ -154,9 +164,28 @@ int launch(const void* table, const void* ys, const void* ms, const void* wy,
       (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
       (const float*)wy, (const float*)fx, (const int*)u0,
       (const float*)gcomb, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (float*)out, G, Hpg, Ht, Wt, Xp, N, H, W,
-      scale);
+      (const __nv_bfloat16*)v, (float*)out, (float*)lse, G, Hpg, Ht, Wt, Xp,
+      N, H, W, scale);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const void* table, const void* ys, const void* ms,
+             const void* wy, const void* fx, const void* u0,
+             const void* gcomb, const void* q, const void* k, const void* v,
+             void* out, void* lse, int B, int G, int Hpg, int Ht, int Wt,
+             int Xp, int N, int H, int W, int ch, float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define SITE_CASE(C)                                                         \
+  case C:                                                                    \
+    return launch<C>(table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, lse, B, \
+                     G, Hpg, Ht, Wt, Xp, N, H, W, scale, s);
+  switch (ch) {
+    SITE_CASE(4)
+    SITE_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SITE_CASE
 }
 
 }  // namespace
@@ -169,16 +198,18 @@ extern "C" int fused_site_launch(const void* table, const void* ys,
                                  int B, int G, int Hpg, int Ht, int Wt,
                                  int Xp, int N, int H, int W, int ch,
                                  float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define SITE_CASE(C)                                                        \
-  case C:                                                                   \
-    return launch<C>(table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, B, G, \
-                     Hpg, Ht, Wt, Xp, N, H, W, scale, s);
-  switch (ch) {
-    SITE_CASE(4)
-    SITE_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SITE_CASE
+  return dispatch(table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, nullptr, B,
+                  G, Hpg, Ht, Wt, Xp, N, H, W, ch, scale, stream);
+}
+
+extern "C" int fused_site_lse_launch(const void* table, const void* ys,
+                                     const void* ms, const void* wy,
+                                     const void* fx, const void* u0,
+                                     const void* gcomb, const void* q,
+                                     const void* k, const void* v, void* out,
+                                     void* lse, int B, int G, int Hpg, int Ht,
+                                     int Wt, int Xp, int N, int H, int W,
+                                     int ch, float scale, void* stream) {
+  return dispatch(table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, lse, B, G,
+                  Hpg, Ht, Wt, Xp, N, H, W, ch, scale, stream);
 }

@@ -39,6 +39,73 @@ __device__ __forceinline__ float bias_at(const __nv_bfloat16* p0, int Xp,
   return lerp_rn(x0, x1, wy);
 }
 
+// The four table entries that one (key, query) pair reads, as floats, and its
+// column fraction: what the backward kernels keep between the bias and its
+// cotangent. `window_bias(load_window(p0, ...), wy)` is `bias_at(p0, ...)`.
+struct Window {
+  float t00, t01, t10, t11, wx;
+  int cross;  // 1 where the column fraction crossed into the next cell
+};
+
+__device__ __forceinline__ Window load_window(const __nv_bfloat16* p0, int Xp,
+                                              float g, float f) {
+  Window w;
+  const float phi = __fadd_rn(g, f);
+  const float cross = floorf(phi);
+  w.wx = __fsub_rn(phi, cross);
+  w.cross = cross > 0.5f ? 1 : 0;
+  const __nv_bfloat16* p = p0 + w.cross;
+  w.t00 = __bfloat162float(p[0]);
+  w.t01 = __bfloat162float(p[1]);
+  w.t10 = __bfloat162float(p[Xp]);
+  w.t11 = __bfloat162float(p[Xp + 1]);
+  return w;
+}
+
+__device__ __forceinline__ float window_bias(const Window& w, float wy) {
+  return lerp_rn(lerp_rn(w.t00, w.t01, w.wx), lerp_rn(w.t10, w.t11, w.wx), wy);
+}
+
+// Cotangent tail of one pair: spread `go` (the cotangent of the bias) over
+// the four entries with the forward's weights into the float32 gradient
+// table in shared memory (`g0` is that table at the offset `p0` had in the
+// bf16 one), and add the pair's share of the cotangents of wy and of f
+// (d wx / d f = 1; floor carries no gradient).
+__device__ __forceinline__ void window_tail(const Window& w, float* g0, int Xp,
+                                            float wy, float go, float& dwy,
+                                            float& df) {
+  const float x0 = lerp_rn(w.t00, w.t01, w.wx);
+  const float x1 = lerp_rn(w.t10, w.t11, w.wx);
+  dwy = fmaf(go, x1 - x0, dwy);
+  const float d0 = go * (1.0f - wy);
+  const float d1 = go * wy;
+  df += d0 * (w.t01 - w.t00) + d1 * (w.t11 - w.t10);
+  float* gp = g0 + w.cross;
+  const float ux = 1.0f - w.wx;
+  atomicAdd(gp, d0 * ux);
+  atomicAdd(gp + 1, d0 * w.wx);
+  atomicAdd(gp + Xp, d1 * ux);
+  atomicAdd(gp + Xp + 1, d1 * w.wx);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Add the (Ht, Wt) interior of a padded float32 gradient table in shared
+// memory into the table gradient in device memory, with the whole block.
+// Gradient that landed in the padding is dropped: the padding is constant.
+__device__ __forceinline__ void flush_gradient(float* dtable, const float* sg,
+                                               int Ht, int Wt, int Xp) {
+  for (int i = threadIdx.x; i < Ht * Wt; i += blockDim.x) {
+    const int r = i / Wt;
+    const float val = sg[(r + PAD) * Xp + (i - r * Wt) + PAD];
+    if (val != 0.0f) atomicAdd(dtable + i, val);
+  }
+}
+
 // Copy `heads` consecutive (Ht, Wt) tables into shared memory as zero-padded
 // (Ht + 2 PAD, Xp) tables, with the whole block: one warp per padded row,
 // its lanes along the row.

@@ -1,6 +1,8 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--log FILE]
+
+(``--log`` also writes every line of the standard output to FILE.)
 
 Phases, each fatal on failure:
 
@@ -21,7 +23,24 @@ Phases, each fatal on failure:
    H100's published peaks);
 5. a small 2-stage model at float32 through the kernels and through
    plain PyTorch that rounds as the kernels do: the renders must agree to
-   RENDER_TOL.
+   RENDER_TOL;
+6. training, default route: ``Trainer`` on the flagship bf16 model, B=2,
+   T=2, MSE loss, drop path 0.2 from a seeded generator, one warm-up step
+   and TRAIN_STEPS steps on a fixed batch: exact launch counts per step,
+   finite falling loss, finite non-zero gradients on every parameter,
+   BatchNorm buffers moved; ms per step, host CPU ms per step, peak memory
+   under ``site_remat`` "nothing" and "none", device busy and idle share,
+   the top device operations;
+7. the same steps with ``fused_bwd=True`` (the fused site's own backward
+   kernel at head widths 4 and 8);
+8. the backward kernels (bias backward, fused site with logsumexp, fused
+   site backward) against their plain versions, and the site backward also
+   against ``site_bwd_online`` (its own roundings in PyTorch), at every
+   shape a training step gives them and at two table scales;
+9. the small model's parameter gradients through the kernels against
+   plain PyTorch that rounds as the kernels do, under both routes; then
+   one K-fold epoch of ``Trainer.train`` on that model on the card, with
+   the pinned-memory prefetch, validation, recall and checkpoints.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -47,7 +66,27 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-N_REQUESTS = 50
+N_REQUESTS = 20
+TRAIN_STEPS = 10
+TRAIN_B = 2
+# launches per training step of the flagship at T=2. History pass (eval, no
+# gradient): 12 fused sites (stages 2-4: 6 layers x (TSA + folded SCA)) and
+# 32 bias launches (stages 0, 1, 5, 6: 8 layers x (TSA + 3 views)). Final
+# pass, default route: every site takes the bias kernel, 32 + 12 = 44
+# forward and 44 backward, and 44 more forward when the backward recomputes
+# the site (site_remat "nothing"). With fused_bwd the 12 narrow sites take
+# the logsumexp forward and the site backward instead.
+TRAIN_COUNTS = {
+    (False, "nothing"): {"fused_site": 12, "lattice_bias": 32 + 44 + 44,
+                         "lattice_bias_bwd": 44, "fused_site_lse": 0,
+                         "fused_site_bwd": 0},
+    (False, "none"): {"fused_site": 12, "lattice_bias": 32 + 44,
+                      "lattice_bias_bwd": 44, "fused_site_lse": 0,
+                      "fused_site_bwd": 0},
+    (True, "nothing"): {"fused_site": 12, "lattice_bias": 32 + 32 + 32,
+                        "lattice_bias_bwd": 32, "fused_site_lse": 12,
+                        "fused_site_bwd": 12},
+}
 FUSED_PER_FORWARD = 24
 BIAS_PER_FORWARD = 64
 BIAS_ULP = 2.0 ** -7   # one bf16 ulp of x is at most |x| * 2^-7
@@ -64,6 +103,37 @@ ONLINE_TOL = 2.0 ** -15
 # so that a kernel with a wrong bias cannot pass
 SITE_TABLE_STDS = (0.01, 1.0)
 RENDER_TOL = 1e-4  # small-model render (values in [0, 1]): kernels vs site_consumer_online
+# bias backward vs autograd through the plain bias (float32 lerps on the
+# bf16 table): the same float32 arithmetic, summed in another order
+BWD_SUM_TOL = 2e-5
+# logsumexp vs the plain version's (sums in another order) and vs the
+# online mirror's (log2f against torch.log2)
+LSE_TOL = 1e-5
+LSE_ONLINE_TOL = 2e-6
+# site backward vs autograd through site_plain, which rounds the normalised
+# p and the cotangents of its bf16 casts where the kernel rounds p, ds and
+# dO: the bound the JAX package holds its own flash backward to, as a share
+# of each gradient's largest entry
+SITE_BWD_TOL = 8e-3
+# site backward vs site_bwd_online, which repeats the kernel's roundings:
+# only the order of the float32 sums differs
+SITE_BWD_ONLINE_TOL = 1e-4
+# small-model parameter gradients, kernels vs plain PyTorch with the
+# kernels' roundings, as a share of each parameter gradient's largest
+# entry. The forward passes are equal bit for bit; the backward kernels sum
+# through float atomics in an order of their own (1e-6 of a site's
+# gradients), and the plain consumer's bf16 casts round the cotangents
+# downstream, where a last-bit difference flips a rounding (2^-9 of an
+# entry). Two stages carry that to about 1e-2 of a parameter gradient's
+# largest entry: two runs of the kernels themselves differ by as much (the
+# script prints that distance beside the one it checks), and the tolerance
+# is five times it. A wrong bias gradient moves the rpe tables' gradients
+# by their own size. A gradient that is zero in exact arithmetic (the bias
+# of proj_k shifts all scores of a query alike, which the softmax ignores)
+# holds only rounding noise on both sides, so the share is taken of no less
+# than GRAD_FLOOR of the largest entry of all the gradients.
+GRAD_TOL = 5e-2
+GRAD_FLOOR = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -89,10 +159,13 @@ def events_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, iters: int, match: str = "") -> float:
-    """Device time per call: the CUDA kernels whose name contains
-    ``match`` (all kernels when empty), summed by the profiler over
-    ``iters`` calls. Falls back to CUDA events when the profiler records no
-    device time."""
+    """Device time per call, from the profiler. With ``match``: the mean
+    time of the CUDA kernels whose name contains it, over the launches the
+    profiler recorded (``fn`` launches one such kernel per call; the
+    profiler drops some events of a longer window, so the mean is taken
+    over the count it kept, not over ``iters``). Without: all kernels,
+    summed over ``iters`` calls and divided by ``iters``. Falls back to CUDA
+    events when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -102,9 +175,11 @@ def device_ms(fn, iters: int, match: str = "") -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if match in e.key)
-    return us / iters / 1e3 if us > 0 else events_ms(fn, iters)
+    hits = [e for e in prof.key_averages() if match in e.key]
+    us = sum(e.self_device_time_total for e in hits)
+    if us <= 0:
+        return events_ms(fn, iters)
+    return us / (sum(e.count for e in hits) if match else iters) / 1e3
 
 
 # Sites of one flagship forward at B=4, V=3, BEV 28 x 28 (H = W = 28):
@@ -261,28 +336,561 @@ def check_site(da, kernel_mod) -> dict:
 @contextlib.contextmanager
 def plain_sites(da, online: bool = False):
     """Route every lattice site through plain PyTorch on the card, fed as
-    the kernels are (bf16-rounded table, float32 lerps, bf16 bias). The
-    fused sites take ``site_consumer`` (p rounded after normalising, as the
-    JAX package's ``_site_xla``) or, with ``online``, the kernel's own
-    roundings (``site_consumer_online``)."""
+    the kernels are (bf16-rounded table, float32 lerps, bf16 bias), with
+    autograd. The fused sites take ``site_consumer`` (p rounded after
+    normalising, as the JAX package's ``_site_xla``) or, with ``online``,
+    the kernels' own roundings (``site_consumer_online`` forward,
+    ``site_bwd_online`` backward)."""
     import torch
 
+    def rounded(t):
+        # the bf16-rounded table as a float32 tensor whose gradient reaches
+        # ``t`` unrounded, as the kernels' float32 table gradient does
+        return t + (t.detach().bfloat16().float() - t.detach())
+
     def bias(t, p, h, w):
-        tb = t.bfloat16().float()
-        return da.lattice_bias_plain(tb, p, h, w, torch.float32).bfloat16()
+        return da.lattice_bias_plain(rounded(t), p, h, w,
+                                     torch.float32).bfloat16()
 
     def site(q, k, v, p, t, h, w, scale):
-        tb = t.bfloat16().float()
-        b = da.lattice_bias_plain(tb, p, h, w, torch.float32)
+        b = da.lattice_bias_plain(rounded(t), p, h, w, torch.float32)
         consumer = da.site_consumer_online if online else da.site_consumer
         return consumer(q, k, v, b, scale)
 
-    saved = da.lattice_bias, da.fused_site
-    da.lattice_bias, da.fused_site = bias, site
+    class OnlineSite(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, p, t, h, w, scale):
+            b = da.lattice_bias_plain(t.bfloat16().float(), p, h, w,
+                                      torch.float32)
+            out, lse = da.site_consumer_online(q, k, v, b, scale,
+                                               return_lse=True)
+            ctx.save_for_backward(q, k, v, p, t, out, lse)
+            ctx.meta = (h, w, scale)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, p, t, out, lse = ctx.saved_tensors
+            h, w, scale = ctx.meta
+            dq, dk, dv, dt, dp = da.site_bwd_online(
+                q, k, v, p, t, h, w, scale, dout, lse, (dout * out).sum(-1))
+            return dq, dk, dv, dp, dt, None, None, None
+
+    def site_train(q, k, v, p, t, h, w, scale):
+        if online:
+            return OnlineSite.apply(q, k, v, p, t, h, w, scale)
+        return site(q, k, v, p, t, h, w, scale)
+
+    saved = da.lattice_bias, da.fused_site, da.fused_site_train
+    da.lattice_bias, da.fused_site, da.fused_site_train = bias, site, site_train
     try:
         yield
     finally:
-        da.lattice_bias, da.fused_site = saved
+        da.lattice_bias, da.fused_site, da.fused_site_train = saved
+
+
+# Sites of one flagship training step at B=2 (final pass, V=3):
+# (name, batch, G, ch, N, table width, launches of this shape per step).
+# The bias backward runs at all of them under the default route; the
+# logsumexp forward and the site backward at the four narrow ones (ch 4, 8)
+# under fused_bwd.
+TRAIN_BIAS_SITES = [
+    ("tsa_g1_n16", 2, 1, 32, 16, 55, 4),
+    ("tsa_g2_n49", 2, 2, 16, 49, 55, 4),
+    ("tsa_g4_n196", 2, 4, 8, 196, 55, 4),
+    ("tsa_g8_n784", 2, 8, 4, 784, 55, 2),
+    ("sca_g1_n1960", 2, 1, 32, 1960, 279, 12),
+    ("sca_g2_n1960", 2, 2, 16, 1960, 279, 12),
+    ("sca_g4_n1960", 6, 4, 8, 1960, 279, 4),
+    ("sca_g8_n1960", 6, 8, 4, 1960, 279, 2),
+]
+TRAIN_SITE_SITES = [
+    ("tsa_g4_ch8_n196", 2, 4, 8, 196, 55, 4),
+    ("tsa_g8_ch4_n784", 2, 8, 4, 784, 55, 2),
+    ("sca_g4_ch8_n1960", 6, 4, 8, 1960, 279, 4),
+    ("sca_g8_ch4_n1960", 6, 8, 4, 1960, 279, 2),
+]
+
+
+def rel_err(a, b) -> float:
+    """Largest absolute difference as a share of b's largest entry."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def check_bias_bwd(da, kernel_mod) -> dict:
+    """lattice_bias_bwd against autograd through the plain bias at every
+    shape of a training step, at the init's table scale and at std 1.0."""
+    import torch
+
+    rows, worst, bad = [], 0.0, []
+    for i, (name, B, G, ch, N, Wt, per_step) in enumerate(TRAIN_BIAS_SITES):
+        for std in SITE_TABLE_STDS:
+            table, k_pos, *_ = site_inputs(40 + i, B, G, ch, N, Wt, std)
+            gen = torch.Generator(device="cuda").manual_seed(50 + i)
+            gout = torch.randn(B, G, HPG, N, H * W, generator=gen,
+                               device="cuda").bfloat16()
+            t1 = table.clone().requires_grad_()
+            p1 = k_pos.clone().requires_grad_()
+            dt, dp = torch.autograd.grad(da.lattice_bias(t1, p1, H, W),
+                                         (t1, p1), gout)
+            t2 = table.bfloat16().float().requires_grad_()
+            p2 = k_pos.clone().requires_grad_()
+            ref = da.lattice_bias_plain(t2, p2, H, W, torch.float32)
+            rdt, rdp = torch.autograd.grad(ref, (t2, p2), gout.float(),
+                                           retain_graph=True)
+            torch.cuda.synchronize()
+            e_t, e_p = rel_err(dt, rdt), rel_err(dp, rdp)
+            ok = e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL and bool(
+                torch.isfinite(dt).all() and torch.isfinite(dp).all())
+            print(f"lattice_bias_bwd {name} table std {std}: dtable rel err "
+                  f"{e_t:.3g}, dk_pos rel err {e_p:.3g} "
+                  f"({'ok' if ok else 'FAIL'})", flush=True)
+            if not ok:
+                bad.append(f"{name} std {std}")
+            if std == SITE_TABLE_STDS[0]:
+                err = float((dt - rdt).abs().max())
+                worst = max(worst, err)
+                args = da._kernel_args(table, k_pos, H, W)
+                launch = lambda: kernel_mod.lattice_bias_bwd_cuda(  # noqa: E731
+                    *args, gout, H, W)
+                ms = device_ms(launch, 10, "lattice_bias_bwd_kernel")
+                ev = events_ms(launch, 10)
+                gf = gout.float()
+                plain = device_ms(lambda: torch.autograd.grad(
+                    ref, (t2, p2), gf, retain_graph=True), 3)
+                elems = B * G * HPG * N * H * W
+                nbytes = (elems * 2 + table.numel() * (2 + 4)
+                          + B * G * N * (16 + 8) + W * 8)
+                # per element: window fractions 3, two x-lerps 6, the tail
+                # 15 (dwy 3, d0/d1 3, df 7, 1 - wx, 4 weights as 2 per pair
+                # of corners) and 4 adds into the table gradient
+                ops = elems * 28
+                bound = max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3
+                by = "bytes" if nbytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+                rows.append(dict(site=name, ms=ms, events_ms=ev,
+                                 plain_ms=plain, bound_ms=bound, bound_by=by,
+                                 per_step=per_step, max_abs_err=err,
+                                 rel_err_dtable=e_t, rel_err_dkpos=e_p))
+                print(f"lattice_bias_bwd {name}: kernel {ms:.4f} ms (events "
+                      f"{ev:.4f}) plain {plain:.4f} ms bound {bound:.4f} ms "
+                      f"({by}) x{per_step}/step", flush=True)
+            del ref, rdt, rdp, dt, dp
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"lattice_bias_bwd beyond tolerance at {bad}")
+    return dict(rows=rows, worst=worst)
+
+
+def site_bwd_errors(da, kernels, seed, B, G, ch, N, Wt, table_std):
+    """Run the fused training site (logsumexp forward, fused backward) once
+    at one shape and hold it against its plain versions and against the
+    online mirrors. Returns the errors and what the timings reuse."""
+    import torch
+
+    table, k_pos, q, k, v = site_inputs(seed, B, G, ch, N, Wt, table_std)
+    scale = ch ** -0.5
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    kargs = da._kernel_args(table, k_pos, H, W) + (
+        q.to(bf).contiguous(), k.to(bf).contiguous(), v.to(bf).contiguous())
+    with torch.no_grad():
+        out, lse = kernels.fused_site.fused_site_lse_cuda(*kargs, H, W, scale)
+        base = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
+        tb = table.bfloat16().float()
+        bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+        _, on_lse = da.site_consumer_online(q, k, v, bias, scale,
+                                            return_lse=True)
+        del bias
+    a = [t.clone().requires_grad_() for t in (q, k, v, k_pos, table)]
+    got = torch.autograd.grad(da.fused_site_train(*a, H, W, scale), a, dout)
+    b = [t.clone().requires_grad_() for t in (q, k, v, k_pos)]
+    tbg = tb.clone().requires_grad_()
+    ref_out, ref_lse = da.site_plain_lse(*b, tbg, H, W, scale, torch.float32)
+    ref = torch.autograd.grad(ref_out, b + [tbg], dout, retain_graph=True)
+    dsum = (dout * out).sum(-1)
+    on = da.site_bwd_online(q, k, v, k_pos, table, H, W, scale, dout, lse, dsum)
+    on = on[:3] + (on[4], on[3])  # (dq, dk, dv, dk_pos, dtable)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "dk_pos", "dtable")
+    e_plain = {n: rel_err(x, r) for n, x, r in zip(names, got, ref)}
+    e_online = {n: rel_err(x, o) for n, x, o in zip(names, got, on)}
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    return dict(
+        same_out=bool(torch.equal(out, base)),
+        lse_err=float((lse - ref_lse.detach()).abs().max()),
+        lse_err_online=float((lse - on_lse).abs().max()),
+        e_plain=e_plain, e_online=e_online, finite=finite,
+        abs_err=max(float((x - r).abs().max()) for x, r in zip(got, ref)),
+        abs_err_online=max(float((x - o).abs().max()) for x, o in zip(got, on)),
+        keep=(table, k_pos, q, k, v, kargs, scale, dout, lse, dsum, ref_out,
+              b + [tbg]))
+
+
+def check_site_train(da, kernels) -> tuple:
+    """fused_site_lse and fused_site_bwd at the narrow sites of a training
+    step. Returns (lse record, backward record)."""
+    import torch
+    import torch.nn.functional as F
+
+    rows_l, rows_b, bad = [], [], []
+    worst = dict(lse=0.0, lse_online=0.0, bwd=0.0, bwd_online=0.0)
+    for i, (name, B, G, ch, N, Wt, per_step) in enumerate(TRAIN_SITE_SITES):
+        for std in SITE_TABLE_STDS:
+            e = site_bwd_errors(da, kernels, 60 + i, B, G, ch, N, Wt, std)
+            ok = (e["same_out"] and e["finite"] and e["lse_err"] <= LSE_TOL
+                  and e["lse_err_online"] <= LSE_ONLINE_TOL
+                  and max(e["e_plain"].values()) <= SITE_BWD_TOL
+                  and max(e["e_online"].values()) <= SITE_BWD_ONLINE_TOL)
+            fmt = lambda d: " ".join(f"{k} {v:.2g}" for k, v in d.items())  # noqa: E731
+            print(f"fused_site_lse/bwd {name} table std {std}: out "
+                  f"{'equals' if e['same_out'] else 'DIFFERS FROM'} fused_site; "
+                  f"lse err {e['lse_err']:.3g} (online {e['lse_err_online']:.3g}); "
+                  f"grads vs autograd(site_plain) [{fmt(e['e_plain'])}]; vs "
+                  f"site_bwd_online [{fmt(e['e_online'])}] "
+                  f"({'ok' if ok else 'FAIL'})", flush=True)
+            if not ok:
+                bad.append(f"{name} std {std}")
+            if std == SITE_TABLE_STDS[0]:
+                kept = e
+            else:
+                del e
+            torch.cuda.empty_cache()
+        worst["lse"] = max(worst["lse"], kept["lse_err"])
+        worst["lse_online"] = max(worst["lse_online"], kept["lse_err_online"])
+        worst["bwd"] = max(worst["bwd"], kept["abs_err"])
+        worst["bwd_online"] = max(worst["bwd_online"], kept["abs_err_online"])
+        (table, k_pos, q, k, v, kargs, scale, dout, lse, dsum, ref_out,
+         leaves) = kept["keep"]
+        bf = torch.bfloat16
+        fwd = lambda: kernels.fused_site.fused_site_lse_cuda(  # noqa: E731
+            *kargs, H, W, scale)
+        bwd = lambda: kernels.fused_site_bwd.fused_site_bwd_cuda(  # noqa: E731
+            *kargs, dout, lse, dsum, H, W, scale)
+        ms_l = device_ms(fwd, 10, "fused_site_kernel")
+        ms_b = device_ms(bwd, 5, "fused_site_bwd_kernel")
+        ev_b = events_ms(bwd, 5)
+        tb = table.bfloat16().float()
+        with torch.no_grad():
+            plain_l = device_ms(lambda: da.site_plain_lse(
+                q, k, v, k_pos, tb, H, W, scale, torch.float32), 3)
+        plain_b = device_ms(lambda: torch.autograd.grad(
+            ref_out, leaves, dout, retain_graph=True), 3)
+        # yardstick: PyTorch's attention with the bias as an additive mask
+        # that requires grad; forward for the lse instance, autograd.grad
+        # through it for the backward (the bias itself is not timed)
+        with torch.no_grad():
+            bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+            mask = bias.transpose(-1, -2).to(bf).reshape(
+                -1, H * W, N).contiguous()
+            del bias
+        qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch).requires_grad_()
+                      for x in (q, k, v))
+        with torch.no_grad():
+            lib_l = device_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=scale), 10)
+        mask.requires_grad_()
+        sd = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                            scale=scale)
+        dob = dout.to(bf).reshape(sd.shape)
+        lib_b = device_ms(lambda: torch.autograd.grad(
+            sd, (qs, ks, vs, mask), dob, retain_graph=True), 3)
+        del sd, mask
+        pairs = B * G * HPG * H * W * N
+        geo = B * G * N * 16 + W * 8
+        by_l = ((q.numel() + k.numel() + v.numel()) * 2 + table.numel() * 2
+                + geo + q.numel() * 4 + lse.numel() * 4)
+        t_l = pairs * 4 * ch / BF16_FLOPS + pairs * 18 / F32_FLOPS
+        by_b = ((q.numel() + k.numel() + v.numel()) * 2 + dout.numel() * 4
+                + lse.numel() * 8 + (q.numel() + k.numel() + v.numel()) * 4
+                + table.numel() * (2 + 4) + geo + B * G * N * 8)
+        # five products of 2 ch FLOP per pair from bf16 factors (QK, dV, dp,
+        # dK, dQ) at the tensor-core rate; float32 per pair: window 3, bias
+        # 9, score 3, exp2 and its argument 2, ds 2, the bias tail 28
+        t_b = pairs * 10 * ch / BF16_FLOPS + pairs * 47 / F32_FLOPS
+        for rows, ms, plain, lib, nbytes, t_ops, extra in (
+                (rows_l, ms_l, plain_l, lib_l, by_l, t_l,
+                 dict(max_abs_err=kept["lse_err"],
+                      max_abs_err_online=kept["lse_err_online"])),
+                (rows_b, ms_b, plain_b, lib_b, by_b, t_b,
+                 dict(events_ms=ev_b, max_abs_err=kept["abs_err"],
+                      max_abs_err_online=kept["abs_err_online"],
+                      rel_err=kept["e_plain"],
+                      rel_err_online=kept["e_online"]))):
+            rows.append(dict(
+                site=name, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=max(nbytes / HBM_BPS, t_ops) * 1e3,
+                bound_by="bytes" if nbytes / HBM_BPS >= t_ops else "operations",
+                per_step=per_step, **extra))
+        print(f"fused_site_lse {name}: kernel {ms_l:.4f} ms plain "
+              f"{plain_l:.4f} ms sdpa+mask {lib_l:.4f} ms bound "
+              f"{rows_l[-1]['bound_ms']:.4f} ms ({rows_l[-1]['bound_by']}) "
+              f"x{per_step}/step", flush=True)
+        print(f"fused_site_bwd {name}: kernel {ms_b:.4f} ms (events "
+              f"{ev_b:.4f}) plain {plain_b:.4f} ms sdpa+mask backward "
+              f"{lib_b:.4f} ms bound {rows_b[-1]['bound_ms']:.4f} ms "
+              f"({rows_b[-1]['bound_by']}) x{per_step}/step", flush=True)
+        del kept, ref_out, leaves, qs, ks, vs
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"fused_site_lse / fused_site_bwd beyond tolerance at {bad}")
+    return (dict(rows=rows_l, worst=worst["lse"],
+                 worst_online=worst["lse_online"]),
+            dict(rows=rows_b, worst=worst["bwd"],
+                 worst_online=worst["bwd_online"]))
+
+
+def train_phase(card: str, fused_bwd: bool, site_remat: str, steps: int,
+                profile_step: bool) -> dict:
+    """``steps`` optimizer steps of the flagship bf16 model on a fixed batch
+    after one warm-up step, with every check of a training step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bevrender_tpu_torch.config import flagship_config
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    tag = f"train fused_bwd={fused_bwd} site_remat={site_remat}"
+    cfg = flagship_config(dtype="bfloat16")
+    tc = cfg.train
+    tc.batch_size, tc.loss_type = TRAIN_B, "MSE"
+    # ten times the default rate, so that ten steps move the loss by more
+    # than the drop-path masks do from step to step
+    tc.learning_rate = 1e-3
+    tc.fused_bwd, tc.site_remat = fused_bwd, site_remat
+    tc.work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ds = SyntheticDataset(n_items=TRAIN_B, num_views=cfg.model.num_views,
+                              window_num_imgs=1, img_height=224, img_width=224)
+        trainer = Trainer(cfg, ds, device="cuda")
+        state = trainer.create_state(seed=0)
+        batch = {k: torch.as_tensor(v).cuda() for k, v in
+                 ds.batch(TRAIN_B).items()}
+        names = [n for n, _ in state.net.named_parameters()]
+        params = [p for _, p in state.net.named_parameters()]
+        bn_before = {n: b.clone() for n, b in state.net.named_buffers()
+                     if n.endswith("running_var")}
+        state, _, _ = trainer.train_step(state, batch, rng=7)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        losses, norms, step_ms = [], [], []
+        seen = torch.zeros(len(params), device="cuda")
+        finite = torch.ones((), dtype=torch.bool, device="cuda")
+        cpu_ms = 0.0
+        for _ in range(steps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            c0 = time.process_time()
+            a.record()
+            state, m, render = trainer.train_step(state, batch, rng=7)
+            b.record()
+            cpu_ms += (time.process_time() - c0) * 1e3
+            step_ms.append((a, b))
+            losses.append(m["train_batch_loss"])
+            norms.append(m["camera_encoder_grad_norm"])
+            gn = torch.stack(torch._foreach_norm([p.grad for p in params]))
+            finite = finite & torch.isfinite(gn).all()
+            seen = torch.maximum(seen, gn)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        step_ms = [a.elapsed_time(b) for a, b in step_ms]
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(x) for x in losses]
+        norms = [float(x) for x in norms]
+        want = {k: v * steps for k, v in
+                TRAIN_COUNTS[(fused_bwd, site_remat)].items()}
+        print(f"{tag}: launches over {steps} steps {counts} (expected "
+              f"{want})", flush=True)
+        if counts != want:
+            fail(f"{tag}: launch counts {counts} != {want}")
+        print(f"{tag}: loss per step {[round(x, 6) for x in losses]}; grad "
+              f"norm per step {[round(x, 4) for x in norms]}", flush=True)
+        if not all(map(lambda x: x == x and abs(x) != float("inf"),
+                       losses + norms)):
+            fail(f"{tag}: non-finite loss or gradient norm")
+        if not losses[-1] < losses[0]:
+            fail(f"{tag}: loss did not fall: {losses[0]} -> {losses[-1]}")
+        if not all(n > 0 for n in norms) or not bool(finite):
+            fail(f"{tag}: a gradient norm is zero or a gradient non-finite")
+        dead = [n for n, s in zip(names, seen.tolist()) if not s > 0]
+        if dead:
+            fail(f"{tag}: parameters that never had a gradient: {dead[:8]}")
+        watched = {n: s for n, s in zip(names, seen.tolist())
+                   if "rpe_table" in n or "offset" in n}
+        low = min(watched, key=watched.get)
+        print(f"{tag}: all {len(names)} parameters had finite non-zero "
+              f"gradients; of the {len(watched)} rpe tables and offset-head "
+              f"parameters the smallest largest-norm is {watched[low]:.3g} "
+              f"({low})", flush=True)
+        moved = [n for n, b in state.net.named_buffers()
+                 if n in bn_before and not torch.equal(b, bn_before[n])]
+        if len(moved) != len(bn_before):
+            fail(f"{tag}: {len(bn_before) - len(moved)} BatchNorm buffers "
+                 f"did not move")
+        if tuple(render.shape) != (TRAIN_B, 224, 224, 3):
+            fail(f"{tag}: render shape {tuple(render.shape)}")
+        ms = sum(step_ms) / steps
+        host = cpu_ms / steps
+        print(f"{tag}: flagship bf16 B={TRAIN_B} T=2, {steps} steps: "
+              f"{ms:.3f} ms/step (min {min(step_ms):.3f} median "
+              f"{statistics.median(step_ms):.3f} max {max(step_ms):.3f}); "
+              f"host CPU {host:.3f} ms/step; peak {peak_gb:.3f} GiB; "
+              f"{len(moved)} BatchNorm running variances moved [{card}]",
+              flush=True)
+        result = dict(fused_bwd=fused_bwd, site_remat=site_remat, steps=steps,
+                      step_ms=ms, step_ms_min=min(step_ms),
+                      step_ms_median=statistics.median(step_ms),
+                      step_ms_max=max(step_ms), host_cpu_ms=host,
+                      peak_gib=peak_gb, loss_first=losses[0],
+                      loss_last=losses[-1], counts=counts)
+        if profile_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                trainer.train_step(state, batch, rng=7)
+                torch.cuda.synchronize()
+            avgs = sorted(prof.key_averages(),
+                          key=lambda e: -e.self_device_time_total)
+            busy = sum(e.self_device_time_total for e in avgs) / 1e3
+            idle = max(0.0, 1 - busy / ms)
+            # fused_site_kernel is both instances, with and without lse
+            seen_k = {n: sum(e.count for e in avgs if f"{n}_kernel" in e.key)
+                      for n in ("fused_site", "lattice_bias",
+                                "lattice_bias_bwd", "fused_site_bwd")}
+            print(f"{tag}: device time of one step (profiler): busy "
+                  f"{busy:.3f} ms of {ms:.3f} ms/step, idle share "
+                  f"{idle:.3f}; kernels seen by name {seen_k} [{card}]",
+                  flush=True)
+            for e in avgs[:15]:
+                print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+                      f"x{e.count:<4d} {e.key[:100]}", flush=True)
+            result.update(busy_ms=busy, idle_share=idle)
+        del trainer, state, params
+        torch.cuda.empty_cache()
+        return result
+    finally:
+        shutil.rmtree(tc.work_dir, ignore_errors=True)
+
+
+def small_model_epoch(kernels) -> dict:
+    """``Trainer.train`` on the small model on the card: one K-fold epoch
+    through ``DataLoader`` and ``device_prefetch`` (pinned memory, a side
+    stream), validation with recall, a checkpoint written and read back."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bevrender_tpu_torch.config import Config, tiny_model_config
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    cfg = Config()
+    cfg.model = tiny_model_config(embed_dims=(32, 32, 32), n_heads=(2, 8),
+                                  n_groups=(1, 4), drop_path_rate=0.1)
+    tc = cfg.train
+    tc.loss_type, tc.validation_metric = "MSE_CONTRASTIVE", "RECALL"
+    tc.k_fold, tc.epoch_per_fold, tc.total_epochs = 2, 1, 2
+    tc.num_workers, tc.log_every_steps = 2, 1
+    tc.work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ds = SyntheticDataset(n_items=8, num_views=2, window_num_imgs=1,
+                              img_height=32, img_width=32, map_tile=32)
+        trainer = Trainer(cfg, ds, device="cuda")
+        kernels.reset_counts()
+        state = trainer.train(trainer.create_state(seed=4))
+        torch.cuda.synchronize()
+        used = kernels.counts()
+        saved = sorted(p.name for p in Path(tc.work_dir).glob("*.pt"))
+        if state.step != 2 or not saved:
+            fail(f"small-model epoch: {state.step} steps, checkpoints {saved}")
+        resumed = trainer.restore_checkpoint(trainer.create_state(seed=5),
+                                             str(Path(tc.work_dir) / saved[0]))
+        same = all(torch.equal(a, b) for a, b in zip(
+            resumed.net.state_dict().values(), state.net.state_dict().values()))
+        if resumed.step != 2 or not same:
+            fail("small-model epoch: the checkpoint does not restore the state")
+        if not (used["lattice_bias"] > 0 and used["lattice_bias_bwd"] > 0
+                and used["fused_site"] > 0):
+            fail(f"small-model epoch missed a kernel: {used}")
+        print(f"small model, one K-fold epoch on the card through "
+              f"Trainer.train: {state.step} steps, checkpoints {saved}, best "
+              f"R@5 {trainer.best_epoch_recall:.1f}, kernels {used}",
+              flush=True)
+        return dict(steps=state.step, used=used)
+    finally:
+        shutil.rmtree(tc.work_dir, ignore_errors=True)
+
+
+def small_model_grads(da, kernels, fused_bwd: bool) -> dict:
+    """Parameter gradients of the small 2-stage model in train mode
+    (float32, all drop rates 0) through the kernels and through plain
+    PyTorch with the kernels' roundings."""
+    import torch
+
+    from bevrender_tpu_torch.config import tiny_model_config
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.models.attention import set_site_options
+    from bevrender_tpu_torch.models.bevrender import BEVRenderNet
+    from bevrender_tpu_torch.models.layers import init_params
+
+    mc = tiny_model_config(embed_dims=(32, 32, 32), n_heads=(2, 8),
+                           n_groups=(1, 4))
+    net = init_params(BEVRenderNet(mc), 2).cuda().train()
+    set_site_options(net, fused_bwd=fused_bwd, site_remat="nothing")
+    sb = {k: torch.as_tensor(v).cuda() for k, v in SyntheticDataset(
+        n_items=2, num_views=2, window_num_imgs=1, img_height=32,
+        img_width=32, map_tile=32, seed=3).batch(2).items()}
+    bn = {n: b.clone() for n, b in net.state_dict().items()
+          if "running_" in n}
+
+    def grads():
+        net.load_state_dict({**net.state_dict(), **bn})  # same BN buffers
+        net.zero_grad(set_to_none=True)
+        out = net(sb["camera"], sb["vehicle_pose"], sb["vehicle_type"])
+        torch.mean((out - sb["map"]) ** 2).backward()
+        return {n: p.grad.clone() for n, p in net.named_parameters()}
+
+    kernels.reset_counts()
+    g_k = grads()
+    used = kernels.counts()
+    with plain_sites(da, online=True):
+        g_o = grads()
+    torch.cuda.synchronize()
+    g_k2 = grads()  # the kernels again: their atomics sum in another order
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in g_o.values())
+
+    def dist(a, b):
+        return {n: float((a[n] - b[n]).abs().max()
+                         / b[n].abs().max().clamp(min=floor))
+                for n in a if float(b[n].abs().max()) > 0}
+
+    errs = dist(g_k, g_o)
+    noise = max(dist(g_k2, g_k).values())
+    worst = max(errs, key=errs.get)
+    for n in sorted(errs, key=errs.get)[-3:]:
+        print(f"  {errs[n]:.3g}  {n} (largest entry "
+              f"{float(g_o[n].abs().max()):.3g}, floor {floor:.3g})", flush=True)
+    print(f"small model gradients (2 stages, f32, B=2, T=2, train mode, "
+          f"fused_bwd={fused_bwd}), kernels {used}: largest difference to "
+          f"plain PyTorch with the kernels' roundings {errs[worst]:.3g} of "
+          f"the gradient's largest entry ({worst}; tolerance {GRAD_TOL}) "
+          f"over {len(errs)} parameters; two runs of the kernels differ by "
+          f"{noise:.3g}", flush=True)
+    need = (("lattice_bias", "lattice_bias_bwd", "fused_site")
+            + (("fused_site_lse", "fused_site_bwd") if fused_bwd else ()))
+    if not all(used[k] > 0 for k in need):
+        fail(f"small model's training step missed a kernel: {used}")
+    if len(errs) != len(g_k):
+        fail("small model: a parameter has no gradient")
+    if not errs[worst] <= GRAD_TOL:
+        fail(f"small-model gradients differ by {errs[worst]} at {worst}")
+    return dict(worst=errs[worst], at=worst, used=used, run_to_run=noise)
 
 
 def main() -> None:
@@ -349,7 +957,8 @@ def main() -> None:
     total_ms = marks[0].elapsed_time(marks[-1])
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {"fused_site": FUSED_PER_FORWARD * N_REQUESTS,
-            "lattice_bias": BIAS_PER_FORWARD * N_REQUESTS}
+            "lattice_bias": BIAS_PER_FORWARD * N_REQUESTS,
+            "lattice_bias_bwd": 0, "fused_site_lse": 0, "fused_site_bwd": 0}
     print(f"main path launches over {N_REQUESTS} requests: {counts} "
           f"(expected {want})", flush=True)
     if counts != want:
@@ -434,9 +1043,30 @@ def main() -> None:
     if not (d_kernel <= RENDER_TOL and bool(torch.isfinite(out_k).all())):
         fail(f"render through kernels differs from plain path by {d_kernel}")
 
-    def entry(name, route, src, replaces, data, launches):
-        top = max(data["rows"], key=lambda r: r["per_forward"] * r["ms"])
+    # ---- training: default route (with the peak memory of site_remat
+    # "none" beside it), then fused_bwd, in one process on one card ----
+    train_default = train_phase(card, False, "nothing", TRAIN_STEPS, True)
+    train_none = train_phase(card, False, "none", 3, False)
+    train_fused = train_phase(card, True, "nothing", TRAIN_STEPS, True)
+    print(f"training step, flagship bf16 B={TRAIN_B} T=2: default route "
+          f"{train_default['step_ms']:.3f} ms/step (peak "
+          f"{train_default['peak_gib']:.3f} GiB; site_remat none "
+          f"{train_none['step_ms']:.3f} ms/step, peak "
+          f"{train_none['peak_gib']:.3f} GiB); fused_bwd "
+          f"{train_fused['step_ms']:.3f} ms/step (peak "
+          f"{train_fused['peak_gib']:.3f} GiB) [{card}]", flush=True)
+
+    bias_bwd = check_bias_bwd(da, kernels.lattice_bias_bwd)
+    site_lse, site_bwd = check_site_train(da, kernels)
+    grads_default = small_model_grads(da, kernels, fused_bwd=False)
+    grads_fused = small_model_grads(da, kernels, fused_bwd=True)
+    small_model_epoch(kernels)
+
+    def entry(name, route, src, replaces, data, launches, **more):
+        per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
+        top = max(data["rows"], key=lambda r: r[per] * r["ms"])
         return {
+            **more,
             "name": name, "route": route, "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": data["worst"],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -451,12 +1081,30 @@ def main() -> None:
         entry("lattice_bias", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:700", bias,
-              counts["lattice_bias"]),
+              counts["lattice_bias"],
+              launches_train=train_default["counts"]["lattice_bias"],
+              launches_train_fused_bwd=train_fused["counts"]["lattice_bias"]),
         entry("fused_site", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site.cu",
               "bevrender_tpu/ops/pallas/fused_attn.py:637", site,
-              counts["fused_site"]),
-    ], "card": card, "build_s": build_s, "requests": N_REQUESTS,
+              counts["fused_site"],
+              launches_train=train_default["counts"]["fused_site"],
+              launches_train_fused_bwd=train_fused["counts"]["fused_site"]),
+        entry("lattice_bias_bwd", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_bwd.cu",
+              "bevrender_tpu/ops/pallas/lattice_bias.py:829", bias_bwd,
+              train_default["counts"]["lattice_bias_bwd"],
+              launches_train_fused_bwd=train_fused["counts"]["lattice_bias_bwd"]),
+        entry("fused_site_lse", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/fused_site.cu",
+              "bevrender_tpu/ops/pallas/fused_attn.py:278", site_lse,
+              train_fused["counts"]["fused_site_lse"]),
+        entry("fused_site_bwd", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/fused_site_bwd.cu",
+              "bevrender_tpu/ops/pallas/fused_attn.py:429", site_bwd,
+              train_fused["counts"]["fused_site_bwd"]),
+    ], "card": card, "train": [train_default, train_none, train_fused],
+        "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]], "build_s": build_s, "requests": N_REQUESTS,
         "request_ms": ms, "request_ms_min": min(req_ms),
         "request_ms_max": max(req_ms), "host_cpu_ms": host_cpu_ms,
         "frames_per_s": B / ms * 1e3,
@@ -468,6 +1116,26 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+class _Tee:
+    """Standard output that also goes, line for line, to a file."""
+
+    def __init__(self, stream, path: str):
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        self.stream, self.file = stream, open(path, "w")
+
+    def write(self, text: str) -> int:
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self) -> None:
+        self.file.flush()
+        self.stream.flush()
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--log":
+        sys.stdout = _Tee(sys.stdout, os.path.abspath(sys.argv[2]))
+    elif len(sys.argv) != 1:
+        sys.exit("usage: python3 chip_smoke.py [--log FILE]")
     os.chdir(HERE)
     main()

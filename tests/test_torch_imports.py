@@ -8,7 +8,16 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "bevrender_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
+             "bevrender_tpu")
+# the modules of the training slice, each checked by name so that a moved
+# or missing one is noticed
+TRAINING_MODULES = (
+    "losses/rendering.py", "losses/metric.py", "losses/recall.py",
+    "training/schedule.py", "training/metrics.py", "training/checkpoint.py",
+    "training/trainer.py", "data/prefetch.py", "convert.py", "config.py",
+    "ops/kernels/lattice_bias_bwd.py", "ops/kernels/fused_site_bwd.py",
+)
 
 
 def _port_files():
@@ -39,6 +48,34 @@ def test_port_imports_no_jax():
         if name.split(".")[0] in FORBIDDEN
     ]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_module_imports_no_jax(module):
+    path = ROOT / "bevrender_tpu_torch" / module
+    assert path.exists()
+    names = list(_imported(path))
+    assert names, module
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN]
+    # optional packages (wandb, PIL) are imported inside the functions that
+    # need them, never at module level
+    tree = ast.parse(path.read_text())
+    top = [a.name for node in tree.body if isinstance(node, ast.Import)
+           for a in node.names] + [node.module for node in tree.body
+                                   if isinstance(node, ast.ImportFrom)]
+    assert not [n for n in top if n.split(".")[0] in ("wandb", "PIL")]
+
+
+def test_port_reads_no_environment_knobs():
+    """Kernel choice lives in the config. The only environment variable the
+    port reads is CUDA_HOME, to find nvcc."""
+    hits = []
+    for f in _port_files():
+        text = f.read_text()
+        if "os.environ" in text or "getenv(" in text:
+            hits.append(f.relative_to(ROOT).as_posix())
+    assert hits == ["bevrender_tpu_torch/ops/kernels/build.py"]
+    assert "BEVRENDER_" not in (ROOT / hits[0]).read_text()
 
 
 def test_scan_sees_forbidden_imports(tmp_path):

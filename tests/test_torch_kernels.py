@@ -98,7 +98,131 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
             *args, q.repeat(1, 1, 1, 1, 4).to(bf), k.repeat(1, 1, 1, 1, 4).to(bf),
             v.repeat(1, 1, 1, 1, 4).to(bf), 8, 8, 0.25)
     with pytest.raises(NotImplementedError, match="forward-only"):
-        tda.lattice_bias(table.requires_grad_(), k_pos, 8, 8)
+        tda.fused_site(q, k, v, k_pos, table.requires_grad_(), 8, 8, 0.5)
+
+
+# Backward kernels against autograd through the plain versions fed as the
+# kernels are (bf16-rounded table, float32 lerps). lattice_bias_bwd does the
+# plain version's float32 arithmetic and differs only in the order of its
+# float32 sums (atomics): 2e-5 of the largest entry.
+BWD_SUM_TOL = 2e-5
+# fused_site_bwd rounds p, ds and dO to bf16 before they multiply, autograd
+# through site_plain rounds the normalised p and the cotangents of the bf16
+# casts instead: 8e-3 of the largest entry, the bound the JAX package holds
+# its own flash backward to.
+SITE_BWD_TOL = 8e-3
+# against site_bwd_online, which rounds where the kernel rounds: only the
+# order of float32 sums and a rare flipped bf16 rounding of p or ds remain
+SITE_BWD_ONLINE_TOL = 1e-4
+
+
+def _close(a, b, rel):
+    return float((a - b).abs().max()) <= rel * float(b.abs().max()) + 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N,Wt,table_std", [
+    (1, 1960, 279, 0.01), (2, 49, 55, 0.01), (1, 10, 15, 1.0),
+    (4, 1960, 279, 1.0)])
+def test_lattice_bias_bwd_kernel_matches_plain(cuda_device, G, N, Wt,
+                                               table_std):
+    H = W = 28 if Wt != 15 else 8
+    table, k_pos, *_ = _inputs(7, 2, G, 2, H, W, Wt, N, 4, cuda_device,
+                               table_std)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    gout = torch.randn(2, G, 2, N, H * W, generator=gen,
+                       device="cuda").bfloat16()
+    t1, p1 = table.clone().requires_grad_(), k_pos.clone().requires_grad_()
+    before = kernels.counts()["lattice_bias_bwd"]
+    dt, dp = torch.autograd.grad(tda.lattice_bias(t1, p1, H, W), (t1, p1), gout)
+    t2 = table.bfloat16().float().requires_grad_()
+    p2 = k_pos.clone().requires_grad_()
+    ref = tda.lattice_bias_plain(t2, p2, H, W, torch.float32)
+    rdt, rdp = torch.autograd.grad(ref, (t2, p2), gout.float())
+    torch.cuda.synchronize()
+    assert kernels.counts()["lattice_bias_bwd"] == before + 1
+    assert dt.dtype == torch.float32 and dt.shape == table.shape
+    assert float(rdt.abs().max()) > 0 and float(rdp.abs().max()) > 0
+    assert _close(dt, rdt, BWD_SUM_TOL)
+    assert _close(dp, rdp, BWD_SUM_TOL)
+
+
+def _site_kargs(table, k_pos, q, k, v, H, W):
+    bf = torch.bfloat16
+    return tda._kernel_args(table, k_pos, H, W) + (
+        q.to(bf).contiguous(), k.to(bf).contiguous(), v.to(bf).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch,N,Wt,table_std", [
+    (4, 1960, 279, 0.01), (8, 196, 55, 1.0), (4, 10, 15, 1.0)])
+def test_fused_site_lse_kernel(cuda_device, ch, N, Wt, table_std):
+    """The instance with the logsumexp: its output equals the plain
+    instance's bit for bit, and the logsumexp matches the plain version's
+    (1e-5: float32 sums in another order) and the online mirror's."""
+    H = W = 28 if Wt != 15 else 8
+    table, k_pos, q, k, v = _inputs(9, 2, 4, 2, H, W, Wt, N, ch, cuda_device,
+                                    table_std)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, W)
+    before = kernels.counts()
+    with torch.no_grad():
+        out, lse = kernels.fused_site.fused_site_lse_cuda(*kargs, H, W, scale)
+        base = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
+        tb = table.bfloat16().float()
+        _, ref_lse = tda.site_plain_lse(q, k, v, k_pos, tb, H, W, scale,
+                                        torch.float32)
+        bias = tda.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+        _, on_lse = tda.site_consumer_online(q, k, v, bias, scale,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["fused_site_lse"] == before["fused_site_lse"] + 1
+    assert after["fused_site"] == before["fused_site"] + 1
+    assert torch.equal(out, base)
+    assert float((lse - ref_lse).abs().max()) <= 1e-5
+    assert float((lse - on_lse).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch,N,Wt,table_std", [
+    (4, 1960, 279, 0.01), (8, 196, 55, 0.01), (4, 300, 15, 0.01),
+    (8, 1960, 279, 1.0), (4, 784, 55, 1.0)])
+def test_fused_site_bwd_kernel_matches_plain(cuda_device, ch, N, Wt,
+                                             table_std):
+    """Gradients of the fused training site through the kernels against
+    autograd through ``site_plain`` and against ``site_bwd_online``."""
+    H = W = 28 if Wt != 15 else 8
+    inputs = _inputs(10, 2, 4, 2, H, W, Wt, N, ch, cuda_device, table_std)
+    table, k_pos, q, k, v = inputs
+    scale = ch ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    before = kernels.counts()
+    a = [t.clone().requires_grad_() for t in (q, k, v, k_pos, table)]
+    out = tda.fused_site_train(*a, H, W, scale)
+    got = torch.autograd.grad(out, a, dout)
+    after = kernels.counts()
+    assert after["fused_site_lse"] == before["fused_site_lse"] + 1
+    assert after["fused_site_bwd"] == before["fused_site_bwd"] + 1
+    b = [t.clone().requires_grad_() for t in (q, k, v, k_pos)]
+    tb = table.bfloat16().float().requires_grad_()
+    ref_out = tda.site_plain(*b, tb, H, W, scale, torch.float32)
+    ref = torch.autograd.grad(ref_out, b + [tb], dout)
+    with torch.no_grad():
+        _, lse = kernels.fused_site.fused_site_lse_cuda(
+            *_site_kargs(table, k_pos, q, k, v, H, W), H, W, scale)
+        dsum = (dout * out.detach()).sum(-1)
+    online = tda.site_bwd_online(q, k, v, k_pos, table, H, W, scale, dout,
+                                 lse, dsum)
+    online = online[:3] + (online[4], online[3])  # (dq, dk, dv, dk_pos, dtable)
+    torch.cuda.synchronize()
+    for name, x, r, o in zip(("dq", "dk", "dv", "dk_pos", "dtable"), got, ref,
+                             online):
+        assert x.shape == r.shape and bool(torch.isfinite(x).all()), name
+        assert float(r.abs().max()) > 0, name
+        assert _close(x, r, SITE_BWD_TOL), name
+        assert _close(x, o, SITE_BWD_ONLINE_TOL), name
 
 
 def test_wrappers_refuse_unsupported_shapes():
@@ -142,6 +266,80 @@ def test_cpu_tensors_take_the_plain_versions():
     assert kernels.counts() == before
     assert torch.equal(bias, tda.lattice_bias_plain(table, k_pos, 8, 8))
     assert torch.equal(out, tda.site_plain(q, k, v, k_pos, table, 8, 8, 0.5))
+
+
+def test_cpu_gradients_take_the_plain_versions():
+    """On CPU tensors the bias and the fused training site are their plain
+    versions under autograd, and no kernel is launched."""
+    table, k_pos, q, k, v = _inputs(12, 2, 1, 2, 8, 8, 15, 10, 4, "cpu")
+    before = kernels.counts()
+    a = [t.clone().requires_grad_() for t in (q, k, v, k_pos, table)]
+    b = [t.clone().requires_grad_() for t in (q, k, v, k_pos, table)]
+    got = torch.autograd.grad(tda.fused_site_train(*a, 8, 8, 0.5).sum(), a)
+    ref = torch.autograd.grad(tda.site_plain(*b, 8, 8, 0.5).sum(), b)
+    assert all(torch.equal(x, r) for x, r in zip(got, ref))
+    t1, p1 = a[4], a[3]
+    gb = torch.autograd.grad(tda.lattice_bias(t1, p1, 8, 8).sum(), (t1, p1))
+    rb = torch.autograd.grad(tda.lattice_bias_plain(b[4], b[3], 8, 8).sum(),
+                             (b[4], b[3]))
+    assert all(torch.equal(x, r) for x, r in zip(gb, rb))
+    assert float(gb[0].abs().max()) > 0 and float(gb[1].abs().max()) > 0
+    assert kernels.counts() == before
+    assert set(before) == {"lattice_bias", "fused_site", "lattice_bias_bwd",
+                           "fused_site_lse", "fused_site_bwd"}
+
+
+@pytest.mark.parametrize("which", ["bias_bwd", "site_bwd", "site_lse"])
+def test_backward_wrappers_refuse_bad_inputs(which):
+    """Checked before anything touches the card: CPU tensors, a wrong
+    cotangent dtype, a head width the kernels have no instance for."""
+    table, k_pos, q, k, v = _inputs(13, 1, 1, 2, 8, 8, 15, 10, 4, "cpu")
+    args = tda._kernel_args(table, k_pos, 8, 8)
+    bf = torch.bfloat16
+    if which == "bias_bwd":
+        gout = torch.zeros(1, 1, 2, 10, 64, dtype=bf)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.lattice_bias_bwd.lattice_bias_bwd_cuda(*args, gout, 8, 8)
+    elif which == "site_bwd":
+        wide = [t.repeat(1, 1, 1, 1, 4).to(bf) for t in (q, k, v)]
+        with pytest.raises(ValueError, match="head widths"):
+            kernels.fused_site_bwd.fused_site_bwd_cuda(
+                *args, *wide, torch.zeros(1, 1, 2, 64, 16),
+                torch.zeros(1, 1, 2, 64), torch.zeros(1, 1, 2, 64), 8, 8, 0.5)
+    else:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.fused_site.fused_site_lse_cuda(
+                *args, q.to(bf), k.to(bf), v.to(bf), 8, 8, 0.5)
+
+
+@pytest.mark.parametrize("ch,N,table_std", [(4, 96, 0.01), (8, 45, 1.0)])
+def test_site_bwd_online_matches_autograd(ch, N, table_std):
+    """``site_bwd_online`` (the backward kernel's roundings) computes the
+    gradients of ``site_plain``: both round to bf16, in different places,
+    so they agree to SITE_BWD_TOL of the largest entry and not exactly. The
+    lse of the online forward is the plain logsumexp."""
+    H = W = 8
+    table, k_pos, q, k, v = _inputs(14, 2, 2, 2, H, W, 15, N, ch, "cpu",
+                                    table_std)
+    scale = ch ** -0.5
+    dout = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        q.shape)).float()
+    b = [t.clone().requires_grad_() for t in (q, k, v, k_pos)]
+    tb = table.bfloat16().float().requires_grad_()
+    out, lse = tda.site_plain_lse(*b, tb, H, W, scale, torch.float32)
+    ref = torch.autograd.grad(out, b + [tb], dout)
+    bias = tda.lattice_bias_plain(tb.detach(), k_pos, H, W, torch.float32)
+    on_out, on_lse = tda.site_consumer_online(q, k, v, bias, scale,
+                                              return_lse=True)
+    assert float((on_lse - lse.detach()).abs().max()) <= 1e-5
+    dq, dk, dv, dtable, dkpos = tda.site_bwd_online(
+        q, k, v, k_pos, table, H, W, scale, dout, on_lse,
+        (dout * on_out).sum(-1))
+    for name, x, r in zip(("dq", "dk", "dv", "dk_pos", "dtable"),
+                          (dq, dk, dv, dkpos, dtable), ref):
+        assert float(r.abs().max()) > 0, name
+        assert _close(x, r, SITE_BWD_TOL), name
+        assert float((x - r).abs().max()) > 0, name  # the roundings differ
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
