@@ -1,8 +1,6 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--log FILE]
-
-(``--log`` also writes every line of the standard output to FILE.)
+    python3 chip_smoke.py
 
 Phases, each fatal on failure:
 
@@ -36,7 +34,8 @@ Phases, each fatal on failure:
 8. the backward kernels (bias backward, fused site with logsumexp, fused
    site backward) against their plain versions, and the site backward also
    against ``site_bwd_online`` (its own roundings in PyTorch), at every
-   shape a training step gives them and at two table scales;
+   shape a training step gives them and at two table scales; the bias
+   forward kernel against its plain version at those training shapes too;
 9. the small model's parameter gradients through the kernels against
    plain PyTorch that rounds as the kernels do, under both routes; then
    one K-fold epoch of ``Trainer.train`` on that model on the card, with
@@ -124,14 +123,21 @@ SITE_BWD_ONLINE_TOL = 1e-4
 # through float atomics in an order of their own (1e-6 of a site's
 # gradients), and the plain consumer's bf16 casts round the cotangents
 # downstream, where a last-bit difference flips a rounding (2^-9 of an
-# entry). Two stages carry that to about 1e-2 of a parameter gradient's
+# entry). Two stages carry that to 1e-2 to 2e-2 of a parameter gradient's
 # largest entry: two runs of the kernels themselves differ by as much (the
 # script prints that distance beside the one it checks), and the tolerance
-# is five times it. A wrong bias gradient moves the rpe tables' gradients
-# by their own size. A gradient that is zero in exact arithmetic (the bias
-# of proj_k shifts all scores of a query alike, which the softmax ignores)
-# holds only rounding noise on both sides, so the share is taken of no less
-# than GRAD_FLOOR of the largest entry of all the gradients.
+# is a few times it. Measured with deliberately wrong kernels on an H100:
+# the x weights of the table gradient swapped reads 0.72-0.78 (at an rpe
+# table), a wrong sign of dwy 0.037-0.043, df without its lower row
+# 0.011-0.016, the right kernels 0.005-0.017. So this check sees a wrong
+# table gradient and not a wrong gradient towards k_pos, whose share of the
+# offset heads' gradients is a few percent: it shows that autograd wires
+# the kernels into the model, and phase 8, which holds each kernel alone to
+# 2e-5 and 1e-4 in all five gradients, is the sharp check. A gradient that
+# is zero in exact arithmetic (the bias of proj_k shifts all scores of a
+# query alike, which the softmax ignores) holds only rounding noise on both
+# sides, so the share is taken of no less than GRAD_FLOOR of the largest
+# entry of all the gradients.
 GRAD_TOL = 5e-2
 GRAD_FLOOR = 1e-2
 
@@ -419,10 +425,11 @@ def rel_err(a, b) -> float:
 
 def check_bias_bwd(da, kernel_mod) -> dict:
     """lattice_bias_bwd against autograd through the plain bias at every
-    shape of a training step, at the init's table scale and at std 1.0."""
+    shape of a training step, at the init's table scale and at std 1.0; the
+    forward kernel's output at those shapes against the plain bias too."""
     import torch
 
-    rows, worst, bad = [], 0.0, []
+    rows, worst, worst_fwd, bad = [], 0.0, 0.0, []
     for i, (name, B, G, ch, N, Wt, per_step) in enumerate(TRAIN_BIAS_SITES):
         for std in SITE_TABLE_STDS:
             table, k_pos, *_ = site_inputs(40 + i, B, G, ch, N, Wt, std)
@@ -431,20 +438,31 @@ def check_bias_bwd(da, kernel_mod) -> dict:
                                device="cuda").bfloat16()
             t1 = table.clone().requires_grad_()
             p1 = k_pos.clone().requires_grad_()
-            dt, dp = torch.autograd.grad(da.lattice_bias(t1, p1, H, W),
-                                         (t1, p1), gout)
+            fwd = da.lattice_bias(t1, p1, H, W)
+            dt, dp = torch.autograd.grad(fwd, (t1, p1), gout)
             t2 = table.bfloat16().float().requires_grad_()
             p2 = k_pos.clone().requires_grad_()
             ref = da.lattice_bias_plain(t2, p2, H, W, torch.float32)
             rdt, rdp = torch.autograd.grad(ref, (t2, p2), gout.float(),
                                            retain_graph=True)
+            # the forward kernel at this training shape, as check_bias holds
+            # it at the serving shapes: within one bf16 ulp of the plain bias
+            with torch.no_grad():
+                rb = ref.bfloat16().float()
+                e_f = (fwd.float() - rb).abs()
+                ok_f = bool((e_f <= rb.abs() * BIAS_ULP).all())
+                e_f = float(e_f.max())
+                del rb
             torch.cuda.synchronize()
             e_t, e_p = rel_err(dt, rdt), rel_err(dp, rdp)
-            ok = e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL and bool(
+            ok = ok_f and e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL and bool(
                 torch.isfinite(dt).all() and torch.isfinite(dp).all())
-            print(f"lattice_bias_bwd {name} table std {std}: dtable rel err "
-                  f"{e_t:.3g}, dk_pos rel err {e_p:.3g} "
-                  f"({'ok' if ok else 'FAIL'})", flush=True)
+            print(f"lattice_bias_bwd {name} table std {std}: forward max "
+                  f"abs err {e_f:.3g} ({'within' if ok_f else 'BEYOND'} 1 "
+                  f"bf16 ulp); dtable rel err {e_t:.3g}, dk_pos rel err "
+                  f"{e_p:.3g} ({'ok' if ok else 'FAIL'})", flush=True)
+            worst_fwd = max(worst_fwd, e_f)
+            del fwd
             if not ok:
                 bad.append(f"{name} std {std}")
             if std == SITE_TABLE_STDS[0]:
@@ -477,8 +495,8 @@ def check_bias_bwd(da, kernel_mod) -> dict:
             del ref, rdt, rdp, dt, dp
         torch.cuda.empty_cache()
     if bad:
-        fail(f"lattice_bias_bwd beyond tolerance at {bad}")
-    return dict(rows=rows, worst=worst)
+        fail(f"lattice_bias / lattice_bias_bwd beyond tolerance at {bad}")
+    return dict(rows=rows, worst=worst, worst_fwd=worst_fwd)
 
 
 def site_bwd_errors(da, kernels, seed, B, G, ch, N, Wt, table_std):
@@ -606,8 +624,10 @@ def check_site_train(da, kernels) -> tuple:
                 + table.numel() * (2 + 4) + geo + B * G * N * 8)
         # five products of 2 ch FLOP per pair from bf16 factors (QK, dV, dp,
         # dK, dQ) at the tensor-core rate; float32 per pair: window 3, bias
-        # 9, score 3, exp2 and its argument 2, ds 2, the bias tail 28
-        t_b = pairs * 10 * ch / BF16_FLOPS + pairs * 47 / F32_FLOPS
+        # 9 (two x-lerps 6, y-lerp 3), score 3, exp2 and its argument 2, ds
+        # 2, and of the bias tail's 28 the 19 that are its own (it shares
+        # the window fractions and the x-lerps with the forward bias)
+        t_b = pairs * 10 * ch / BF16_FLOPS + pairs * 38 / F32_FLOPS
         for rows, ms, plain, lib, nbytes, t_ops, extra in (
                 (rows_l, ms_l, plain_l, lib_l, by_l, t_l,
                  dict(max_abs_err=kept["lse_err"],
@@ -1057,6 +1077,7 @@ def main() -> None:
           f"{train_fused['peak_gib']:.3f} GiB) [{card}]", flush=True)
 
     bias_bwd = check_bias_bwd(da, kernels.lattice_bias_bwd)
+    bias["worst"] = max(bias["worst"], bias_bwd["worst_fwd"])
     site_lse, site_bwd = check_site_train(da, kernels)
     grads_default = small_model_grads(da, kernels, fused_bwd=False)
     grads_fused = small_model_grads(da, kernels, fused_bwd=True)
@@ -1104,7 +1125,8 @@ def main() -> None:
               "bevrender_tpu/ops/pallas/fused_attn.py:429", site_bwd,
               train_fused["counts"]["fused_site_bwd"]),
     ], "card": card, "train": [train_default, train_none, train_fused],
-        "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]], "build_s": build_s, "requests": N_REQUESTS,
+        "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
+        "build_s": build_s, "requests": N_REQUESTS,
         "request_ms": ms, "request_ms_min": min(req_ms),
         "request_ms_max": max(req_ms), "host_cpu_ms": host_cpu_ms,
         "frames_per_s": B / ms * 1e3,
@@ -1116,26 +1138,6 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-class _Tee:
-    """Standard output that also goes, line for line, to a file."""
-
-    def __init__(self, stream, path: str):
-        Path(path).parent.mkdir(parents=True, exist_ok=True)
-        self.stream, self.file = stream, open(path, "w")
-
-    def write(self, text: str) -> int:
-        self.file.write(text)
-        return self.stream.write(text)
-
-    def flush(self) -> None:
-        self.file.flush()
-        self.stream.flush()
-
-
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--log":
-        sys.stdout = _Tee(sys.stdout, os.path.abspath(sys.argv[2]))
-    elif len(sys.argv) != 1:
-        sys.exit("usage: python3 chip_smoke.py [--log FILE]")
     os.chdir(HERE)
     main()

@@ -237,16 +237,16 @@ def _setup(loss_type, eps):
 LR = 1e-4  # TrainConfig.learning_rate
 
 
-def _compare_states(tstate, jstate, rel, what, steps, slack=0.2):
+def _compare_states(tstate, jstate, rel, what):
     """Every parameter and BatchNorm buffer of the port against the JAX
-    state: ``rel`` of the tensor's largest entry, plus 0.2 of what AdamW
-    can have moved an entry in ``steps`` steps (the learning rate each).
-    The second term is for tensors still near their zero initial value,
-    which hold nothing but their updates: those inherit, through Adam's
-    division, the gradients' bf16 noise, which is largest for the offset
-    heads (their gradient comes through the bias path, bf16 end to end on
-    the CPU: 5e-2 in test_torch_grads.py). The optimizer's own arithmetic
-    is held to 1e-6 in test_clip_and_adamw_match_optax."""
+    state after one step from equal state: ``rel`` of the tensor's largest
+    entry, plus 0.2 of what AdamW can have moved an entry in that step (the
+    learning rate). The second term is for tensors still near their zero
+    initial value, which hold nothing but their updates: those inherit,
+    through Adam's division, the gradients' bf16 noise, which is largest for
+    the offset heads (their gradient comes through the bias path, bf16 end
+    to end on the CPU: 5e-2 in test_torch_grads.py). The optimizer's own
+    arithmetic is held to 1e-6 in test_clip_and_adamw_match_optax."""
     ref = flax_to_state_dict(_np_tree({"params": jstate.params,
                                        "batch_stats": jstate.batch_stats}))
     got = tstate.net.state_dict()
@@ -258,12 +258,10 @@ def _compare_states(tstate, jstate, rel, what, steps, slack=0.2):
         scale = float(r.abs().max())
         err = float((got[name] - r).abs().max())
         if "running_" in name:
-            # BatchNorm statistics see the sites' bf16 flips in full (5e-4
-            # after one step from equal weights, 1e-1 where chaos has set in)
-            stat_rel = 5e-4 if slack < 1.0 else 1e-1
-            assert err <= stat_rel * max(scale, 1e-2), f"{what} {name}: {err}"
+            # BatchNorm statistics see the sites' bf16 flips in full
+            assert err <= 5e-4 * max(scale, 1e-2), f"{what} {name}: {err}"
             continue
-        tol = rel * scale + slack * LR * steps
+        tol = rel * scale + 0.2 * LR
         assert err <= tol, f"{what} {name}: {err} of {scale}"
         worst = max(worst, err / tol)
     return worst
@@ -272,47 +270,137 @@ def _compare_states(tstate, jstate, rel, what, steps, slack=0.2):
 # The attention sites round K, Q, p, V and (on the CPU) the bias lerps to
 # bf16 in both frameworks; a float32 difference in the last bit flips one of
 # those roundings now and then (2^-9 of an entry). Measured on the tiny
-# config that moves the global gradient norm by up to 1e-3 relative, so the
-# norm is held to 3e-3 and the loss, which the flips barely move, to 1e-5
-# per step taken.
+# config at the bridged initial weights that moves the global gradient norm
+# by up to 1e-3 relative, so the norm is held to 3e-3 and the loss, which
+# the flips barely move, to 1e-5.
 GRAD_NORM_REL = 3e-3
 
 
-def _check_metrics(tm, jm, keys, step):
-    """Step 1 starts from equal weights and statistics: the loss to 1e-5,
-    the norm to GRAD_NORM_REL. From step 2 on the history pass normalises
-    with running statistics that already differ by the sites' flips (5e-4)
-    and the tiny model at random weights amplifies that (its gradient norm
-    parts by 7% at step 2, its render loss by 3% at step 3): the losses
-    are held to 1e-1 and the norm is not compared."""
+def _check_metrics(tm, jm, keys):
+    """Step 1, from the bridged initial weights: the losses to 1e-5, the
+    norm to GRAD_NORM_REL."""
     for key in keys:
-        if key == "camera_encoder_grad_norm":
-            if step > 0:
-                assert np.isfinite(float(tm[key])) and float(tm[key]) > 0
-                continue
-            rel = GRAD_NORM_REL
-        else:
-            rel = 1e-5 if step == 0 else 1e-1
+        rel = GRAD_NORM_REL if key == "camera_encoder_grad_norm" else 1e-5
         np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=rel,
                                    atol=0, err_msg=key)
 
 
+# Steps 2 and 3 each start, in both frameworks, from the JAX state before
+# them. After a step the offset heads are no longer zero and the sampling
+# points leave the lattice; from there on this tiny model at random weights
+# is ill-conditioned in JAX itself: one JAX step from weights perturbed by
+# 1e-6 relative (each parameter times 1 + 1e-6 * a standard normal draw)
+# parts from the unperturbed JAX step by up to 1.7e-3 in a loss, 0.36 in the
+# gradient norm, 8.3e-2 in the render, 1.7e-2 in a running statistic, and
+# by 0.10 to 0.49 in the median over the tensors of an update's relative L2
+# error (over the three steps under both loss settings below). The port
+# stays inside that: it read at most 4.2e-4, 4.6e-2, 1.2e-2, 2.1e-3 and
+# 0.077 (largest tensor 0.43). The limits are about twice the port's
+# readings. A port that took no step reads 1.0 in every tensor's update
+# error.
+LATER_LOSS_REL = 1e-3
+LATER_NORM_REL = 1e-1
+LATER_RENDER_ABS = 3e-2
+LATER_STAT_REL = 5e-3
+LATER_UPDATE_MEDIAN = 0.15
+LATER_UPDATE_MAX = 0.6
+
+
+def _check_later_step(what, jstate, tstate, jm, tm, jrender, trender,
+                      before, keys):
+    """One step from a bridged JAX state at generic weights, held to the
+    LATER_* limits: metrics, render, BatchNorm statistics, and each
+    tensor's update (its change in this step) by its relative L2 error."""
+    for key in keys:
+        rel = (LATER_NORM_REL if key == "camera_encoder_grad_norm"
+               else LATER_LOSS_REL)
+        np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=rel,
+                                   atol=0, err_msg=f"{what} {key}")
+    np.testing.assert_allclose(trender.numpy(), np.asarray(jrender),
+                               atol=LATER_RENDER_ABS, rtol=0, err_msg=what)
+    ref = flax_to_state_dict(_np_tree({"params": jstate.params,
+                                       "batch_stats": jstate.batch_stats}))
+    got = tstate.net.state_dict()
+    assert got.keys() == ref.keys()
+    errs = {}
+    for name, r in ref.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if "running_" in name:
+            err = float((got[name] - r).abs().max())
+            assert err <= LATER_STAT_REL * max(float(r.abs().max()), 1e-2), \
+                f"{what} {name}: {err}"
+            continue
+        if name.endswith("proj_k.bias"):
+            continue  # its gradient is zero in exact arithmetic: noise
+        dj, dt = r - before[name], got[name] - before[name]
+        assert float(dj.norm()) > 0, f"{what} {name}"
+        errs[name] = float((dt - dj).norm() / dj.norm())
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= LATER_UPDATE_MAX, f"{what} {worst}: {errs[worst]}"
+    median = float(np.median(list(errs.values())))
+    assert median <= LATER_UPDATE_MEDIAN, f"{what}: median {median}"
+
+
+def _adam_state(opt_state):
+    """The ``scale_by_adam`` state inside the JAX trainer's optimizer state."""
+    found = []
+
+    def walk(node):
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            found.append(node)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+        elif hasattr(node, "inner_state"):
+            walk(node.inner_state)
+
+    walk(opt_state)
+    assert len(found) == 1
+    return found[0]
+
+
+def _bridged(ttrainer, jstate):
+    """The whole JAX state (weights, BatchNorm statistics, AdamW moments and
+    count) as a state of the port's trainer."""
+    adam = _adam_state(jstate.opt_state)
+    state_dict, adamw = train_state_to_torch(
+        _np_tree(jstate.params), _np_tree(jstate.batch_stats),
+        {"mu": _np_tree(adam.mu), "nu": _np_tree(adam.nu),
+         "count": int(adam.count)})
+    assert adamw["step"] == int(jstate.step)
+    tstate = ttrainer.create_state(state_dict=state_dict)
+    load_adamw_state(tstate.optimizer, tstate.net, adamw)
+    tstate.step = adamw["step"]
+    return tstate
+
+
 def _three_steps(loss_type, eps):
+    """Three JAX steps in a row. The port takes step 1 from the bridged
+    weights and each later step from the whole JAX state before it (AdamW's
+    moments and count included): left to run on its own it parts from JAX by
+    more than an update's size within two steps (see the LATER_* limits),
+    and a comparison that loose would pass a port that took no step at all.
+    Yields, per step, both states and metrics after it, both renders, and
+    the port's tensors before it."""
     jtrainer, jstate0, ttrainer, variables = _setup(loss_type, eps)
     jstate = jstate0
-    tstate = ttrainer.create_state(state_dict=flax_to_state_dict(variables))
     ds = _dataset()
     rng = jax.random.PRNGKey(1)
-    history = []
     for step in range(3):
         batch = tprefetch.collate([ds[2 * step], ds[2 * step + 1]])
+        if step == 0:
+            tstate = ttrainer.create_state(
+                state_dict=flax_to_state_dict(variables))
+        else:
+            tstate = _bridged(ttrainer, jstate)
+        before = {k: v.clone() for k, v in tstate.net.state_dict().items()}
         # the JAX step donates its state: hand it a copy, keep ours alive
         jstate, jm, jrender = jtrainer._train_step(
             jax.tree_util.tree_map(jnp.copy, jstate),
             {k: jnp.asarray(v) for k, v in batch.items()}, rng)
         tstate, tm, trender = ttrainer.train_step(tstate, batch, rng=1)
-        history.append((step, jstate, tstate, jm, tm, jrender, trender))
-        yield history[-1]
+        yield step, jstate, tstate, jm, tm, jrender, trender, before
 
 
 def test_batchnorm_layer_matches_flax():
@@ -387,66 +475,60 @@ def test_batchnorm_running_statistics_match_flax():
 
 
 def test_three_steps_match_jax_default_eps():
-    """MSE loss, AdamW at its default eps 1e-8. Loss and global gradient
-    norm: 1e-5 relative. Parameters: with eps this small Adam's first steps
-    move every entry by about the learning rate in the direction of its
-    gradient's sign, so an entry whose gradient is rounding noise (the bias
-    of proj_k, which the softmax ignores) may go the other way: entries are
-    held to Adam's own bound 2.2 * lr * steps, and after step 1 also 95%
-    of each tensor's entries to the tolerance of the smooth case below."""
+    """MSE loss, AdamW at its default eps 1e-8, three steps (``_three_steps``).
+    Step 1: loss 1e-5 relative, global gradient norm GRAD_NORM_REL, render
+    5e-3. Parameters: with eps this small Adam's first step moves every
+    entry by about the learning rate in the direction of its gradient's
+    sign, so an entry whose gradient is rounding noise (the bias of proj_k,
+    which the softmax ignores) may go the other way: entries are held to
+    Adam's own bound 2.2 * lr, and 95% of each tensor's entries to the
+    tolerance of the smooth case below. Steps 2 and 3: the LATER_* limits."""
     lr = LR
-    for step, jstate, tstate, jm, tm, jrender, trender in _three_steps(
-            "MSE", 1e-8):
-        if step == 0:
-            _check_metrics(tm, jm, (
-                "train_batch_loss", "camera_encoder_grad_norm",
-                "train_batch_render_loss"), step)
-        else:
-            # entries whose gradient is noise have gone opposite ways by
-            # now; this tiny model at random weights amplifies that (its
-            # gradient norm parts by 15%), so only the loss is compared
-            np.testing.assert_allclose(float(tm["train_batch_loss"]),
-                                       float(jm["train_batch_loss"]), rtol=1e-1)
+    keys = ("train_batch_loss", "camera_encoder_grad_norm",
+            "train_batch_render_loss")
+    for step, jstate, tstate, jm, tm, jrender, trender, before in \
+            _three_steps("MSE", 1e-8):
+        assert tstate.step == step + 1 == int(jstate.step)
+        if step > 0:
+            _check_later_step(f"step {step + 1}", jstate, tstate, jm, tm,
+                              jrender, trender, before, keys)
+            continue
+        _check_metrics(tm, jm, keys)
         # renders are sigmoid outputs; the sites' bf16 flips move them by
         # up to ~2e-3 at equal weights (test_torch_slice.py holds 5e-3)
-        if step == 0:
-            np.testing.assert_allclose(trender.numpy(), np.asarray(jrender),
-                                       atol=5e-3, rtol=0)
+        np.testing.assert_allclose(trender.numpy(), np.asarray(jrender),
+                                   atol=5e-3, rtol=0)
         ref = flax_to_state_dict(_np_tree({"params": jstate.params}))
         got = tstate.net.state_dict()
         for name, r in ref.items():
             d = (got[name] - r).abs()
-            assert float(d.max()) <= 2.2 * lr * (step + 1), name
-            if name.endswith("proj_k.bias") or step > 0:
+            assert float(d.max()) <= 2.2 * lr, name
+            if name.endswith("proj_k.bias"):
                 continue  # a gradient that is zero in exact arithmetic
-            tol = (1e-5 * float(r.abs().max()) + 0.2 * lr) * (step + 1)
+            tol = 1e-5 * float(r.abs().max()) + 0.2 * lr
             assert float((d <= tol).float().mean()) >= 0.95, name
-        assert tstate.step == step + 1 == int(jstate.step)
 
 
 def test_three_steps_match_jax_parameter_for_parameter():
     """MSE + contrastive loss with AdamW's eps at 1e-3, where the update is
-    smooth in the gradient: loss, gradient norm, every parameter and every
-    BatchNorm buffer agree to 1e-5 relative after step 1 (plus the slack of
-    ``_compare_states`` for tensors near zero), and each tensor's update to
-    0.2 of its largest entry. Steps 2 and 3 start from running statistics
-    that differ by the sites' flips, which this tiny model at random
-    weights amplifies until single gradient entries disagree by tens of
-    percent: there the parameters are held to 1e-5 relative per step plus
-    the size of the updates themselves (the learning rate per step), and
-    the metrics to what ``_check_metrics`` states. A strict comparison of a
-    later step is test_train_state_bridge_takes_the_next_step_equally,
-    which starts step 3 in both from one state."""
-    start = flax_to_state_dict(_setup("MSE_CONTRASTIVE", 1e-3)[3])
-    for step, jstate, tstate, jm, tm, _, _ in _three_steps(
-            "MSE_CONTRASTIVE", 1e-3):
-        _check_metrics(tm, jm, (
-            "train_batch_loss", "camera_encoder_grad_norm",
-            "train_batch_render_loss", "train_batch_retrieval_loss"), step)
-        _compare_states(tstate, jstate, 1e-5 * (step + 1), f"step {step + 1}",
-                        step + 1, slack=0.2 if step == 0 else 1.0)
+    smooth in the gradient, three steps (``_three_steps``). Step 1: loss,
+    gradient norm, every parameter and every BatchNorm buffer agree to 1e-5
+    relative (plus the slack of ``_compare_states`` for tensors near zero),
+    and each tensor's update to 0.2 of its largest entry. Steps 2 and 3:
+    the LATER_* limits, which hold every tensor's update too. Step 3 is
+    tighter than they say: test_train_state_bridge_takes_the_next_step_equally
+    holds it to 1e-5 as well."""
+    keys = ("train_batch_loss", "camera_encoder_grad_norm",
+            "train_batch_render_loss", "train_batch_retrieval_loss")
+    for step, jstate, tstate, jm, tm, jrender, trender, before in \
+            _three_steps("MSE_CONTRASTIVE", 1e-3):
+        assert tstate.step == step + 1 == int(jstate.step)
         if step > 0:
+            _check_later_step(f"step {step + 1}", jstate, tstate, jm, tm,
+                              jrender, trender, before, keys)
             continue
+        _check_metrics(tm, jm, keys)
+        _compare_states(tstate, jstate, 1e-5, "step 1")
         # the updates themselves (a parameter moves by at most the learning
         # rate per step, so the check above is loose about them): each
         # tensor's change since the start, held to 0.2 of its largest entry
@@ -456,52 +538,31 @@ def test_three_steps_match_jax_parameter_for_parameter():
         for name, r in ref.items():
             if name.endswith("proj_k.bias"):
                 continue  # its gradient is zero in exact arithmetic: noise
-            dj, dt = r - start[name], got[name] - start[name]
+            dj, dt = r - before[name], got[name] - before[name]
             assert float((dt - dj).abs().max()) <= \
                 0.2 * float(dj.abs().max()) + 1e-9, name
             assert float(dj.abs().max()) > 0, name
-
-
-def _adam_state(opt_state):
-    """The ``scale_by_adam`` state inside the JAX trainer's optimizer state."""
-    found = []
-
-    def walk(node):
-        if hasattr(node, "mu") and hasattr(node, "nu"):
-            found.append(node)
-        elif isinstance(node, (tuple, list)):
-            for child in node:
-                walk(child)
-        elif hasattr(node, "inner_state"):
-            walk(node.inner_state)
-
-    walk(opt_state)
-    assert len(found) == 1
-    return found[0]
 
 
 def test_train_state_bridge_takes_the_next_step_equally():
     """Two JAX steps, then the whole state (weights, BatchNorm statistics,
     AdamW moments and count) crosses to the port and both take step 3."""
     steps = list(_three_steps("MSE_CONTRASTIVE", 1e-3))
-    jtrainer, _, ttrainer, _ = _setup("MSE_CONTRASTIVE", 1e-3)
+    _, _, ttrainer, _ = _setup("MSE_CONTRASTIVE", 1e-3)
     _, jstate2, *_ = steps[1]
     _, jstate3, _, jm3, *_ = steps[2]
-    adam = _adam_state(jstate2.opt_state)
-    state_dict, adamw = train_state_to_torch(
-        _np_tree(jstate2.params), _np_tree(jstate2.batch_stats),
-        {"mu": _np_tree(adam.mu), "nu": _np_tree(adam.nu),
-         "count": int(adam.count)})
-    assert adamw["step"] == 2
-    tstate = ttrainer.create_state(state_dict=state_dict)
-    load_adamw_state(tstate.optimizer, tstate.net, adamw)
-    tstate.step = adamw["step"]
+    tstate = _bridged(ttrainer, jstate2)
+    assert tstate.step == 2
+    # the moments did cross: AdamW's state is that of two steps taken
+    moments = tstate.optimizer.state_dict()["state"]
+    assert moments and all(int(m["step"]) == 2 for m in moments.values())
+    assert any(float(m["exp_avg_sq"].max()) > 0 for m in moments.values())
     ds = _dataset()
     tstate, tm, _ = ttrainer.train_step(
         tstate, tprefetch.collate([ds[4], ds[5]]), rng=1)
     np.testing.assert_allclose(float(tm["train_batch_loss"]),
                                float(jm3["train_batch_loss"]), rtol=1e-5)
-    _compare_states(tstate, jstate3, 1e-5, "step 3 from the bridged state", 1)
+    _compare_states(tstate, jstate3, 1e-5, "step 3 from the bridged state")
     assert tstate.step == 3
 
 
