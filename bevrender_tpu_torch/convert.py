@@ -6,6 +6,11 @@ output, moved to numpy) and returns tensors under the port's module names,
 which follow the flax names:
 
 * conv kernels (kh, kw, in/groups, out) -> weight (out, in/groups, kh, kw);
+* the kernel of a stage's ``transition`` that is a 2 x 2 transposed conv
+  (an upsampling stage of a pyramid config; its other transitions are 1 x 1
+  or 3 x 3 convs) -> weight ``K[::-1, ::-1]`` as (in, out, kh, kw): flax's
+  transposed conv reads the kernel flipped against PyTorch's
+  (``models.layers.ConvTranspose``);
 * dense kernels (in, out) -> weight (out, in);
 * LayerNorm / BatchNorm ``scale`` -> ``weight``;
 * ``batch_stats`` mean / var -> ``running_mean`` / ``running_var``, with a
@@ -43,8 +48,16 @@ def _unstack(path: tuple, arr: np.ndarray):
             for d in range(arr.shape[0])]
 
 
-def _param(name: str, arr: np.ndarray):
+def _is_conv_transpose(path: tuple, arr: np.ndarray) -> bool:
+    return (len(path) >= 2 and path[-2] == "transition" and arr.ndim == 4
+            and arr.shape[:2] == (2, 2))
+
+
+def _param(path: tuple, arr: np.ndarray):
+    name = path[-1]
     if name == "kernel":
+        if _is_conv_transpose(path, arr):
+            return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
         if arr.ndim == 2:
@@ -58,14 +71,14 @@ def _param(name: str, arr: np.ndarray):
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, dtype=np.float32))  # a copy
+    return torch.tensor(np.ascontiguousarray(a, dtype=np.float32))  # a copy
 
 
 def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(variables["params"]):
         for p, a in _unstack(path, arr):
-            name, a = _param(p[-1], a)
+            name, a = _param(p, a)
             out[".".join(p[:-1] + (name,))] = _tensor(a)
     for path, arr in _leaves(variables.get("batch_stats", {})):
         for p, a in _unstack(path, arr):

@@ -60,6 +60,8 @@ class ResNetTrunk(nn.Module):
 class ResNet18WoFPN(nn.Module):
     """Constant-64-channel ResNet-18; stride 2 in conv3_x at BEV 28."""
 
+    out_dim = 64
+
     def __init__(self, bev_dim: int, norm, cd=None):
         super().__init__()
         strides = (1, 2, 1, 1) if bev_dim == 28 else (1, 1, 1, 1)
@@ -75,6 +77,7 @@ class PatchProjection(nn.Module):
 
     def __init__(self, embed_dim: int, patch_size: int, cd=None):
         super().__init__()
+        self.out_dim = embed_dim
         self.n_convs = {4: 2, 8: 3, 16: 4}[patch_size]
         c_in = 3
         for i in range(self.n_convs):

@@ -11,9 +11,15 @@ One ``EncoderLayer``::
 
 with one LayerNorm shared by the four uses. The flax tree stacks a stage's
 layers along a leading depth axis; here they are ``stage{s}.layers.{i}``.
-The history warp runs once per pass, in ``BEVEncoder``. Stage transitions
-and per-stage width fixes exist only for pyramid configs, which this slice
-does not port: ``BEVEncoder`` takes uniform configs (the flagship's).
+The history warp runs once per pass, in ``BEVEncoder``.
+
+Pyramid configs (the reference default, BEV 56 -> 7 -> 56 at widths 64 to
+512) add, per stage, a ``transition`` to the next stage's shape and width
+(encoder.py:231-247): a 1x1 conv when only the width changes, a 3x3 stride-2
+conv going down, a 2x2 stride-2 transposed conv going up; an
+``img_width_fix{s}`` dense layer on the image features wherever their width
+differs from the stage's; and the history ``prev_bev`` only at the stages
+whose BEV shape and width equal stage 0's (encoder.py:293-345).
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from bevrender_tpu_torch.models.backbone import build_backbone
 from bevrender_tpu_torch.models.layers import (
     Conv,
     ConvMLP,
+    ConvTranspose,
+    Dense,
     DropPath,
     LayerNorm,
     compute_dtype,
@@ -75,17 +83,30 @@ class EncoderLayer(nn.Module):
         return dp(self.sca_mlp(ln(x))) + x
 
 
-class BEVEncoderStage(nn.Module):
-    """``depth`` EncoderLayers of one stage (no transition: uniform)."""
+def _transition(dim: int, next_dim: int, bev: int, next_bev: int, cd):
+    """The stage's exit to the next stage's shape and width, or None."""
+    if bev == next_bev:
+        return None if dim == next_dim else Conv(dim, next_dim, 1,
+                                                 compute_dtype=cd)
+    if bev > next_bev:
+        return Conv(dim, next_dim, 3, stride=2, padding=1, compute_dtype=cd)
+    return ConvTranspose(dim, next_dim)
 
-    def __init__(self, depth: int, **layer_kw):
+
+class BEVEncoderStage(nn.Module):
+    """``depth`` EncoderLayers of one stage, then its ``transition``."""
+
+    def __init__(self, depth: int, next_dim: int, next_bev: int, **layer_kw):
         super().__init__()
         self.layers = nn.ModuleList(EncoderLayer(**layer_kw) for _ in range(depth))
+        self.transition = _transition(layer_kw["dim"], next_dim,
+                                      layer_kw["bev"], next_bev,
+                                      layer_kw["cd"])
 
     def forward(self, x, img_feat, prev_bev, reference_points):
         for layer in self.layers:
             x = layer(x, img_feat, prev_bev, reference_points)
-        return x
+        return x if self.transition is None else self.transition(x)
 
 
 class BEVEncoder(nn.Module):
@@ -94,18 +115,24 @@ class BEVEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         n = cfg.n_stages
-        if (len(set(cfg.bev_shapes[: n + 1])) != 1
-                or len(set(cfg.embed_dims[: n + 1])) != 1):
-            raise NotImplementedError(
-                "pyramid configs (stage transitions) are not ported yet")
         cd = compute_dtype(cfg.dtype)
         self.n_stages = n
         self.img_backbone = build_backbone(
             cfg.backbone, cfg.embed_dims[0], cfg.bev_shapes[0], cfg.img_height,
             make_norm(cfg.norm), cd)
+        feat_dim = self.img_backbone.out_dim
+        # stages that see the history: BEV shape and width of stage 0
+        self.with_history = [
+            cfg.bev_shapes[s] == cfg.bev_shapes[0]
+            and cfg.embed_dims[s] == cfg.embed_dims[0] for s in range(n)]
         for s in range(n):
+            if cfg.embed_dims[s] != feat_dim:
+                self.add_module(f"img_width_fix{s}",
+                                Dense(feat_dim, cfg.embed_dims[s], cd))
             self.add_module(f"stage{s}", BEVEncoderStage(
-                cfg.depths[s], dim=cfg.embed_dims[s], bev=cfg.bev_shapes[s],
+                cfg.depths[s], next_dim=cfg.embed_dims[s + 1],
+                next_bev=cfg.bev_shapes[s + 1],
+                dim=cfg.embed_dims[s], bev=cfg.bev_shapes[s],
                 bev_depth_dim=cfg.bev_depth_dim, n_heads=cfg.n_heads[s],
                 n_groups=cfg.n_groups[s], stride=cfg.strides[s],
                 kernel_size=cfg.kernel_sizes[s], n_views=cfg.num_views,
@@ -127,6 +154,9 @@ class BEVEncoder(nn.Module):
             prev_bev = project_history_bev(prev_bev, vehicle_pose)
         x = bev_query
         for s in range(self.n_stages):
-            x = getattr(self, f"stage{s}")(x, img_feat, prev_bev,
-                                           reference_points[s])
+            fix = getattr(self, f"img_width_fix{s}", None)
+            x = getattr(self, f"stage{s}")(
+                x, img_feat if fix is None else fix(img_feat),
+                prev_bev if self.with_history[s] else None,
+                reference_points[s])
         return x

@@ -26,9 +26,10 @@ def _dtype(x: torch.Tensor, w: torch.Tensor, cd: Optional[torch.dtype]):
 
 
 class Conv(nn.Conv2d):
-    """flax ``nn.Conv`` on NHWC. ``padding`` is symmetric per side; flax's
-    default SAME equals 0 for every 1x1 conv and for the stride-(2,1)
-    offset conv at even heights, which are the only SAME uses here."""
+    """flax ``nn.Conv`` on NHWC. ``padding`` is symmetric per side. flax's
+    default SAME is 0 for every 1x1 conv; for the stride-(2,1) offset conv
+    of SCA it is 0 at even heights and one row at the bottom at odd ones,
+    which ``SCADeformableAttention`` adds with ``F.pad`` before the conv."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=1,
                  padding=0, groups: int = 1, bias: bool = True,
@@ -42,6 +43,25 @@ class Conv(nn.Conv2d):
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
                      self.stride, self.padding, self.dilation, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose`` with kernel 2, stride 2 and its default
+    SAME padding on NHWC: ``out[2i + a, 2j + b] = x[i, j] . K[1 - a, 1 - b]``
+    for the flax kernel K (kh, kw, in, out), which is PyTorch's transposed
+    conv with weight ``K[::-1, ::-1]`` as (in, out, kh, kw)
+    (``convert.flax_to_state_dict`` flips it). flax computes it in the
+    promoted type of input and kernel (no compute dtype: float32 params
+    give float32 out), and so does this module."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, 2, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
+                               self.weight.to(dt), self.bias.to(dt), stride=2)
         return y.permute(0, 2, 3, 1)
 
 
@@ -175,7 +195,8 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
     """Seeded initialisation following the JAX package's initialisers
     (layers.py:160-197, bevrender.py:45-49): Kaiming normal (fan_out) for
     convs, Xavier uniform for dense layers, zero biases, unit norms, a
-    trunc-normal(0.01) rpe table and a uniform [0, 1) BEV embedding. The
+    trunc-normal(0.01) rpe table, a uniform [0, 1) BEV embedding, and flax's
+    default LeCun normal (fan_in) for the transposed convs. The
     numbers differ from JAX's for the same seed; only the distributions
     match."""
     gen = torch.Generator().manual_seed(seed)
@@ -185,7 +206,14 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
                                     nonlinearity="relu", generator=gen)
         elif isinstance(mod, Dense):
             nn.init.xavier_uniform_(mod.weight, generator=gen)
-        if isinstance(mod, (Conv, Dense)) and mod.bias is not None:
+        elif isinstance(mod, ConvTranspose):
+            # truncated at 2 std and rescaled, as jax's variance_scaling
+            fan_in = mod.weight[:, 0].numel()  # in * kh * kw
+            std = fan_in ** -0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=gen)
+        if (isinstance(mod, (Conv, Dense, ConvTranspose))
+                and mod.bias is not None):
             mod.bias.zero_()
         if isinstance(mod, (LayerNorm, BatchNorm)):
             mod.reset_parameters()

@@ -17,10 +17,11 @@ Hand-written CUDA kernels carry this on the card (``ops/kernels``):
 ``lattice_bias`` computes the bias alone (sites with head width > 8, and
 every site of a training pass unless ``fused_bwd`` is chosen; scores,
 softmax and AV stay plain PyTorch there) and ``lattice_bias_bwd`` is its
-backward; ``fused_site`` computes bias, scores, an online softmax and AV in
-one pass (head width <= 8, no gradient), ``fused_site_lse`` also returns
-the logsumexp and ``fused_site_bwd`` is the flash-style backward of that
-site. The functions ``lattice_bias``, ``fused_site`` and ``fused_site_train``
+backward, or ``lattice_bias_wide`` and ``lattice_bias_wide_bwd`` where the
+table does not fit their shared memory (``bias_route``); ``fused_site``
+computes bias, scores, an online softmax and AV in one pass (head width
+<= 8, no gradient), ``fused_site_lse`` also returns the logsumexp and
+``fused_site_bwd`` is the flash-style backward of that site. The functions ``lattice_bias``, ``fused_site`` and ``fused_site_train``
 below launch them for CUDA tensors and run their plain versions, with
 autograd, for CPU tensors.
 
@@ -42,8 +43,8 @@ from bevrender_tpu_torch.ops.kernels import fused_site as _fused_site_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_bwd as _site_bwd_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias as _bias_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias_bwd as _bias_bwd_kernel
+from bevrender_tpu_torch.ops.kernels._launch import PAD, SMEM_PER_BLOCK
 
-PAD = 4
 # float32 constants of the site kernels, which keep their scores in base 2
 LOG2E = float(np.float32(1.4426950408889634))
 LN2 = float(np.float32(0.6931471805599453))
@@ -271,22 +272,45 @@ def _kernel_args(table, k_pos, H: int, W: int):
             *_geometry_args(table, k_pos.detach(), H, W))
 
 
+def bias_route(table_shape, H: int, W: int) -> str:
+    """Which bias kernels a site takes on the card, from its shapes alone:
+    "whole" (``lattice_bias`` / ``lattice_bias_bwd``) when a group's
+    zero-padded bf16 table (Hpg heads) fits in the shared memory of one
+    block, and so does one head's table with its float32 gradient (6 bytes
+    an entry); "wide" (``lattice_bias_wide`` / ``lattice_bias_wide_bwd``)
+    when not. The padded table is (2H - 1 + 2 PAD) x ``padded_width``; a
+    block may use ``SMEM_PER_BLOCK`` (227 KB on an H100). Of the pyramid's
+    sites only SCA at BEV 56 is wide (2 x 119 x 849 x 2 B = 404 KB
+    forward); its TSA at BEV 56 (84 KB forward, 126 KB backward) and every
+    flagship site are whole."""
+    _, Hpg, Ht, Wt = table_shape
+    padded = (Ht + 2 * PAD) * padded_width(Wt, W)
+    fits = max(Hpg * padded * 2, padded * 6) <= SMEM_PER_BLOCK
+    return "whole" if fits else "wide"
+
+
 class _LatticeBiasFn(torch.autograd.Function):
-    """``lattice_bias`` kernel forward, ``lattice_bias_bwd`` kernel backward.
-    Differentiable inputs: the table and the fractions wy, f."""
+    """Bias forward kernel, its backward kernel as the backward, both of
+    the site's ``bias_route``. Differentiable inputs: the table and the
+    fractions wy, f."""
 
     @staticmethod
     def forward(ctx, table, wy, f, ys, ms, u0, g, Xp, H, W):
         tb = table.to(torch.bfloat16).contiguous()
         ctx.save_for_backward(tb, ys, ms, wy, f, u0, g)
-        ctx.meta = (Xp, H, W, table.dtype)
+        wide = bias_route(table.shape, H, W) == "wide"
+        ctx.meta = (Xp, H, W, table.dtype, wide)
+        if wide:
+            return _bias_kernel.lattice_bias_wide_cuda(tb, ys, ms, wy, f, u0,
+                                                       g, H, W)
         return _bias_kernel.lattice_bias_cuda(tb, ys, ms, wy, f, u0, g, Xp, H, W)
 
     @staticmethod
     def backward(ctx, gout):
-        Xp, H, W, dtype = ctx.meta
-        dtable, dwy, df = _bias_bwd_kernel.lattice_bias_bwd_cuda(
-            *ctx.saved_tensors, Xp, gout.contiguous(), H, W)
+        Xp, H, W, dtype, wide = ctx.meta
+        bwd = (_bias_bwd_kernel.lattice_bias_wide_bwd_cuda if wide
+               else _bias_bwd_kernel.lattice_bias_bwd_cuda)
+        dtable, dwy, df = bwd(*ctx.saved_tensors, Xp, gout.contiguous(), H, W)
         return (dtable.to(dtype), dwy, df) + (None,) * 7
 
 
@@ -318,9 +342,10 @@ class _FusedSiteTrainFn(torch.autograd.Function):
 
 
 def lattice_bias(table, k_pos, H: int, W: int) -> torch.Tensor:
-    """n-major rpe bias (B, G, Hpg, N, H*W): the CUDA kernel (bf16 out) for
-    CUDA tensors, with the ``lattice_bias_bwd`` kernel as its backward; the
-    plain version (bf16 lerps, float32 out, autograd) for CPU."""
+    """n-major rpe bias (B, G, Hpg, N, H*W): for CUDA tensors the CUDA
+    kernel of the site's ``bias_route`` (bf16 out), with its backward
+    kernel as the backward; the plain version (bf16 lerps, float32 out,
+    autograd) for CPU."""
     if not table.is_cuda:
         return lattice_bias_plain(table, k_pos, H, W)
     ys, ms, wy, f, u0, g, Xp = _geometry_args(table, k_pos, H, W)

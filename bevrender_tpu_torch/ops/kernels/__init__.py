@@ -16,6 +16,8 @@ _COUNTERS = {
     "lattice_bias_bwd": (lattice_bias_bwd, "launches"),
     "fused_site_lse": (fused_site, "launches_lse"),
     "fused_site_bwd": (fused_site_bwd, "launches"),
+    "lattice_bias_wide": (lattice_bias, "launches_wide"),
+    "lattice_bias_wide_bwd": (lattice_bias_bwd, "launches_wide"),
 }
 
 

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "bevrender_tpu_torch"
-SOURCES = ("lattice_bias", "fused_site", "lattice_bias_bwd", "fused_site_bwd")
+SOURCES = ("lattice_bias", "fused_site", "lattice_bias_bwd", "fused_site_bwd",
+           "lattice_bias_wide", "lattice_bias_wide_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

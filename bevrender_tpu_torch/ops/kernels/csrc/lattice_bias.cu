@@ -12,21 +12,17 @@
 // inputs are the table and 16 bytes of geometry per key. A block takes one
 // (b, g) and a run of keys and loads the group's table once; each thread
 // computes VEC = 8 consecutive outputs of one (key, head) row and stores
-// them as one 16-byte vector, so H * W must be a multiple of 8 (the wrapper
-// checks it).
+// them as one 16-byte vector where M = H * W is a multiple of 8, and one
+// output with a 2-byte store otherwise (the pyramid's M = 196 and 49, at
+// BEV 14 and 7). The group's table must fit in shared memory; the sites
+// whose table does not take lattice_bias_wide.cu
+// (bevrender_tpu_torch/ops/deform_attn.py::bias_route).
 
 #include "lattice_common.cuh"
 
 namespace {
 
-// two floats -> two round-to-nearest bf16 in one word, lower address first
-__device__ __forceinline__ unsigned pack2(float a, float b) {
-  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
-         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
-}
-
-constexpr int VEC = 8;
-
+template <int VEC>
 __global__ void lattice_bias_kernel(
     const __nv_bfloat16* __restrict__ table,  // (G, Hpg, Ht, Wt)
     const int* __restrict__ ys, const int* __restrict__ ms,  // (B, G, N)
@@ -45,7 +41,7 @@ __global__ void lattice_bias_kernel(
   __syncthreads();
 
   const int M = H * W;
-  const int MV = M / VEC;  // vectors per (key, head) row
+  const int MV = M / VEC;  // vectors per (key, head) row (VEC divides M)
   const int n0 = blockIdx.x * keys_per_block;
   const int nk = min(keys_per_block, N - n0);
   for (int i = threadIdx.x; i < nk * Hpg * MV; i += blockDim.x) {
@@ -70,13 +66,26 @@ __global__ void lattice_bias_kernel(
       }
     }
     __nv_bfloat16* dst = out + ((((size_t)b * G + g) * Hpg + h) * N + n) * M + m;
-    uint4 pk;
-    pk.x = pack2(vals[0], vals[1]);
-    pk.y = pack2(vals[2], vals[3]);
-    pk.z = pack2(vals[4], vals[5]);
-    pk.w = pack2(vals[6], vals[7]);
-    *reinterpret_cast<uint4*>(dst) = pk;
+    lattice::store_bf16<VEC>(dst, vals);
   }
+}
+
+template <int VEC>
+int launch(const void* table, const void* ys, const void* ms, const void* wy,
+           const void* fx, const void* u0, const void* gcomb, void* out,
+           int B, int G, int Hpg, int Ht, int Wt, int Xp, int N, int H, int W,
+           int keys_per_block, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)Hpg * (Ht + 2 * lattice::PAD) * Xp * sizeof(__nv_bfloat16);
+  int rc = lattice::set_smem((const void*)lattice_bias_kernel<VEC>, smem);
+  if (rc) return rc;
+  dim3 grid((N + keys_per_block - 1) / keys_per_block, G, B);
+  lattice_bias_kernel<VEC><<<grid, 256, smem, stream>>>(
+      (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
+      (const float*)wy, (const float*)fx, (const int*)u0,
+      (const float*)gcomb, (__nv_bfloat16*)out, G, Hpg, Ht, Wt, Xp, N, H, W,
+      keys_per_block);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -88,16 +97,7 @@ extern "C" int lattice_bias_launch(const void* table, const void* ys,
                                    int Hpg, int Ht, int Wt, int Xp, int N,
                                    int H, int W, int keys_per_block,
                                    void* stream) {
-  if ((H * W) % VEC != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)Hpg * (Ht + 2 * lattice::PAD) * Xp * sizeof(__nv_bfloat16);
-  int rc = lattice::set_smem((const void*)lattice_bias_kernel, smem);
-  if (rc) return rc;
-  dim3 grid((N + keys_per_block - 1) / keys_per_block, G, B);
-  lattice_bias_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
-      (const float*)wy, (const float*)fx, (const int*)u0,
-      (const float*)gcomb, (__nv_bfloat16*)out, G, Hpg, Ht, Wt, Xp, N, H, W,
-      keys_per_block);
-  return (int)cudaGetLastError();
+  auto fn = (H * W) % 8 == 0 ? launch<8> : launch<1>;
+  return fn(table, ys, ms, wy, fx, u0, gcomb, out, B, G, Hpg, Ht, Wt, Xp, N,
+            H, W, keys_per_block, (cudaStream_t)stream);
 }

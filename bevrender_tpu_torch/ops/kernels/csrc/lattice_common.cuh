@@ -132,6 +132,41 @@ __device__ __forceinline__ void stage_padded(__nv_bfloat16* dst,
   }
 }
 
+// Entry (r, c) of the zero-padded table (padded coordinates: PAD rows above,
+// PAD columns on the left), read from the raw (Ht, Wt) table in device
+// memory: the bounds checks stand in for the padding.
+__device__ __forceinline__ float padded_at(const __nv_bfloat16* __restrict__ t,
+                                           int Ht, int Wt, int r, int c) {
+  r -= PAD;
+  c -= PAD;
+  if ((unsigned)r >= (unsigned)Ht || (unsigned)c >= (unsigned)Wt) return 0.0f;
+  return __bfloat162float(__ldg(t + (size_t)r * Wt + c));
+}
+
+// two floats -> two round-to-nearest bf16 in one word, lower address first
+__device__ __forceinline__ unsigned pack2(float a, float b) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+
+// Store VEC consecutive outputs as bf16: one 16-byte vector for VEC = 8
+// (`dst` 16-byte aligned), one 2-byte store for VEC = 1.
+template <int VEC>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* dst,
+                                           const float* vals) {
+  static_assert(VEC == 8 || VEC == 1, "VEC is 8 or 1");
+  if constexpr (VEC == 8) {
+    uint4 pk;
+    pk.x = pack2(vals[0], vals[1]);
+    pk.y = pack2(vals[2], vals[3]);
+    pk.z = pack2(vals[4], vals[5]);
+    pk.w = pack2(vals[6], vals[7]);
+    *reinterpret_cast<uint4*>(dst) = pk;
+  } else {
+    dst[0] = __float2bfloat16_rn(vals[0]);
+  }
+}
+
 inline int set_smem(const void* kernel, size_t bytes) {
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from bevrender_tpu_torch.ops.kernels._launch import call, check
+from bevrender_tpu_torch.ops.kernels._launch import call, check, check_geometry
 
 launches = 0  # kernel launches since the last reset (ops.kernels.reset_counts)
 launches_lse = 0  # launches of the instance that writes the logsumexp
@@ -20,20 +20,13 @@ KEY_TILE = 32  # keys per online-softmax step, KT in csrc/fused_site.cu
 def check_site_args(table, ys, ms, wy, f, u0, g, q, k, v, H: int, W: int):
     """Shape, dtype, device and layout checks shared by the site kernels'
     wrappers; returns (B, G, Hpg, Ht, Wt, N, ch)."""
-    G, Hpg, Ht, Wt = table.shape
-    B, _, N = ys.shape
     ch = q.shape[-1]
-    dev = table.device
     if ch not in HEAD_WIDTHS:
         raise ValueError(f"fused site takes head widths {HEAD_WIDTHS}, got {ch}")
-    if dev.type != "cuda":
-        raise ValueError("the fused site kernels take CUDA tensors")
-    check("table", table, torch.bfloat16, (G, Hpg, 2 * H - 1, Wt), dev)
-    for name, t, dt in (("ys", ys, torch.int32), ("ms", ms, torch.int32),
-                        ("wy", wy, torch.float32), ("f", f, torch.float32)):
-        check(name, t, dt, (B, G, N), dev)
-    check("u0", u0, torch.int32, (W,), dev)
-    check("g", g, torch.float32, (W,), dev)
+    check_geometry("the fused site kernels", table, ys, ms, wy, f, u0, g, H, W)
+    G, Hpg, Ht, Wt = table.shape
+    B, _, N = ys.shape
+    dev = table.device
     check("q", q, torch.bfloat16, (B, G, Hpg, H * W, ch), dev)
     check("k", k, torch.bfloat16, (B, G, Hpg, N, ch), dev)
     check("v", v, torch.bfloat16, (B, G, Hpg, N, ch), dev)

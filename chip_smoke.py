@@ -39,7 +39,26 @@ Phases, each fatal on failure:
 9. the small model's parameter gradients through the kernels against
    plain PyTorch that rounds as the kernels do, under both routes; then
    one K-fold epoch of ``Trainer.train`` on that model on the card, with
-   the pinned-memory prefetch, validation, recall and checkpoints.
+   the pinned-memory prefetch, validation, recall and checkpoints;
+10. the pyramid (``Config()``, the reference default: BEV 56-28-14-7-14-28-
+    56, widths 64-512, ResNet-18, 3 views of 224 x 224) in bf16, serving:
+    render+register at B=2, T=2 against 64 tiles, one warm-up and
+    PYR_REQUESTS requests with exact launch counts (no fused site; SCA at
+    BEV 56 on the wide bias kernel, every other site on the whole-table
+    one), the same measurements as phase 3;
+11. the pyramid training: ``Trainer`` at B=2, T=2 as in phase 6, exact
+    launch counts of the four bias kernels per step, every parameter
+    (transitions, width fixes and rpe tables among them) with a finite
+    non-zero gradient, peak memory under ``site_remat`` "nothing" and
+    "none";
+12. the bias kernels at every pyramid shape against their plain versions
+    (forward, and backward through autograd) at two table scales: the
+    whole-table kernels at all eight shapes (M = 196 and 49 at BEV 14 and
+    7), the wide ones at BEV 56; times, bounds, the plain version's peak
+    memory;
+13. a small BEV 56 -> 28 -> 56 model whose SCA at 56 takes the wide kernels
+    through the normal dispatch: its parameter gradients through the
+    kernels against plain PyTorch with the kernels' roundings, as phase 9.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -76,18 +95,36 @@ TRAIN_B = 2
 # the site (site_remat "nothing"). With fused_bwd the 12 narrow sites take
 # the logsumexp forward and the site backward instead.
 TRAIN_COUNTS = {
-    (False, "nothing"): {"fused_site": 12, "lattice_bias": 32 + 44 + 44,
-                         "lattice_bias_bwd": 44, "fused_site_lse": 0,
-                         "fused_site_bwd": 0},
-    (False, "none"): {"fused_site": 12, "lattice_bias": 32 + 44,
-                      "lattice_bias_bwd": 44, "fused_site_lse": 0,
-                      "fused_site_bwd": 0},
-    (True, "nothing"): {"fused_site": 12, "lattice_bias": 32 + 32 + 32,
-                        "lattice_bias_bwd": 32, "fused_site_lse": 12,
-                        "fused_site_bwd": 12},
+    (False, "nothing"): dict(fused_site=12, lattice_bias=32 + 44 + 44,
+                             lattice_bias_bwd=44),
+    (False, "none"): dict(fused_site=12, lattice_bias=32 + 44,
+                          lattice_bias_bwd=44),
+    (True, "nothing"): dict(fused_site=12, lattice_bias=32 + 32 + 32,
+                            lattice_bias_bwd=32, fused_site_lse=12,
+                            fused_site_bwd=12),
 }
+SERVE_B = 4
 FUSED_PER_FORWARD = 24
 BIAS_PER_FORWARD = 64
+# The pyramid (Config(): BEV 56-28-14-7-14-28-56, widths 64-512, heads
+# 2-4-8-16-8-4-2, groups 1-2-4-8-4-2-1, depth 2). Head width 32 at every
+# stage: no fused site, every site takes the bias kernels. Per pass, per
+# layer: stages 0, 1, 5, 6 one TSA and three SCA sites (G < 4, one per
+# view), stages 2-4 one TSA and one SCA with the views folded; 22 per layer,
+# 44 per pass. SCA at BEV 56 (stages 0 and 6, 12 per pass) takes the wide
+# kernels (ops.deform_attn.bias_route), the 32 others the whole-table ones.
+PYR_B = 2
+PYR_REQUESTS = 10
+PYR_PER_FORWARD = dict(lattice_bias=2 * 32, lattice_bias_wide=2 * 12)  # T=2
+# a training step at T=2: the history pass (eval, no gradient), the final
+# pass, and with site_remat "nothing" every site's bias again in the
+# backward; fused_bwd changes nothing (head width 32)
+PYR_TRAIN_COUNTS = {
+    "nothing": dict(lattice_bias=32 * 3, lattice_bias_wide=12 * 3,
+                    lattice_bias_bwd=32, lattice_bias_wide_bwd=12),
+    "none": dict(lattice_bias=32 * 2, lattice_bias_wide=12 * 2,
+                 lattice_bias_bwd=32, lattice_bias_wide_bwd=12),
+}
 BIAS_ULP = 2.0 ** -7   # one bf16 ulp of x is at most |x| * 2^-7
 # fused site vs its plain version: both round p to bf16 (the kernel before
 # normalising, the plain version after), each off by at most 2^-8 of the
@@ -184,8 +221,111 @@ def device_ms(fn, iters: int, match: str = "") -> float:
     hits = [e for e in prof.key_averages() if match in e.key]
     us = sum(e.self_device_time_total for e in hits)
     if us <= 0:
+        print(f"  (the profiler recorded no device time for {match!r}: "
+              f"CUDA events instead)", flush=True)
         return events_ms(fn, iters)
     return us / (sum(e.count for e in hits) if match else iters) / 1e3
+
+
+def expected(**nonzero) -> dict:
+    """Launch counts with every kernel not named at 0."""
+    from bevrender_tpu_torch.ops import kernels
+
+    unknown = set(nonzero) - set(kernels.counts())
+    if unknown:
+        fail(f"unknown kernels {unknown}")
+    return {k: nonzero.get(k, 0) for k in kernels.counts()}
+
+
+def serving_phase(card: str, tag: str, cfg, B: int, requests: int,
+                  per_forward: dict) -> dict:
+    """render+register at B, T=2, V=3, 224 x 224 against a 64-tile
+    database, seeded weights: one warm-up request, then ``requests`` back to
+    back with exact launch counts (``per_forward`` per request); time,
+    spread, host CPU, peak memory, device idle share, top operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.inference.register import RegistrationPipeline
+    from bevrender_tpu_torch.ops import kernels
+
+    pipe = RegistrationPipeline(cfg, device="cuda", seed=0)
+    ds = SyntheticDataset(n_items=B, num_views=cfg.model.num_views,
+                          window_num_imgs=1, img_height=224, img_width=224)
+    batch = {k: torch.as_tensor(v) for k, v in ds.batch(B).items()}
+    rng = torch.Generator().manual_seed(1)
+    tiles = torch.rand(64, 224, 224, 3, generator=rng).numpy()
+    db = pipe.build_tile_database(list(tiles), batch_size=32)
+    if tuple(db.shape) != (64, 224 * 224 * 3):
+        fail(f"{tag}: tile database shape {tuple(db.shape)}")
+    pipe.register(batch, top_k=10)  # warm-up request (cuDNN autotune, ...)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(requests + 1)]
+    cpu0 = time.process_time()
+    marks[0].record()
+    for i in range(requests):
+        render, idx, dist = pipe.register(batch, top_k=10)
+        marks[i + 1].record()
+    marks[-1].synchronize()
+    host_cpu_ms = (time.process_time() - cpu0) * 1e3 / requests
+    counts = kernels.counts()
+    req_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    total_ms = marks[0].elapsed_time(marks[-1])
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = expected(**{k: v * requests for k, v in per_forward.items()})
+    print(f"{tag} serving launches over {requests} requests: {counts} "
+          f"(expected {want})", flush=True)
+    if counts != want:
+        fail(f"{tag}: launch counts {counts} != {want}")
+    if tuple(render.shape) != (B, 224, 224, 3) or not bool(
+            torch.isfinite(render.float()).all()):
+        fail(f"{tag}: render shape {tuple(render.shape)} or non-finite values")
+    if tuple(idx.shape) != (B, 10) or tuple(dist.shape) != (B, 10):
+        fail(f"{tag}: top-k shapes {tuple(idx.shape)} {tuple(dist.shape)}")
+    if not bool(((idx >= 0) & (idx < 64)).all()) or not bool(
+            (dist[:, 1:] >= dist[:, :-1]).all()):
+        fail(f"{tag}: top-k indices out of range or distances not ascending")
+    ms = total_ms / requests
+    q = statistics.quantiles(req_ms, n=20)
+    print(f"render+register {tag} bf16 B={B} T=2: {requests} requests "
+          f"back to back in {total_ms:.3f} ms, {ms:.3f} ms/request, "
+          f"{B / ms * 1e3:.2f} frames/s; per request min {min(req_ms):.3f} "
+          f"median {statistics.median(req_ms):.3f} p95 {q[-1]:.3f} max "
+          f"{max(req_ms):.3f} ms; host CPU {host_cpu_ms:.3f} ms/request; "
+          f"peak {peak_gb:.3f} GiB [{card}]", flush=True)
+    # one request per profile: over several, the profiler dropped events
+    profiled = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pipe.register(batch, top_k=10)
+            torch.cuda.synchronize()
+        avgs = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_device_time_total)
+        profiled.append((sum(e.self_device_time_total for e in avgs) / 1e3,
+                         avgs))
+    profiled.sort(key=lambda r: r[0])
+    busy, avgs = profiled[1]
+    idle = max(0.0, 1 - busy / ms)
+    seen = {n: sum(e.count for e in avgs if f"{n}_kernel" in e.key)
+            for n in per_forward}
+    print(f"{tag}: device time of one request (profiler, median of 3: "
+          f"{[round(r[0], 3) for r in profiled]}): busy {busy:.3f} ms of "
+          f"{ms:.3f} ms/request, idle share {idle:.3f}; kernel launches "
+          f"seen {seen}", flush=True)
+    for e in avgs[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+              f"{e.key[:100]}", flush=True)
+    del pipe, render, idx, dist, db
+    torch.cuda.empty_cache()
+    return dict(requests=requests, request_ms=ms, request_ms_min=min(req_ms),
+                request_ms_median=statistics.median(req_ms),
+                request_ms_p95=q[-1], request_ms_max=max(req_ms),
+                host_cpu_ms=host_cpu_ms, frames_per_s=B / ms * 1e3,
+                peak_gib=peak_gb, busy_ms=busy, idle_share=idle,
+                counts=counts)
 
 
 # Sites of one flagship forward at B=4, V=3, BEV 28 x 28 (H = W = 28):
@@ -241,11 +381,7 @@ def check_bias(da, kernel_mod) -> dict:
         ev = events_ms(launch, 20)
         plain = device_ms(lambda: da.lattice_bias_plain(tb, k_pos, H, W,
                                                         torch.float32), 5)
-        out_bytes = B * G * HPG * N * H * W * 2
-        nbytes = out_bytes + table.numel() * 2 + B * G * N * 16 + W * 8
-        ops = B * G * HPG * N * H * W * 12  # phi, floor, frac, 3 lerps x 3
-        bound = max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3
-        by = "bytes" if nbytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+        bound, by = bias_bounds(B, G, N, Wt, H, backward=False)
         rows.append(dict(site=name, ms=ms, events_ms=ev, plain_ms=plain,
                          bound_ms=bound, bound_by=by, per_forward=per_fwd,
                          max_abs_err=float(err.max())))
@@ -476,15 +612,7 @@ def check_bias_bwd(da, kernel_mod) -> dict:
                 gf = gout.float()
                 plain = device_ms(lambda: torch.autograd.grad(
                     ref, (t2, p2), gf, retain_graph=True), 3)
-                elems = B * G * HPG * N * H * W
-                nbytes = (elems * 2 + table.numel() * (2 + 4)
-                          + B * G * N * (16 + 8) + W * 8)
-                # per element: window fractions 3, two x-lerps 6, the tail
-                # 15 (dwy 3, d0/d1 3, df 7, 1 - wx, 4 weights as 2 per pair
-                # of corners) and 4 adds into the table gradient
-                ops = elems * 28
-                bound = max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3
-                by = "bytes" if nbytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+                bound, by = bias_bounds(B, G, N, Wt, H, backward=True)
                 rows.append(dict(site=name, ms=ms, events_ms=ev,
                                  plain_ms=plain, bound_ms=bound, bound_by=by,
                                  per_step=per_step, max_abs_err=err,
@@ -497,6 +625,165 @@ def check_bias_bwd(da, kernel_mod) -> dict:
     if bad:
         fail(f"lattice_bias / lattice_bias_bwd beyond tolerance at {bad}")
     return dict(rows=rows, worst=worst, worst_fwd=worst_fwd)
+
+
+# The bias sites of the pyramid at B=2 (serving and training alike): (name,
+# H, batch, G, N, table width). Folded SCA at B*V=6. The wide kernels are
+# also held at TSA 56, which takes the whole-table ones on the main path.
+PYR_BIAS_SITES = [
+    ("tsa56_g1_n49", 56, 2, 1, 49, 111),
+    ("sca56_g1_n7840", 56, 2, 1, 7840, 559),
+    ("tsa28_g2_n49", 28, 2, 2, 49, 55),
+    ("sca28_g2_n1960", 28, 2, 2, 1960, 279),
+    ("tsa14_g4_n49", 14, 2, 4, 49, 27),
+    ("sca14_bv6_g4_n490", 14, 6, 4, 490, 139),
+    ("tsa7_g8_n49", 7, 2, 8, 49, 13),
+    ("sca7_bv6_g8_n140", 7, 6, 8, 140, 69),
+]
+# launches per serving forward of each shape (both passes; training steps
+# launch 1.5x as many forwards and 0.5x as many backwards): TSA 2 per
+# stage-layer, SCA 6 per stage-layer at stages 0, 1, 5, 6 (3 views), 2 at
+# stages 2-4 (folded); stages 0/6, 1/5 and 2/4 share their shapes
+PYR_BIAS_PER_FORWARD = {
+    "tsa56_g1_n49": 8, "sca56_g1_n7840": 24, "tsa28_g2_n49": 8,
+    "sca28_g2_n1960": 24, "tsa14_g4_n49": 8, "sca14_bv6_g4_n490": 8,
+    "tsa7_g8_n49": 4, "sca7_bv6_g8_n140": 4,
+}
+PYR_WIDE_SITES = ("tsa56_g1_n49", "sca56_g1_n7840")
+
+
+def bias_inputs(seed, B, G, N, Wt, H, table_std):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randn(G, HPG, 2 * H - 1, Wt, generator=g,
+                        device="cuda") * table_std
+    k_pos = torch.rand(B, G, N, 2, generator=g, device="cuda") * 2.4 - 1.2
+    gout = torch.randn(B, G, HPG, N, H * H, generator=g,
+                       device="cuda").bfloat16()
+    return table, k_pos, gout
+
+
+def bias_bounds(B, G, N, Wt, H, backward: bool):
+    """(bound ms, what bounds it) of the bias forward or backward: bytes
+    (each input read once, each output written once) against float32
+    operations (forward 12 per element: phi, floor, frac and three lerps of
+    three; backward 28: window fractions 3, two x-lerps 6, the tail 15 (dwy
+    3, d0/d1 3, df 7, 1 - wx, 4 weights as 2 per pair of corners) and 4 adds
+    into the table gradient) at the H100's published peaks."""
+    elems = B * G * HPG * N * H * H
+    table = G * HPG * (2 * H - 1) * Wt
+    if backward:
+        nbytes = elems * 2 + table * (2 + 4) + B * G * N * (16 + 8) + H * 8
+        ops = elems * 28
+    else:
+        nbytes = elems * 2 + table * 2 + B * G * N * 16 + H * 8
+        ops = elems * 12
+    by = "bytes" if nbytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+    return max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3, by
+
+
+def check_pyramid_bias(da, kernels) -> dict:
+    """The bias kernels at every pyramid shape, forward against the plain
+    version (one bf16 ulp) and backward against autograd through it
+    (BWD_SUM_TOL of the largest entry), at two table scales: the whole-table
+    kernels at every shape, the wide ones at BEV 56. Times at table std
+    0.01; the plain version's peak memory at SCA 56."""
+    import torch
+
+    fwd = kernels.lattice_bias
+    bwd = kernels.lattice_bias_bwd
+    out_rows = {k: [] for k in ("lattice_bias", "lattice_bias_wide",
+                                "lattice_bias_bwd", "lattice_bias_wide_bwd")}
+    worst = {k: 0.0 for k in out_rows}
+    bad = []
+    for i, (name, H, B, G, N, Wt) in enumerate(PYR_BIAS_SITES):
+        routes = ["whole"] + (["wide"] if name in PYR_WIDE_SITES else [])
+        if da.bias_route((G, HPG, 2 * H - 1, Wt), H, H) == "wide":
+            routes = ["wide"]
+        for std in SITE_TABLE_STDS:
+            table, k_pos, gout = bias_inputs(70 + i, B, G, N, Wt, H, std)
+            args = da._kernel_args(table, k_pos, H, H)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t2 = table.bfloat16().float().requires_grad_()
+            p2 = k_pos.clone().requires_grad_()
+            ref = da.lattice_bias_plain(t2, p2, H, H, torch.float32)
+            rdt, rdp = torch.autograd.grad(ref, (t2, p2), gout.float(),
+                                           retain_graph=True)
+            plain_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            rb = ref.detach().bfloat16().float()
+            for route in routes:
+                wide = route == "wide"
+                kf, kb = (("lattice_bias_wide", "lattice_bias_wide_bwd")
+                          if wide else ("lattice_bias", "lattice_bias_bwd"))
+
+                def f_launch():
+                    if wide:
+                        return fwd.lattice_bias_wide_cuda(*args[:7], H, H)
+                    return fwd.lattice_bias_cuda(*args, H, H)
+
+                def b_launch():
+                    call = (bwd.lattice_bias_wide_bwd_cuda if wide
+                            else bwd.lattice_bias_bwd_cuda)
+                    return call(*args, gout, H, H)
+
+                with torch.no_grad():
+                    out = f_launch()
+                    dt, dwy, df = b_launch()
+                # dk_pos from the kernels' dwy, df through the geometry, as
+                # _LatticeBiasFn hands them to autograd
+                p3 = k_pos.clone().requires_grad_()
+                _, _, wy3, f3 = da.lattice_geometry(table.shape, p3, H, H)
+                (dp,) = torch.autograd.grad((wy3, f3), p3, (dwy, df))
+                torch.cuda.synchronize()
+                e_f = (out.float() - rb).abs()
+                ok_f = bool((e_f <= rb.abs() * BIAS_ULP).all())
+                e_t, e_p = rel_err(dt, rdt), rel_err(dp, rdp)
+                ok = (ok_f and e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL
+                      and bool(torch.isfinite(dt).all()))
+                print(f"pyramid bias {route} {name} table std {std}: forward "
+                      f"max abs err {float(e_f.max()):.3g} "
+                      f"({'within' if ok_f else 'BEYOND'} 1 bf16 ulp); "
+                      f"dtable rel err {e_t:.3g}, dk_pos rel err {e_p:.3g} "
+                      f"({'ok' if ok else 'FAIL'}); plain version's peak "
+                      f"{plain_gib:.3f} GiB", flush=True)
+                if not ok:
+                    bad.append(f"{route} {name} std {std}")
+                if std != SITE_TABLE_STDS[0]:
+                    continue
+                worst[kf] = max(worst[kf], float(e_f.max()))
+                worst[kb] = max(worst[kb], float((dt - rdt).abs().max()))
+                ms_f = device_ms(f_launch, 10, f"{kf}_kernel")
+                ms_b = device_ms(b_launch, 5, f"{kb}_kernel")
+                plain_f = device_ms(lambda: da.lattice_bias_plain(
+                    t2, p2, H, H, torch.float32), 3)
+                gf = gout.float()
+                plain_b = device_ms(lambda: torch.autograd.grad(
+                    ref, (t2, p2), gf, retain_graph=True), 3)
+                per = PYR_BIAS_PER_FORWARD[name] if (route == da.bias_route(
+                    table.shape, H, H)) else 0
+                # a training step runs the history pass, the final pass and
+                # its recomputation forward, and the final pass backward
+                for kname, ms, plain, err, launches in (
+                        (kf, ms_f, plain_f, float(e_f.max()),
+                         dict(per_forward=per, per_step=per * 3 // 2)),
+                        (kb, ms_b, plain_b, float((dt - rdt).abs().max()),
+                         dict(per_step=per // 2))):
+                    bound, by = bias_bounds(B, G, N, Wt, H, kname == kb)
+                    out_rows[kname].append(dict(
+                        site=name, ms=ms, plain_ms=plain, bound_ms=bound,
+                        bound_by=by, library_ms=None, max_abs_err=err,
+                        plain_peak_gib=plain_gib, **launches))
+                    print(f"pyramid {kname} {name}: kernel {ms:.4f} ms plain "
+                          f"{plain:.4f} ms bound {bound:.4f} ms ({by}); "
+                          f"launches {launches}", flush=True)
+                del out, dt, dwy, df, dp
+            del ref, rdt, rdp, rb, t2, p2, table, k_pos, gout, args
+            torch.cuda.empty_cache()
+    if bad:
+        fail(f"pyramid bias kernels beyond tolerance at {bad}")
+    return {k: dict(rows=v, worst=worst[k]) for k, v in out_rows.items()}
 
 
 def site_bwd_errors(da, kernels, seed, B, G, ch, N, Wt, table_std):
@@ -660,22 +947,21 @@ def check_site_train(da, kernels) -> tuple:
                  worst_online=worst["bwd_online"]))
 
 
-def train_phase(card: str, fused_bwd: bool, site_remat: str, steps: int,
-                profile_step: bool) -> dict:
-    """``steps`` optimizer steps of the flagship bf16 model on a fixed batch
-    after one warm-up step, with every check of a training step."""
+def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
+                steps: int, profile_step: bool, per_step: dict) -> dict:
+    """``steps`` optimizer steps of a bf16 model (``cfg``) on a fixed batch
+    after one warm-up step, with every check of a training step; the kernels
+    launch ``per_step`` times per step."""
     import shutil
     import tempfile
 
     import torch
 
-    from bevrender_tpu_torch.config import flagship_config
     from bevrender_tpu_torch.data.synthetic import SyntheticDataset
     from bevrender_tpu_torch.ops import kernels
     from bevrender_tpu_torch.training.trainer import Trainer
 
-    tag = f"train fused_bwd={fused_bwd} site_remat={site_remat}"
-    cfg = flagship_config(dtype="bfloat16")
+    tag = f"{tag} train fused_bwd={fused_bwd} site_remat={site_remat}"
     tc = cfg.train
     tc.batch_size, tc.loss_type = TRAIN_B, "MSE"
     # ten times the default rate, so that ten steps move the loss by more
@@ -722,8 +1008,7 @@ def train_phase(card: str, fused_bwd: bool, site_remat: str, steps: int,
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         losses = [float(x) for x in losses]
         norms = [float(x) for x in norms]
-        want = {k: v * steps for k, v in
-                TRAIN_COUNTS[(fused_bwd, site_remat)].items()}
+        want = expected(**{k: v * steps for k, v in per_step.items()})
         print(f"{tag}: launches over {steps} steps {counts} (expected "
               f"{want})", flush=True)
         if counts != want:
@@ -741,12 +1026,17 @@ def train_phase(card: str, fused_bwd: bool, site_remat: str, steps: int,
         if dead:
             fail(f"{tag}: parameters that never had a gradient: {dead[:8]}")
         watched = {n: s for n, s in zip(names, seen.tolist())
-                   if "rpe_table" in n or "offset" in n}
+                   if any(w in n for w in ("rpe_table", "offset",
+                                           "transition", "img_width_fix"))}
         low = min(watched, key=watched.get)
         print(f"{tag}: all {len(names)} parameters had finite non-zero "
-              f"gradients; of the {len(watched)} rpe tables and offset-head "
-              f"parameters the smallest largest-norm is {watched[low]:.3g} "
-              f"({low})", flush=True)
+              f"gradients; of the {len(watched)} rpe tables, offset heads, "
+              f"transitions and width fixes the smallest largest-norm is "
+              f"{watched[low]:.3g} ({low})", flush=True)
+        for n in [n for n in names if "transition" in n or "img_width_fix" in n
+                  or n.endswith("layers.0.spatial_cross_attn.rpe_table")]:
+            print(f"  {n}: largest gradient norm {watched[n]:.3g}",
+                  flush=True)
         moved = [n for n, b in state.net.named_buffers()
                  if n in bn_before and not torch.equal(b, bn_before[n])]
         if len(moved) != len(bn_before):
@@ -756,7 +1046,7 @@ def train_phase(card: str, fused_bwd: bool, site_remat: str, steps: int,
             fail(f"{tag}: render shape {tuple(render.shape)}")
         ms = sum(step_ms) / steps
         host = cpu_ms / steps
-        print(f"{tag}: flagship bf16 B={TRAIN_B} T=2, {steps} steps: "
+        print(f"{tag}: bf16 B={TRAIN_B} T=2, {steps} steps: "
               f"{ms:.3f} ms/step (min {min(step_ms):.3f} median "
               f"{statistics.median(step_ms):.3f} max {max(step_ms):.3f}); "
               f"host CPU {host:.3f} ms/step; peak {peak_gb:.3f} GiB; "
@@ -781,7 +1071,8 @@ def train_phase(card: str, fused_bwd: bool, site_remat: str, steps: int,
             # fused_site_kernel is both instances, with and without lse
             seen_k = {n: sum(e.count for e in avgs if f"{n}_kernel" in e.key)
                       for n in ("fused_site", "lattice_bias",
-                                "lattice_bias_bwd", "fused_site_bwd")}
+                                "lattice_bias_bwd", "fused_site_bwd",
+                                "lattice_bias_wide", "lattice_bias_wide_bwd")}
             print(f"{tag}: device time of one step (profiler): busy "
                   f"{busy:.3f} ms of {ms:.3f} ms/step, idle share "
                   f"{idle:.3f}; kernels seen by name {seen_k} [{card}]",
@@ -847,10 +1138,14 @@ def small_model_epoch(kernels) -> dict:
         shutil.rmtree(tc.work_dir, ignore_errors=True)
 
 
-def small_model_grads(da, kernels, fused_bwd: bool) -> dict:
-    """Parameter gradients of the small 2-stage model in train mode
-    (float32, all drop rates 0) through the kernels and through plain
-    PyTorch with the kernels' roundings."""
+def small_model_grads(da, kernels, fused_bwd: bool, wide: bool = False) -> dict:
+    """Parameter gradients of a small 2-stage model in train mode (float32,
+    all drop rates 0) through the kernels and through plain PyTorch with the
+    kernels' roundings. The model: BEV 8 x 8 at width 32 (stage 1 of head
+    width 4 with G=4: fused site and views folded); with ``wide``, BEV
+    56 -> 28 -> 56 at width 32 with 2 heads (head width 16, bias kernels and
+    plain consumer) and depth 5, 224 x 224 images, whose SCA table at BEV 56
+    (2 x 111 x 559) takes the wide kernels."""
     import torch
 
     from bevrender_tpu_torch.config import tiny_model_config
@@ -859,13 +1154,27 @@ def small_model_grads(da, kernels, fused_bwd: bool) -> dict:
     from bevrender_tpu_torch.models.bevrender import BEVRenderNet
     from bevrender_tpu_torch.models.layers import init_params
 
-    mc = tiny_model_config(embed_dims=(32, 32, 32), n_heads=(2, 8),
-                           n_groups=(1, 4))
+    if wide:
+        img = 224
+        mc = tiny_model_config(
+            bev_shapes=(56, 28, 56), embed_dims=(32, 32, 32), n_heads=(2, 2),
+            n_groups=(1, 1), strides=(8, 4), kernel_sizes=(9, 7),
+            bev_depth_dim=5, img_height=img, img_width=img,
+            ori_img_height=img, ori_img_width=img)
+        need = ("lattice_bias", "lattice_bias_bwd", "lattice_bias_wide",
+                "lattice_bias_wide_bwd")
+    else:
+        img = 32
+        mc = tiny_model_config(embed_dims=(32, 32, 32), n_heads=(2, 8),
+                               n_groups=(1, 4))
+        need = (("lattice_bias", "lattice_bias_bwd", "fused_site")
+                + (("fused_site_lse", "fused_site_bwd") if fused_bwd else ()))
     net = init_params(BEVRenderNet(mc), 2).cuda().train()
     set_site_options(net, fused_bwd=fused_bwd, site_remat="nothing")
     sb = {k: torch.as_tensor(v).cuda() for k, v in SyntheticDataset(
-        n_items=2, num_views=2, window_num_imgs=1, img_height=32,
-        img_width=32, map_tile=32, seed=3).batch(2).items()}
+        n_items=2, num_views=2, window_num_imgs=1, img_height=img,
+        img_width=img, map_tile=32 if img == 32 else 224,
+        seed=3).batch(2).items()}
     bn = {n: b.clone() for n, b in net.state_dict().items()
           if "running_" in n}
 
@@ -896,14 +1205,13 @@ def small_model_grads(da, kernels, fused_bwd: bool) -> dict:
     for n in sorted(errs, key=errs.get)[-3:]:
         print(f"  {errs[n]:.3g}  {n} (largest entry "
               f"{float(g_o[n].abs().max()):.3g}, floor {floor:.3g})", flush=True)
-    print(f"small model gradients (2 stages, f32, B=2, T=2, train mode, "
+    print(f"small model gradients (2 stages{', BEV 56-28-56' if wide else ''}"
+          f", f32, B=2, T=2, train mode, "
           f"fused_bwd={fused_bwd}), kernels {used}: largest difference to "
           f"plain PyTorch with the kernels' roundings {errs[worst]:.3g} of "
           f"the gradient's largest entry ({worst}; tolerance {GRAD_TOL}) "
           f"over {len(errs)} parameters; two runs of the kernels differ by "
           f"{noise:.3g}", flush=True)
-    need = (("lattice_bias", "lattice_bias_bwd", "fused_site")
-            + (("fused_site_lse", "fused_site_bwd") if fused_bwd else ()))
     if not all(used[k] > 0 for k in need):
         fail(f"small model's training step missed a kernel: {used}")
     if len(errs) != len(g_k):
@@ -949,82 +1257,11 @@ def main() -> None:
         print(f"  {name}: {regs[0] if regs else 'cached'}", flush=True)
 
     # ---- main path: flagship bf16 render+register, B=4, T=2 ----
-    cfg = flagship_config(dtype="bfloat16")
-    B = 4
-    pipe = RegistrationPipeline(cfg, device="cuda", seed=0)
-    ds = SyntheticDataset(n_items=B, num_views=cfg.model.num_views,
-                          window_num_imgs=1, img_height=224, img_width=224)
-    batch = {k: torch.as_tensor(v) for k, v in ds.batch(B).items()}
-    rng = torch.Generator().manual_seed(1)
-    tiles = torch.rand(64, 224, 224, 3, generator=rng).numpy()
-    db = pipe.build_tile_database(list(tiles), batch_size=32)
-    if tuple(db.shape) != (64, 224 * 224 * 3):
-        fail(f"tile database shape {tuple(db.shape)}")
-    pipe.register(batch, top_k=10)  # warm-up request (cuDNN autotune, ...)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_counts()
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(N_REQUESTS + 1)]
-    cpu0 = time.process_time()
-    marks[0].record()
-    for i in range(N_REQUESTS):
-        render, idx, dist = pipe.register(batch, top_k=10)
-        marks[i + 1].record()
-    marks[-1].synchronize()
-    host_cpu_ms = (time.process_time() - cpu0) * 1e3 / N_REQUESTS
-    counts = kernels.counts()
-    req_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    total_ms = marks[0].elapsed_time(marks[-1])
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"fused_site": FUSED_PER_FORWARD * N_REQUESTS,
-            "lattice_bias": BIAS_PER_FORWARD * N_REQUESTS,
-            "lattice_bias_bwd": 0, "fused_site_lse": 0, "fused_site_bwd": 0}
-    print(f"main path launches over {N_REQUESTS} requests: {counts} "
-          f"(expected {want})", flush=True)
-    if counts != want:
-        fail(f"launch counts {counts} != {want}")
-    if tuple(render.shape) != (B, 224, 224, 3) or not bool(
-            torch.isfinite(render.float()).all()):
-        fail(f"render shape {tuple(render.shape)} or non-finite values")
-    if tuple(idx.shape) != (B, 10) or tuple(dist.shape) != (B, 10):
-        fail(f"top-k shapes {tuple(idx.shape)} {tuple(dist.shape)}")
-    if not bool(((idx >= 0) & (idx < 64)).all()) or not bool(
-            (dist[:, 1:] >= dist[:, :-1]).all()):
-        fail("top-k indices out of range or distances not ascending")
-    ms = total_ms / N_REQUESTS
-    q = statistics.quantiles(req_ms, n=20)
-    print(f"render+register flagship bf16 B={B} T=2: {N_REQUESTS} requests "
-          f"back to back in {total_ms:.3f} ms, {ms:.3f} ms/request, "
-          f"{B / ms * 1e3:.2f} frames/s; per request min {min(req_ms):.3f} "
-          f"median {statistics.median(req_ms):.3f} p95 {q[-1]:.3f} max "
-          f"{max(req_ms):.3f} ms; host CPU {host_cpu_ms:.3f} ms/request; "
-          f"peak {peak_gb:.3f} GiB [{card}]", flush=True)
-    from torch.profiler import ProfilerActivity, profile
-
-    # one request per profile: over several, the profiler dropped events
-    profiled = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            pipe.register(batch, top_k=10)
-            torch.cuda.synchronize()
-        avgs = sorted(prof.key_averages(),
-                      key=lambda e: -e.self_device_time_total)
-        profiled.append((sum(e.self_device_time_total for e in avgs) / 1e3,
-                         avgs))
-    profiled.sort(key=lambda r: r[0])
-    busy, avgs = profiled[1]
-    idle = max(0.0, 1 - busy / ms)
-    seen = {n: sum(e.count for e in avgs if f"{n}_kernel" in e.key)
-            for n in ("fused_site", "lattice_bias")}
-    print(f"device time of one request (profiler, median of 3: "
-          f"{[round(r[0], 3) for r in profiled]}): busy {busy:.3f} ms of "
-          f"{ms:.3f} ms/request, idle share {idle:.3f}; kernel launches "
-          f"seen {seen}", flush=True)
-    for e in avgs[:15]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
-              f"{e.key[:100]}", flush=True)
-    del pipe, render, idx, dist, db
-    torch.cuda.empty_cache()
+    serve = serving_phase(card, "flagship", flagship_config(dtype="bfloat16"),
+                          SERVE_B, N_REQUESTS,
+                          dict(fused_site=FUSED_PER_FORWARD,
+                               lattice_bias=BIAS_PER_FORWARD))
+    counts = serve["counts"]
 
     with torch.no_grad():
         bias = check_bias(da, kernels.lattice_bias)
@@ -1065,9 +1302,14 @@ def main() -> None:
 
     # ---- training: default route (with the peak memory of site_remat
     # "none" beside it), then fused_bwd, in one process on one card ----
-    train_default = train_phase(card, False, "nothing", TRAIN_STEPS, True)
-    train_none = train_phase(card, False, "none", 3, False)
-    train_fused = train_phase(card, True, "nothing", TRAIN_STEPS, True)
+    def flagship_train(fused_bwd, site_remat, steps, profile_step):
+        return train_phase(card, "flagship", flagship_config(dtype="bfloat16"),
+                           fused_bwd, site_remat, steps, profile_step,
+                           TRAIN_COUNTS[(fused_bwd, site_remat)])
+
+    train_default = flagship_train(False, "nothing", TRAIN_STEPS, True)
+    train_none = flagship_train(False, "none", 3, False)
+    train_fused = flagship_train(True, "nothing", TRAIN_STEPS, True)
     print(f"training step, flagship bf16 B={TRAIN_B} T=2: default route "
           f"{train_default['step_ms']:.3f} ms/step (peak "
           f"{train_default['peak_gib']:.3f} GiB; site_remat none "
@@ -1082,6 +1324,29 @@ def main() -> None:
     grads_default = small_model_grads(da, kernels, fused_bwd=False)
     grads_fused = small_model_grads(da, kernels, fused_bwd=True)
     small_model_epoch(kernels)
+
+    # ---- the pyramid, Config() (the reference default) in bf16: serving,
+    # training, its bias kernels at every shape, and a small model whose
+    # wide site runs through the normal dispatch ----
+    def pyramid_config():
+        cfg = Config()
+        cfg.model.dtype = "bfloat16"
+        return cfg
+
+    pyr_serve = serving_phase(card, "pyramid", pyramid_config(), PYR_B,
+                              PYR_REQUESTS, PYR_PER_FORWARD)
+    pyr_train = train_phase(card, "pyramid", pyramid_config(), False,
+                            "nothing", TRAIN_STEPS, True,
+                            PYR_TRAIN_COUNTS["nothing"])
+    pyr_none = train_phase(card, "pyramid", pyramid_config(), False, "none",
+                           3, False, PYR_TRAIN_COUNTS["none"])
+    print(f"training step, pyramid bf16 B={TRAIN_B} T=2: "
+          f"{pyr_train['step_ms']:.3f} ms/step (peak "
+          f"{pyr_train['peak_gib']:.3f} GiB); site_remat none "
+          f"{pyr_none['step_ms']:.3f} ms/step (peak "
+          f"{pyr_none['peak_gib']:.3f} GiB) [{card}]", flush=True)
+    pyr_bias = check_pyramid_bias(da, kernels)
+    grads_wide = small_model_grads(da, kernels, fused_bwd=False, wide=True)
 
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
@@ -1104,7 +1369,10 @@ def main() -> None:
               "bevrender_tpu/ops/pallas/lattice_bias.py:700", bias,
               counts["lattice_bias"],
               launches_train=train_default["counts"]["lattice_bias"],
-              launches_train_fused_bwd=train_fused["counts"]["lattice_bias"]),
+              launches_train_fused_bwd=train_fused["counts"]["lattice_bias"],
+              launches_pyramid_serving=pyr_serve["counts"]["lattice_bias"],
+              launches_pyramid_train=pyr_train["counts"]["lattice_bias"],
+              per_shape_pyramid=pyr_bias["lattice_bias"]["rows"]),
         entry("fused_site", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site.cu",
               "bevrender_tpu/ops/pallas/fused_attn.py:637", site,
@@ -1115,7 +1383,9 @@ def main() -> None:
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_bwd.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:829", bias_bwd,
               train_default["counts"]["lattice_bias_bwd"],
-              launches_train_fused_bwd=train_fused["counts"]["lattice_bias_bwd"]),
+              launches_train_fused_bwd=train_fused["counts"]["lattice_bias_bwd"],
+              launches_pyramid_train=pyr_train["counts"]["lattice_bias_bwd"],
+              per_shape_pyramid=pyr_bias["lattice_bias_bwd"]["rows"]),
         entry("fused_site_lse", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site.cu",
               "bevrender_tpu/ops/pallas/fused_attn.py:278", site_lse,
@@ -1124,13 +1394,22 @@ def main() -> None:
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site_bwd.cu",
               "bevrender_tpu/ops/pallas/fused_attn.py:429", site_bwd,
               train_fused["counts"]["fused_site_bwd"]),
+        entry("lattice_bias_wide", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_wide.cu",
+              "bevrender_tpu/ops/pallas/lattice_bias.py:422",
+              pyr_bias["lattice_bias_wide"],
+              pyr_serve["counts"]["lattice_bias_wide"],
+              launches_pyramid_train=pyr_train["counts"]["lattice_bias_wide"]),
+        entry("lattice_bias_wide_bwd", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_wide_bwd.cu",
+              "bevrender_tpu/ops/pallas/lattice_bias.py:549",
+              pyr_bias["lattice_bias_wide_bwd"],
+              pyr_train["counts"]["lattice_bias_wide_bwd"]),
     ], "card": card, "train": [train_default, train_none, train_fused],
+        "pyramid": {"serving": pyr_serve, "train": [pyr_train, pyr_none],
+                    "small_model_grad_err": grads_wide["worst"]},
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
-        "build_s": build_s, "requests": N_REQUESTS,
-        "request_ms": ms, "request_ms_min": min(req_ms),
-        "request_ms_max": max(req_ms), "host_cpu_ms": host_cpu_ms,
-        "frames_per_s": B / ms * 1e3,
-        "peak_gib": peak_gb, "busy_ms": busy, "idle_share": idle,
+        "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

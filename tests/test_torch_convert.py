@@ -8,6 +8,7 @@ filled with seeded numpy values, and must load into the port's
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,7 @@ from bevrender_tpu.models.bevrender import BEVRenderModel
 from bevrender_tpu_torch import config as tcfg
 from bevrender_tpu_torch.convert import flax_to_state_dict
 from bevrender_tpu_torch.models.bevrender import BEVRenderNet
+from bevrender_tpu_torch.models.layers import ConvTranspose
 
 
 def _configs(which):
@@ -106,3 +108,60 @@ def test_state_dict_tensors_own_their_memory():
     assert not np.array_equal(sd["bev_embedding"].numpy(),
                               tree["params"]["bev_embedding"])
     assert all(t.dtype in (torch.float32, torch.int64) for t in sd.values())
+
+
+def _conv_transpose_case():
+    """flax's 2x2 stride-2 transposed conv (default SAME, as the pyramid's
+    upsampling transition) on an asymmetric kernel, its output, and the
+    kernel and input."""
+    from flax import linen as nn
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 3, 4, 5)).astype(np.float32)
+    kernel = rng.standard_normal((2, 2, 5, 6)).astype(np.float32)
+    bias = rng.standard_normal(6).astype(np.float32)
+    mod = nn.ConvTranspose(6, (2, 2), strides=(2, 2))
+    ref = np.asarray(mod.apply({"params": {"kernel": kernel, "bias": bias}},
+                               jnp.asarray(x)))
+    assert ref.shape == (2, 6, 8, 6)
+    return x, kernel, bias, ref
+
+
+def test_conv_transpose_bridge_flips_the_kernel():
+    """The bridge maps the kernel of a stage's ``transition`` that is 2x2
+    to ``K[::-1, ::-1]`` as (in, out, kh, kw): the port's ``ConvTranspose``
+    then gives flax's output (one product per output and input channel, so
+    only the order of a 5-term sum differs). Mapped like a conv kernel,
+    without the flip, the same weights give another output."""
+    x, kernel, bias, ref = _conv_transpose_case()
+    sd = flax_to_state_dict({"params": {"stage3": {"transition": {
+        "kernel": kernel, "bias": bias}}}})
+    w = sd["stage3.transition.weight"]
+    assert tuple(w.shape) == (5, 6, 2, 2)
+    np.testing.assert_array_equal(w.numpy(),
+                                  kernel[::-1, ::-1].transpose(2, 3, 0, 1))
+    mod = ConvTranspose(5, 6)
+    mod.load_state_dict({"weight": w, "bias": sd["stage3.transition.bias"]})
+    with torch.no_grad():
+        out = mod(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    # the same kernel unflipped (a conv's mapping reordered to (in, out)):
+    # an asymmetric kernel gives a visibly different output
+    mod.weight.data = torch.from_numpy(
+        np.ascontiguousarray(kernel.transpose(2, 3, 0, 1)))
+    with torch.no_grad():
+        wrong = mod(torch.from_numpy(x)).numpy()
+    assert np.abs(wrong - ref).max() > 0.1 * np.abs(ref).max()
+
+
+def test_only_a_transition_kernel_of_2x2_is_flipped():
+    """A 3x3 or 1x1 ``transition`` is a conv; a 2x2 kernel elsewhere too."""
+    k3 = np.arange(2 * 3 * 3 * 4, dtype=np.float32).reshape(3, 3, 2, 4)
+    k2 = np.arange(2 * 2 * 2 * 4, dtype=np.float32).reshape(2, 2, 2, 4)
+    sd = flax_to_state_dict({"params": {
+        "a": {"transition": {"kernel": k3}},
+        "b": {"offset_proj": {"kernel": k2}}}})
+    np.testing.assert_array_equal(sd["a.transition.weight"].numpy(),
+                                  k3.transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["b.offset_proj.weight"].numpy(),
+                                  k2.transpose(3, 2, 0, 1))

@@ -131,6 +131,56 @@ def test_bias_gradients_match_pallas_backward():
     _assert_rel(dp, jdp, 1e-4, "dk_pos")      # float32 on both sides
 
 
+def _odd_lattice_inputs(seed, H):
+    """A pyramid-like site at BEV H (7 or 14: M = 49 or 196, not multiples
+    of 8), G = 2 groups of 2 heads, an SCA key plane of ceil(H / 2) x H x 2
+    keys, positions past the table edge (clipped windows)."""
+    rng = np.random.default_rng(seed)
+    N = ((H + 1) // 2) * H * 2
+    table = rng.standard_normal((2, 2, 2 * H - 1, 4 * H - 1)) * 0.05
+    k_pos = rng.uniform(-1.3, 1.3, (1, 2, N, 2))
+    ct = _t(_cotangent(seed + 1, (1, 2, 2, N, H * H))).bfloat16().float()
+    return table.astype(np.float32), k_pos.astype(np.float32), ct.numpy()
+
+
+@pytest.mark.parametrize("H,staging", [(7, "1"), (7, "0"), (14, "1"),
+                                       (14, "0")])
+def test_odd_lattice_bias_matches_pallas(monkeypatch, H, staging):
+    """The bias at BEV 7 and 14 against the Pallas kernels in interpret
+    mode under both stagings: the shift-replicated one (``_fwd_call_sh`` /
+    ``_bwd_call_sh``, rows 1 and 3 of the kernel table) and the resolve one
+    that the JAX package takes at its wide sites (``_fwd_call`` /
+    ``_bwd_call``, rows 4 and 6). The port's side is the plain version the
+    CUDA kernels of both routes are held to; tolerances as
+    test_bias_gradients_match_pallas_backward."""
+    monkeypatch.setenv("BEVRENDER_SHIFT_REPLICA", staging)
+    table, k_pos, ct = _odd_lattice_inputs(30 + H, H)
+    assert jda.use_shift_replica(table.shape, H, H) == (staging == "1")
+    ref, (jdt, jdp) = _jax_bias_grads(table, k_pos, H, H, ct,
+                                      use_kernel=True, interpret=True)
+    t = _t(table).bfloat16().float().requires_grad_()
+    p = _t(k_pos, True)
+    out = tda.lattice_bias_plain(t, p, H, H, torch.float32)
+    dt, dp = torch.autograd.grad(out, (t, p), _t(ct))
+    _assert_rel(out.detach(), ref, BF16_REL, "bias")
+    _assert_rel(dt, jdt, PALLAS_DTABLE_REL, "dtable")
+    _assert_rel(dp, jdp, 1e-4, "dk_pos")
+
+
+@pytest.mark.parametrize("H", [7, 14])
+def test_odd_lattice_bias_matches_jax_bf16(H):
+    """The CPU route of ``lattice_bias`` at BEV 7 and 14 against JAX
+    autodiff through its bf16 XLA path (``use_kernel=False``)."""
+    table, k_pos, ct = _odd_lattice_inputs(40 + H, H)
+    ref, (jdt, jdp) = _jax_bias_grads(table, k_pos, H, H, ct, use_kernel=False)
+    t, p = _t(table, True), _t(k_pos, True)
+    out = tda.lattice_bias(t, p, H, H)
+    dt, dp = torch.autograd.grad(out, (t, p), _t(ct))
+    _assert_rel(out.detach(), ref, BF16_REL, "bias")
+    _assert_rel(dt, jdt, BF16_PATH_REL, "dtable")
+    _assert_rel(dp, jdp, BF16_PATH_REL, "dk_pos")
+
+
 # ---- (b) the non-fused site ----------------------------------------------
 
 @pytest.mark.parametrize("ch", [4, 16])

@@ -20,6 +20,15 @@ TRAINING_MODULES = (
 )
 
 
+# the modules the pyramid slice changed: stage transitions, the transposed
+# conv and its bridge, the bias route and the wide kernels' wrappers
+PYRAMID_MODULES = (
+    "models/encoder.py", "models/layers.py", "models/backbone.py",
+    "ops/deform_attn.py", "ops/kernels/lattice_bias.py",
+    "ops/kernels/_launch.py", "ops/kernels/build.py",
+)
+
+
 def _port_files():
     return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -50,7 +59,7 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES)
+@pytest.mark.parametrize("module", TRAINING_MODULES + PYRAMID_MODULES)
 def test_training_module_imports_no_jax(module):
     path = ROOT / "bevrender_tpu_torch" / module
     assert path.exists()
@@ -98,3 +107,16 @@ def test_pipeline_without_gpu_raises():
         RegistrationPipeline(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RegistrationPipeline(cfg, device="cuda")
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """Each CUDA source is one library that ``build_all`` builds, and each
+    kernel it holds has a launch counter."""
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.ops.kernels import build
+
+    csrc = ROOT / "bevrender_tpu_torch" / "ops" / "kernels" / "csrc"
+    assert sorted(build.SOURCES) == sorted(p.stem for p in csrc.glob("*.cu"))
+    names = set(kernels.counts())
+    assert set(build.SOURCES) <= names
+    assert names - set(build.SOURCES) == {"fused_site_lse"}

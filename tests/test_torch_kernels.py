@@ -227,16 +227,109 @@ def test_fused_site_bwd_kernel_matches_plain(cuda_device, ch, N, Wt,
 
 def test_wrappers_refuse_unsupported_shapes():
     """Checked before anything touches the card: the fused site has
-    instances for head widths 4 and 8 only, the bias kernel stores 8
-    outputs at once."""
+    instances for head widths 4 and 8 only; the bias kernels take any
+    H * W (a scalar tail where it is not a multiple of 8) but only CUDA
+    tensors, and a table of 2H - 1 rows."""
     table, k_pos, q, k, v = _inputs(5, 1, 1, 2, 7, 7, 15, 10, 3, "cpu")
     args = tda._kernel_args(table, k_pos, 7, 7)
     bf = torch.bfloat16
     with pytest.raises(ValueError, match="head widths"):
         kernels.fused_site.fused_site_cuda(*args, q.to(bf), k.to(bf), v.to(bf),
                                            7, 7, 0.5)
-    with pytest.raises(ValueError, match="multiple of 8"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.lattice_bias.lattice_bias_cuda(*args, 7, 7)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.lattice_bias.lattice_bias_wide_cuda(*args[:7], 7, 7)
+
+
+@pytest.mark.parametrize("which", ["wide", "wide_bwd"])
+def test_wide_wrappers_refuse_bad_inputs(which):
+    """CPU tensors, a float32 table, a table whose height is not 2H - 1,
+    int64 window starts and a float32 cotangent are refused before anything
+    touches the card."""
+    table, k_pos, *_ = _inputs(15, 1, 1, 2, 7, 7, 15, 10, 4, "cpu")
+    table_b, ys, ms, wy, f, u0, g, Xp = tda._kernel_args(table, k_pos, 7, 7)
+    gout = torch.zeros(1, 1, 2, 10, 49, dtype=torch.bfloat16)
+    if which == "wide":
+        def call(*a, H=7):
+            return kernels.lattice_bias.lattice_bias_wide_cuda(*a, H, 7)
+    else:
+        def call(*a, H=7):
+            return kernels.lattice_bias_bwd.lattice_bias_wide_bwd_cuda(
+                *a, Xp, gout, H, 7)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call(table_b, ys, ms, wy, f, u0, g)
+    meta = torch.device("meta")
+    m = [t.to(meta) for t in (table_b, ys, ms, wy, f, u0, g)]
+    with pytest.raises(TypeError, match="table"):
+        call(m[0].float(), *m[1:])
+    with pytest.raises(ValueError, match="table"):
+        call(*m, H=8)
+    with pytest.raises(TypeError, match="ys"):
+        call(m[0], m[1].long(), *m[2:])
+    if which == "wide_bwd":
+        gout = gout.to(meta).float()
+        with pytest.raises(TypeError, match="gout"):
+            call(*m)
+
+
+# (table shape, H) of every pyramid site (BEV 56-28-14-7, 2 heads per group,
+# depth 5) and of the flagship's, with the bias kernels it takes: only SCA
+# at BEV 56 outgrows the whole-table kernels' shared memory
+ROUTES = [
+    ((1, 2, 111, 111), 56, "whole"), ((1, 2, 111, 559), 56, "wide"),
+    ((2, 2, 55, 55), 28, "whole"), ((2, 2, 55, 279), 28, "whole"),
+    ((4, 2, 27, 27), 14, "whole"), ((4, 2, 27, 139), 14, "whole"),
+    ((8, 2, 13, 13), 7, "whole"), ((8, 2, 13, 69), 7, "whole"),
+    ((1, 1, 111, 559), 56, "wide"), ((1, 2, 55, 279), 28, "whole"),
+]
+
+
+@pytest.mark.parametrize("shape,H,route", ROUTES)
+def test_bias_route_is_a_function_of_the_shapes(shape, H, route):
+    assert tda.bias_route(shape, H, H) == route
+
+
+# The bias kernels at the pyramid's shapes (chip_smoke.py holds them at the
+# full batch): (H, G, N, Wt, table std). SCA at BEV 56 takes the wide
+# kernels; BEV 14 and 7 give M = 196 and 49, not multiples of 8.
+PYRAMID_BIAS = [
+    (56, 1, 600, 559, 0.01), (56, 1, 49, 111, 1.0), (28, 2, 1960, 279, 1.0),
+    (14, 4, 490, 139, 0.01), (14, 4, 49, 27, 1.0), (7, 8, 140, 69, 0.01),
+    (7, 8, 49, 13, 1.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,G,N,Wt,table_std", PYRAMID_BIAS)
+def test_bias_kernels_at_pyramid_shapes(cuda_device, H, G, N, Wt, table_std):
+    """Forward within one bf16 ulp of the plain version, backward within
+    BWD_SUM_TOL of autograd through it, each on the kernel of its route."""
+    table, k_pos, *_ = _inputs(16, 2, G, 2, H, H, Wt, N, 4, cuda_device,
+                               table_std)
+    wide = tda.bias_route(table.shape, H, H) == "wide"
+    fwd, bwd = (("lattice_bias_wide", "lattice_bias_wide_bwd") if wide
+                else ("lattice_bias", "lattice_bias_bwd"))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    gout = torch.randn(2, G, 2, N, H * H, generator=gen,
+                       device="cuda").bfloat16()
+    before = kernels.counts()
+    t1, p1 = table.clone().requires_grad_(), k_pos.clone().requires_grad_()
+    out = tda.lattice_bias(t1, p1, H, H)
+    dt, dp = torch.autograd.grad(out, (t1, p1), gout)
+    t2 = table.bfloat16().float().requires_grad_()
+    p2 = k_pos.clone().requires_grad_()
+    ref = tda.lattice_bias_plain(t2, p2, H, H, torch.float32)
+    rdt, rdp = torch.autograd.grad(ref, (t2, p2), gout.float())
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {fwd: 1, bwd: 1}
+    rb = ref.detach().bfloat16().float()
+    assert bool(((out.float() - rb).abs() <= rb.abs() * 2.0 ** -7).all())
+    assert float(rdt.abs().max()) > 0 and float(rdp.abs().max()) > 0
+    assert _close(dt, rdt, BWD_SUM_TOL)
+    assert _close(dp, rdp, BWD_SUM_TOL)
 
 
 @pytest.mark.parametrize("ch,N,table_std", [
@@ -286,7 +379,8 @@ def test_cpu_gradients_take_the_plain_versions():
     assert float(gb[0].abs().max()) > 0 and float(gb[1].abs().max()) > 0
     assert kernels.counts() == before
     assert set(before) == {"lattice_bias", "fused_site", "lattice_bias_bwd",
-                           "fused_site_lse", "fused_site_bwd"}
+                           "fused_site_lse", "fused_site_bwd",
+                           "lattice_bias_wide", "lattice_bias_wide_bwd"}
 
 
 @pytest.mark.parametrize("which", ["bias_bwd", "site_bwd", "site_lse"])
