@@ -1,7 +1,10 @@
 """Configuration of the port: the fields of bevrender_tpu/config.py's
 ``ModelConfig`` that the ported paths read and its ``TrainConfig``, with the
 same names and defaults, plus ``flagship_config`` and ``tiny_model_config``
-(config.py:338-396 there). The window length is the input's T axis."""
+(config.py:338-396 there), and the port's own kernel choices
+(``ModelConfig.lattice_route``, ``site_prefetch``, ``bias_prefetch``;
+``TrainConfig.fused_bwd``, ``site_remat``). The window length is the
+input's T axis."""
 
 from __future__ import annotations
 
@@ -42,6 +45,26 @@ class ModelConfig:
     intrinsic_k: Optional[Dict[int, List[Any]]] = None
 
     norm: str = "batch"
+
+    # The port's own kernel choice, in place of the JAX package's trace-time
+    # environment knobs (ops.deform_attn.site_kernels). "auto": each site's
+    # table shape picks the whole-table or the wide kernels; "wide": every
+    # site takes the wide ones, which read the table through L1
+    # (BEVRENDER_SHIFT_REPLICA=0).
+    lattice_route: str = "auto"
+    # a fused site on the wide route stages its key windows in shared memory
+    # by asynchronous copies (BEVRENDER_SITE_DMA=1)
+    site_prefetch: bool = False
+    # so does a bias forward on the wide route, in eval and in training
+    # (BEVRENDER_BIAS_DMA=1)
+    bias_prefetch: bool = False
+
+    def site_options(self) -> dict:
+        """The fields above, as ``models.attention.set_site_options``
+        takes them."""
+        return dict(lattice_route=self.lattice_route,
+                    site_prefetch=self.site_prefetch,
+                    bias_prefetch=self.bias_prefetch)
 
 
 @dataclass

@@ -18,6 +18,7 @@ from bevrender_tpu_torch import resolve_device
 from bevrender_tpu_torch.config import Config
 from bevrender_tpu_torch.data.prefetch import DataLoader, device_prefetch
 from bevrender_tpu_torch.losses.recall import recall_at_k
+from bevrender_tpu_torch.models.attention import set_site_options
 from bevrender_tpu_torch.models.bevrender import BEVRenderNet
 from bevrender_tpu_torch.models.layers import init_params
 
@@ -42,6 +43,7 @@ class RegistrationPipeline:
             init_params(net, seed)
         else:
             net.load_state_dict(state_dict, strict=True)
+        set_site_options(net, **config.model.site_options())
         self.net = net.to(self.device).eval()
         self._tile_db: Optional[torch.Tensor] = None
 

@@ -9,6 +9,7 @@ order, so the port keeps them as they come.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
@@ -23,7 +24,10 @@ from bevrender_tpu_torch.models.layers import (
     LayerNorm,
     gelu,
 )
-from bevrender_tpu_torch.ops.deform_attn import streamed_deform_attention
+from bevrender_tpu_torch.ops.deform_attn import (
+    SiteOptions,
+    streamed_deform_attention,
+)
 from bevrender_tpu_torch.ops.grid_sample import grid_sample_2d, normalized_grid
 
 
@@ -54,33 +58,33 @@ def _offset_scale(off: torch.Tensor, hk: int, wk: int, factor: float):
 
 class _Site(nn.Module):
     """What TSA and SCA share around ``streamed_deform_attention``: the
-    kernel choice of a training pass (``set_site_options``), attention
+    kernel choice (``site_options``, set by ``set_site_options``), attention
     dropout and its generator, and the dropout after ``proj_out``."""
 
     def __init__(self, attn_drop_rate: float, proj_drop_rate: float):
         super().__init__()
         self.attn_drop_rate = attn_drop_rate
         self.proj_drop = Dropout(proj_drop_rate)
-        self.fused_bwd = False
-        self.site_remat = "nothing"
+        self.site_options = SiteOptions()
         self.generator = None
 
     def _site_kwargs(self, ch: int) -> dict:
         return dict(
             scale=ch ** -0.5, fuse_site=not self.training,
-            fused_bwd=self.fused_bwd, site_remat=self.site_remat,
+            **dataclasses.asdict(self.site_options),
             dropout_rate=self.attn_drop_rate if self.training else 0.0,
             generator=self.generator)
 
 
-def set_site_options(module: nn.Module, *, fused_bwd: bool,
-                     site_remat: str) -> None:
-    """Kernel choice of the training pass for every attention site under
-    ``module`` (``TrainConfig.fused_bwd`` / ``site_remat``)."""
+def set_site_options(module: nn.Module, **options) -> None:
+    """Set the named fields of ``ops.deform_attn.SiteOptions`` on every
+    attention site under ``module``: the training pass's ``fused_bwd`` and
+    ``site_remat`` (``TrainConfig``), and ``lattice_route``,
+    ``site_prefetch`` and ``bias_prefetch`` (``ModelConfig.site_options``).
+    Fields not named keep their values."""
     for mod in module.modules():
         if isinstance(mod, _Site):
-            mod.fused_bwd = fused_bwd
-            mod.site_remat = site_remat
+            mod.site_options = dataclasses.replace(mod.site_options, **options)
 
 
 def _grouped(x: torch.Tensor, G: int) -> torch.Tensor:

@@ -21,9 +21,17 @@ backward, or ``lattice_bias_wide`` and ``lattice_bias_wide_bwd`` where the
 table does not fit their shared memory (``bias_route``); ``fused_site``
 computes bias, scores, an online softmax and AV in one pass (head width
 <= 8, no gradient), ``fused_site_lse`` also returns the logsumexp and
-``fused_site_bwd`` is the flash-style backward of that site. The functions ``lattice_bias``, ``fused_site`` and ``fused_site_train``
-below launch them for CUDA tensors and run their plain versions, with
-autograd, for CPU tensors.
+``fused_site_bwd`` is the flash-style backward of that site;
+``fused_site_wide`` and ``fused_site_wide_lse`` are the fused site on a
+table that does not fit ``fused_site``'s shared memory (``site_route``).
+``SiteOptions.lattice_route="wide"`` sends every site to the wide kernels,
+and ``site_prefetch`` / ``bias_prefetch`` take their variants that stage
+the key windows in shared memory by asynchronous copies
+(``fused_site_wide_prefetch``, ``lattice_bias_wide_prefetch``).
+``site_kernels`` makes every choice, from the shapes and the options alone.
+The functions ``lattice_bias``, ``fused_site`` and ``fused_site_train``
+below launch the kernels for CUDA tensors and run their plain versions,
+with autograd, for CPU tensors.
 
 Shapes (B batch, G groups, Hpg heads per group, ch head width, M = H * W
 queries, N keys): q (B, G, Hpg, M, ch); k, v (B, G, Hpg, N, ch);
@@ -32,6 +40,7 @@ k_pos (B, G, N, 2) in (y, x) order; rpe_table (G, Hpg, 2H - 1, Wt).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -41,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from bevrender_tpu_torch.ops.kernels import fused_site as _fused_site_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_bwd as _site_bwd_kernel
+from bevrender_tpu_torch.ops.kernels import fused_site_wide as _wide_site_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias as _bias_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias_bwd as _bias_bwd_kernel
 from bevrender_tpu_torch.ops.kernels._launch import PAD, SMEM_PER_BLOCK
@@ -97,7 +107,8 @@ def lattice_geometry(table_shape, k_pos: torch.Tensor, H: int, W: int):
 
 def lattice_bias_plain(table: torch.Tensor, k_pos: torch.Tensor, H: int,
                        W: int, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain version of the ``lattice_bias`` kernel: the n-major bias
+    """Plain version of the bias kernels (``lattice_bias``,
+    ``lattice_bias_wide``, ``lattice_bias_wide_prefetch``): the n-major bias
     (B, G, Hpg, N, H*W) in float32. Both lerps run in ``compute_dtype``
     (the JAX package's default is bf16); the kernel lerps in float32 from a
     bf16 table, which is this function on the bf16-rounded table with
@@ -152,7 +163,8 @@ def site_consumer(q, k, v, bias, scale: float, keep=None,
 
 
 def site_consumer_online(q, k, v, bias, scale: float, return_lse: bool = False):
-    """The ``fused_site`` kernel's own arithmetic, in PyTorch: an online
+    """The fused site kernels' own arithmetic (``fused_site``,
+    ``fused_site_wide``, ``fused_site_wide_prefetch``), in PyTorch: an online
     softmax over tiles of ``KEY_TILE`` keys in base 2, with p = exp2(s - running
     max) rounded to bf16 before it multiplies V and the sum l taken from
     the unrounded p. Every float32 rounding of the kernel happens here in
@@ -198,8 +210,9 @@ def site_consumer_online(q, k, v, bias, scale: float, return_lse: bool = False):
 
 def site_plain(q, k, v, k_pos, table, H: int, W: int, scale: float,
                compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain version of the ``fused_site`` kernel (``_site_xla`` with the
-    plain bias). Autograd through it is the plain version of the
+    """Plain version of the fused site kernels (``fused_site``,
+    ``fused_site_wide``, ``fused_site_wide_prefetch``; ``_site_xla`` with
+    the plain bias). Autograd through it is the plain version of the
     ``fused_site_bwd`` kernel."""
     bias = lattice_bias_plain(table, k_pos, H, W, compute_dtype)
     return site_consumer(q, k, v, bias, scale)
@@ -207,8 +220,9 @@ def site_plain(q, k, v, k_pos, table, H: int, W: int, scale: float,
 
 def site_plain_lse(q, k, v, k_pos, table, H: int, W: int, scale: float,
                    compute_dtype=torch.bfloat16):
-    """Plain version of the ``fused_site_lse`` instance: ``site_plain`` and
-    the logsumexp of the scores over the keys, (B, G, Hpg, M)."""
+    """Plain version of the logsumexp instances (``fused_site_lse``,
+    ``fused_site_wide_lse``): ``site_plain`` and the logsumexp of the
+    scores over the keys, (B, G, Hpg, M)."""
     bf = torch.bfloat16
     bias = lattice_bias_plain(table, k_pos, H, W, compute_dtype)
     s = torch.matmul(k.to(bf).float(), q.to(bf).float().transpose(-1, -2))
@@ -289,21 +303,129 @@ def bias_route(table_shape, H: int, W: int) -> str:
     return "whole" if fits else "wide"
 
 
+def site_route(table_shape, H: int, W: int, ch: int) -> str:
+    """Which fused-site kernel a narrow-head site takes on the card, from
+    its shapes alone: "whole" (``fused_site``) when one head's zero-padded
+    bf16 table and the key tile (K and V in float32, three words of
+    geometry a key) fit in the shared memory of one block, as
+    csrc/fused_site.cu lays them out; "wide" (``fused_site_wide``, which
+    reads the raw table through L1) when not. Every shipped site is whole:
+    the largest table, the pyramid's SCA at BEV 56, needs 202 KB; a narrow
+    head at BEV 64 with depth 5 (127 x 639) would need 262 KB."""
+    _, _, Ht, Wt = table_shape
+    need = ((Ht + 2 * PAD) * padded_width(Wt, W) * 2
+            + _fused_site_kernel.KEY_TILE * (2 * ch + 3) * 4)
+    return "whole" if need <= SMEM_PER_BLOCK else "wide"
+
+
+def _site_bwd_fits(table_shape, W: int, ch: int) -> bool:
+    """Whether csrc/fused_site_bwd.cu's shared memory fits one block: one
+    head's zero-padded table in bf16 with its gradient in float32, and a
+    tile of 32 queries (q, dO, lse and D)."""
+    _, _, Ht, Wt = table_shape
+    need = (Ht + 2 * PAD) * padded_width(Wt, W) * 6 + 32 * (3 * ch + 4) * 4
+    return need <= SMEM_PER_BLOCK
+
+
+SITE_REMAT_MODES = ("nothing", "none")
+LATTICE_ROUTES = ("auto", "wide")
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteOptions:
+    """The kernel choice of an attention site, from the port's config in
+    place of the JAX package's trace-time environment knobs: ``fused_bwd``
+    and ``site_remat`` (``TrainConfig``) replace BEVRENDER_FUSED_BWD and
+    BEVRENDER_SITE_REMAT; ``lattice_route``, ``site_prefetch`` and
+    ``bias_prefetch`` (``ModelConfig``) replace BEVRENDER_SHIFT_REPLICA,
+    BEVRENDER_SITE_DMA=1 and BEVRENDER_BIAS_DMA=1 (``site_kernels``)."""
+
+    fused_bwd: bool = False
+    site_remat: str = "nothing"
+    lattice_route: str = "auto"
+    site_prefetch: bool = False
+    bias_prefetch: bool = False
+
+    def __post_init__(self):
+        if self.site_remat not in SITE_REMAT_MODES:
+            raise ValueError(f"site_remat must be one of {SITE_REMAT_MODES}, "
+                             f"got {self.site_remat!r}")
+        if self.lattice_route not in LATTICE_ROUTES:
+            raise ValueError(f"lattice_route must be one of {LATTICE_ROUTES}, "
+                             f"got {self.lattice_route!r}")
+
+
+def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
+                 training: bool, dropout: bool = False) -> tuple:
+    """The kernels one lattice site launches on the card, one name (of
+    ``ops.kernels.counts``) per launch, in order: those of its forward when
+    ``training`` is false, those of a forward and its backward when it is
+    true. A site of head width <= 8 without attention ``dropout`` takes the
+    fused site in eval, and in training under ``fused_bwd`` its logsumexp
+    instance and the site backward; every other site takes the bias (and,
+    training, the bias again in the backward under ``site_remat="nothing"``,
+    and the bias backward) with the plain consumer. The route is
+    ``site_route``'s or ``bias_route``'s under ``lattice_route="auto"`` and
+    "wide" under "wide"; on the wide route ``site_prefetch`` and
+    ``bias_prefetch`` take the prefetch variants of the eval fused site and
+    of the bias forward. ``streamed_deform_attention`` dispatches on the
+    first name, so a run's launch counts follow from the shapes and the
+    options alone. Raises NotImplementedError for ``fused_bwd`` at a site
+    whose table the site backward cannot hold."""
+    ch = q_shape[-1]
+    wide = options.lattice_route == "wide"
+    if ch <= 8 and not dropout and (options.fused_bwd or not training):
+        route = "wide" if wide else site_route(table_shape, H, W, ch)
+        if not training:
+            if route == "whole":
+                return ("fused_site",)
+            return ("fused_site_wide_prefetch" if options.site_prefetch
+                    else "fused_site_wide",)
+        if not _site_bwd_fits(table_shape, W, ch):
+            raise NotImplementedError(
+                f"fused_bwd at a site whose table {tuple(table_shape)} and "
+                f"its float32 gradient overflow the site backward's shared "
+                f"memory: the wide site backward is not ported yet (ROADMAP "
+                f"section 1); train with fused_bwd=False")
+        return ("fused_site_lse" if route == "whole" else "fused_site_wide_lse",
+                "fused_site_bwd")
+    route = "wide" if wide else bias_route(table_shape, H, W)
+    if route == "whole":
+        fwd, bwd = "lattice_bias", "lattice_bias_bwd"
+    else:
+        fwd = ("lattice_bias_wide_prefetch" if options.bias_prefetch
+               else "lattice_bias_wide")
+        bwd = "lattice_bias_wide_bwd"
+    if not training:
+        return (fwd,)
+    return (fwd, fwd, bwd) if options.site_remat == "nothing" else (fwd, bwd)
+
+
+def _bias_forward(kernel: str, tb, ys, ms, wy, f, u0, g, Xp: int, H: int,
+                  W: int):
+    if kernel == "lattice_bias":
+        return _bias_kernel.lattice_bias_cuda(tb, ys, ms, wy, f, u0, g, Xp,
+                                              H, W)
+    if kernel == "lattice_bias_wide":
+        return _bias_kernel.lattice_bias_wide_cuda(tb, ys, ms, wy, f, u0, g,
+                                                   H, W)
+    if kernel == "lattice_bias_wide_prefetch":
+        return _bias_kernel.lattice_bias_wide_prefetch_cuda(
+            tb, ys, ms, wy, f, u0, g, H, W)
+    raise ValueError(f"no bias forward kernel {kernel!r}")
+
+
 class _LatticeBiasFn(torch.autograd.Function):
-    """Bias forward kernel, its backward kernel as the backward, both of
-    the site's ``bias_route``. Differentiable inputs: the table and the
-    fractions wy, f."""
+    """Bias forward kernel ``kernel``, and the backward kernel of its route
+    as the backward. Differentiable inputs: the table and the fractions wy,
+    f."""
 
     @staticmethod
-    def forward(ctx, table, wy, f, ys, ms, u0, g, Xp, H, W):
+    def forward(ctx, table, wy, f, ys, ms, u0, g, Xp, H, W, kernel):
         tb = table.to(torch.bfloat16).contiguous()
         ctx.save_for_backward(tb, ys, ms, wy, f, u0, g)
-        wide = bias_route(table.shape, H, W) == "wide"
-        ctx.meta = (Xp, H, W, table.dtype, wide)
-        if wide:
-            return _bias_kernel.lattice_bias_wide_cuda(tb, ys, ms, wy, f, u0,
-                                                       g, H, W)
-        return _bias_kernel.lattice_bias_cuda(tb, ys, ms, wy, f, u0, g, Xp, H, W)
+        ctx.meta = (Xp, H, W, table.dtype, kernel != "lattice_bias")
+        return _bias_forward(kernel, tb, ys, ms, wy, f, u0, g, Xp, H, W)
 
     @staticmethod
     def backward(ctx, gout):
@@ -311,20 +433,28 @@ class _LatticeBiasFn(torch.autograd.Function):
         bwd = (_bias_bwd_kernel.lattice_bias_wide_bwd_cuda if wide
                else _bias_bwd_kernel.lattice_bias_bwd_cuda)
         dtable, dwy, df = bwd(*ctx.saved_tensors, Xp, gout.contiguous(), H, W)
-        return (dtable.to(dtype), dwy, df) + (None,) * 7
+        return (dtable.to(dtype), dwy, df) + (None,) * 8
 
 
 class _FusedSiteTrainFn(torch.autograd.Function):
-    """``fused_site_lse`` kernel forward, ``fused_site_bwd`` kernel backward.
-    Saves q, k, v in bf16, the geometry, the output and the logsumexp."""
+    """``fused_site_lse`` or ``fused_site_wide_lse`` kernel forward,
+    ``fused_site_bwd`` kernel backward. Saves q, k, v in bf16, the
+    geometry, the output and the logsumexp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, table, wy, f, ys, ms, u0, g, Xp, H, W, scale):
+    def forward(ctx, q, k, v, table, wy, f, ys, ms, u0, g, Xp, H, W, scale,
+                kernel):
         bf = torch.bfloat16
         tb = table.to(bf).contiguous()
         qb, kb, vb = (t.to(bf).contiguous() for t in (q, k, v))
-        out, lse = _fused_site_kernel.fused_site_lse_cuda(
-            tb, ys, ms, wy, f, u0, g, Xp, qb, kb, vb, H, W, scale)
+        if kernel == "fused_site_lse":
+            out, lse = _fused_site_kernel.fused_site_lse_cuda(
+                tb, ys, ms, wy, f, u0, g, Xp, qb, kb, vb, H, W, scale)
+        elif kernel == "fused_site_wide_lse":
+            out, lse = _wide_site_kernel.fused_site_wide_lse_cuda(
+                tb, ys, ms, wy, f, u0, g, qb, kb, vb, H, W, scale)
+        else:
+            raise ValueError(f"no fused training site kernel {kernel!r}")
         ctx.save_for_backward(tb, ys, ms, wy, f, u0, g, qb, kb, vb, out, lse)
         ctx.meta = (Xp, H, W, scale, q.dtype, k.dtype, v.dtype, table.dtype)
         return out
@@ -338,25 +468,31 @@ class _FusedSiteTrainFn(torch.autograd.Function):
         dq, dk, dv, dtable, dwy, df = _site_bwd_kernel.fused_site_bwd_cuda(
             *args[:7], Xp, *args[7:], dout, lse, dsum, H, W, scale)
         return (dq.to(qd), dk.to(kd), dv.to(vd), dtable.to(td), dwy,
-                df) + (None,) * 8
+                df) + (None,) * 9
 
 
-def lattice_bias(table, k_pos, H: int, W: int) -> torch.Tensor:
+def lattice_bias(table, k_pos, H: int, W: int,
+                 kernel: str | None = None) -> torch.Tensor:
     """n-major rpe bias (B, G, Hpg, N, H*W): for CUDA tensors the CUDA
-    kernel of the site's ``bias_route`` (bf16 out), with its backward
-    kernel as the backward; the plain version (bf16 lerps, float32 out,
-    autograd) for CPU."""
+    kernel ``kernel`` (by default the one of the site's ``bias_route``; bf16
+    out), with the backward kernel of its route as the backward; the plain
+    version (bf16 lerps, float32 out, autograd) for CPU."""
     if not table.is_cuda:
         return lattice_bias_plain(table, k_pos, H, W)
+    if kernel is None:
+        kernel = ("lattice_bias" if bias_route(table.shape, H, W) == "whole"
+                  else "lattice_bias_wide")
     ys, ms, wy, f, u0, g, Xp = _geometry_args(table, k_pos, H, W)
-    return _LatticeBiasFn.apply(table, wy, f, ys, ms, u0, g, Xp, H, W)
+    return _LatticeBiasFn.apply(table, wy, f, ys, ms, u0, g, Xp, H, W, kernel)
 
 
-def fused_site(q, k, v, k_pos, table, H: int, W: int,
-               scale: float) -> torch.Tensor:
-    """Whole attention site (B, G, Hpg, M, ch) float32, no gradient: the
-    fused CUDA kernel for CUDA tensors, the plain version for CPU. The
-    site that trains is ``fused_site_train``."""
+def fused_site(q, k, v, k_pos, table, H: int, W: int, scale: float,
+               kernel: str | None = None) -> torch.Tensor:
+    """Whole attention site (B, G, Hpg, M, ch) float32, no gradient: for
+    CUDA tensors the fused CUDA kernel ``kernel`` ("fused_site",
+    "fused_site_wide" or "fused_site_wide_prefetch"; by default as
+    ``site_kernels`` chooses in eval), the plain version for CPU. The site
+    that trains is ``fused_site_train``."""
     if not q.is_cuda:
         return site_plain(q, k, v, k_pos, table, H, W, scale)
     for t in (q, k, v, k_pos, table):
@@ -365,29 +501,39 @@ def fused_site(q, k, v, k_pos, table, H: int, W: int,
                 "the fused site kernel is forward-only; run under "
                 "torch.no_grad(), or take fused_site_train"
             )
+    if kernel is None:
+        kernel = site_kernels(q.shape, table.shape, H, W, SiteOptions(),
+                              training=False)[0]
     bf = torch.bfloat16
-    return _fused_site_kernel.fused_site_cuda(
-        *_kernel_args(table, k_pos, H, W),
-        q.detach().to(bf).contiguous(), k.detach().to(bf).contiguous(),
-        v.detach().to(bf).contiguous(), H, W, float(scale),
-    )
+    *geo, Xp = _kernel_args(table, k_pos, H, W)
+    qkv = tuple(t.detach().to(bf).contiguous() for t in (q, k, v))
+    if kernel == "fused_site":
+        return _fused_site_kernel.fused_site_cuda(*geo, Xp, *qkv, H, W,
+                                                  float(scale))
+    launch = {"fused_site_wide": _wide_site_kernel.fused_site_wide_cuda,
+              "fused_site_wide_prefetch":
+                  _wide_site_kernel.fused_site_wide_prefetch_cuda}.get(kernel)
+    if launch is None:
+        raise ValueError(f"no fused site kernel {kernel!r}")
+    return launch(*geo, *qkv, H, W, float(scale))
 
 
-def fused_site_train(q, k, v, k_pos, table, H: int, W: int,
-                     scale: float) -> torch.Tensor:
+def fused_site_train(q, k, v, k_pos, table, H: int, W: int, scale: float,
+                     kernel: str | None = None) -> torch.Tensor:
     """The fused site with a fused backward (``fused_site_attention_train``,
-    deform_attn.py:689-807): on CUDA tensors the ``fused_site_lse`` kernel
-    forward and the ``fused_site_bwd`` kernel backward, with the chain from
-    dwy, df to ``k_pos`` left to autograd; on CPU tensors the plain version
-    with autograd."""
+    deform_attn.py:689-807): on CUDA tensors the ``kernel`` forward
+    ("fused_site_lse" or "fused_site_wide_lse"; by default as
+    ``site_kernels`` chooses under ``fused_bwd``) and the ``fused_site_bwd``
+    kernel backward, with the chain from dwy, df to ``k_pos`` left to
+    autograd; on CPU tensors the plain version with autograd."""
     if not q.is_cuda:
         return site_plain(q, k, v, k_pos, table, H, W, scale)
+    if kernel is None:
+        kernel = site_kernels(q.shape, table.shape, H, W,
+                              SiteOptions(fused_bwd=True), training=True)[0]
     ys, ms, wy, f, u0, g, Xp = _geometry_args(table, k_pos, H, W)
     return _FusedSiteTrainFn.apply(q, k, v, table, wy, f, ys, ms, u0, g, Xp,
-                                   H, W, float(scale))
-
-
-SITE_REMAT_MODES = ("nothing", "none")
+                                   H, W, float(scale), kernel)
 
 
 def _maybe_remat(fn, site_remat: str, *tensors):
@@ -414,33 +560,40 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
                               scale: float, fuse_site: bool,
                               fused_bwd: bool = False,
                               site_remat: str = "nothing",
+                              lattice_route: str = "auto",
+                              site_prefetch: bool = False,
+                              bias_prefetch: bool = False,
                               dropout_rate: float = 0.0,
                               generator=None) -> torch.Tensor:
-    """One lattice attention site (deform_attn.py:866-917).
+    """One lattice attention site (deform_attn.py:866-917), on the kernels
+    that ``site_kernels`` names for ``SiteOptions(fused_bwd, site_remat,
+    lattice_route, site_prefetch, bias_prefetch)``; ``fuse_site`` says that
+    the pass is an eval one (no gradient).
 
-    ``fuse_site`` (eval) with head width <= 8 takes the fused kernel (built
-    for widths 4 and 8; another width raises on the card). ``fused_bwd``
-    with head width <= 8 and no ``fuse_site`` (training) takes the fused
-    site with its fused backward. Every other site computes the bias alone
-    and the plain consumer does the rest, under ``site_remat``: "nothing"
-    saves the site's inputs only and recomputes bias, scores and softmax in
-    the backward, "none" lets autograd keep what it wants. Attention
-    dropout (``dropout_rate`` > 0, drawn from ``generator``) always takes
-    the plain consumer."""
+    The fused site (eval) and the fused training site are built for head
+    widths 4 and 8 (another width <= 8 raises on the card). A site that
+    takes the bias computes it alone and the plain consumer does the rest,
+    under ``site_remat``: "nothing" saves the site's inputs only and
+    recomputes bias, scores and softmax in the backward, "none" lets
+    autograd keep what it wants. Attention dropout (``dropout_rate`` > 0,
+    drawn from ``generator``) always takes the plain consumer."""
     use_dropout = dropout_rate > 0.0
-    narrow = q.shape[-1] <= 8
-    if fuse_site and narrow and not use_dropout:
-        return fused_site(q, k, v, k_pos, rpe_table, H, W, scale)
-    if not fuse_site and fused_bwd and narrow and not use_dropout:
-        return fused_site_train(q, k, v, k_pos, rpe_table, H, W, scale)
+    options = SiteOptions(fused_bwd, site_remat, lattice_route, site_prefetch,
+                          bias_prefetch)
+    kernel = site_kernels(q.shape, rpe_table.shape, H, W, options,
+                          training=not fuse_site, dropout=use_dropout)[0]
+    if kernel.endswith("_lse"):
+        return fused_site_train(q, k, v, k_pos, rpe_table, H, W, scale, kernel)
+    if kernel.startswith("fused_site"):
+        return fused_site(q, k, v, k_pos, rpe_table, H, W, scale, kernel)
     keep = None
     if use_dropout:
         keep = _keep_mask(k.shape[:-1] + (q.shape[-2],), dropout_rate,
                           generator, q.device)
 
     def full_site(q, k, v, k_pos, table):
-        return site_consumer(q, k, v, lattice_bias(table, k_pos, H, W), scale,
-                             keep, dropout_rate)
+        return site_consumer(q, k, v, lattice_bias(table, k_pos, H, W, kernel),
+                             scale, keep, dropout_rate)
 
     return _maybe_remat(full_site, site_remat, q, k, v, k_pos, rpe_table)
 

@@ -5,6 +5,7 @@
 from bevrender_tpu_torch.ops.kernels import (
     fused_site,
     fused_site_bwd,
+    fused_site_wide,
     lattice_bias,
     lattice_bias_bwd,
 )
@@ -18,6 +19,10 @@ _COUNTERS = {
     "fused_site_bwd": (fused_site_bwd, "launches"),
     "lattice_bias_wide": (lattice_bias, "launches_wide"),
     "lattice_bias_wide_bwd": (lattice_bias_bwd, "launches_wide"),
+    "fused_site_wide": (fused_site_wide, "launches"),
+    "fused_site_wide_lse": (fused_site_wide, "launches_lse"),
+    "fused_site_wide_prefetch": (fused_site_wide, "launches_prefetch"),
+    "lattice_bias_wide_prefetch": (lattice_bias, "launches_wide_prefetch"),
 }
 
 

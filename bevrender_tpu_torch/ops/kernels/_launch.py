@@ -49,6 +49,19 @@ def check_geometry(fn: str, table, ys, ms, wy, f, u0, g, H: int, W: int,
         raise ValueError(f"{fn} takes CUDA tensors")
 
 
+def window_columns(Wt: int) -> tuple:
+    """(CW, Xs) of a key's window in the prefetch kernels: its queries read
+    the columns ms .. ms + max(u0) + 2 of the padded table, CW is the width
+    of the whole 16-byte chunks that hold them wherever ms falls, and Xs the
+    row pitch (a multiple of 8) of the pitched zero-padded table
+    (csrc/lattice_ring.cuh) that every such chunk lies in."""
+    u_max = (Wt - 1) // 2  # u0 of the last query column
+    m_max = -(-(Wt - 1) // 2) + 3 + PAD  # as ops.deform_attn.static_comb
+    CW = -(-(u_max + 3 + 7) // 8) * 8
+    Xp = Wt + PAD + max(PAD, m_max)
+    return CW, -(-max(Xp, m_max - 3 + CW) // 8) * 8
+
+
 _fns: dict = {}
 
 

@@ -17,9 +17,8 @@
 // the zero-padded (g, h) table in shared memory (64 x 357 x 2 B = 46 KB for
 // the flagship's SCA) and walks the keys in tiles of KT, staged in shared
 // memory. Scores are kept in base 2 (scaled by log2 e) so the softmax uses
-// exp2. The score of a pair is written with explicit roundings (fmaf for
-// q . k and for scale * qk + bias, then one rounded multiply by log2 e), so
-// ops/deform_attn.py::site_consumer_online can repeat it in PyTorch.
+// exp2. The online softmax is site_common.cuh's, shared with
+// fused_site_wide.cu, whose output equals this kernel's bit for bit.
 //
 // With a non-null `lse` the kernel also writes the softmax's logsumexp per
 // (head, query) in natural-log units, the residual of the training backward
@@ -29,14 +28,12 @@
 //
 // Head widths: 4 and 8, the two the supported models give it.
 
-#include "lattice_common.cuh"
+#include "site_common.cuh"
 
 namespace {
 
-constexpr int KT = 32;
+using site::KT;
 constexpr int THREADS = 128;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int CH>
 __global__ void __launch_bounds__(THREADS) fused_site_kernel(
@@ -80,70 +77,28 @@ __global__ void __launch_bounds__(THREADS) fused_site_kernel(
 #pragma unroll
   for (int c = 0; c < CH; ++c) qf[c] = __bfloat162float(qp[c]);
 
-  float mrun = -1e30f;
-  float l = 0.0f;
-  float o[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) o[c] = 0.0f;
-
   const __nv_bfloat16* kb = k + (size_t)bgh * N * CH;
   const __nv_bfloat16* vb = v + (size_t)bgh * N * CH;
   const size_t geo = (size_t)bg * N;
 
+  site::Online<CH> state;
   for (int n0 = 0; n0 < N; n0 += KT) {
     const int nk = min(KT, N - n0);
     __syncthreads();  // the previous tile is consumed; the table is staged
-    for (int i = threadIdx.x; i < nk * CH; i += THREADS) {
-      sk[i] = __bfloat162float(kb[(size_t)n0 * CH + i]);
-      sv[i] = __bfloat162float(vb[(size_t)n0 * CH + i]);
-    }
+    site::stage_kv<CH>(sk, sv, kb, vb, n0, nk);
     for (int i = threadIdx.x; i < nk; i += THREADS) {
       sbase[i] = ys[geo + n0 + i] * Xp + ms[geo + n0 + i];
       swy[i] = wy[geo + n0 + i];
       sf[i] = fx[geo + n0 + i];
     }
     __syncthreads();
-
-    float s[KT];
-    float tmax = -1e30f;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      if (j < nk) {
-        float qk = 0.0f;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) qk = __fmaf_rn(qf[c], sk[j * CH + c], qk);
-        const float bias =
-            lattice::bias_at(tq + sbase[j], Xp, gcol, swy[j], sf[j]);
-        s[j] = __fmul_rn(__fmaf_rn(scale, qk, bias), LOG2E);
-        tmax = fmaxf(tmax, s[j]);
-      }
-    }
-    const float mnew = fmaxf(mrun, tmax);
-    const float alpha = exp2f(mrun - mnew);
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) o[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      if (j < nk) {
-        const float p = exp2f(s[j] - mnew);
-        l += p;
-        const float pb = __bfloat162float(__float2bfloat16_rn(p));
-#pragma unroll
-        for (int c = 0; c < CH; ++c) o[c] = fmaf(pb, sv[j * CH + c], o[c]);
-      }
-    }
-    mrun = mnew;
+    site::tile(state, qf, sk, sv, nk, scale, [&](int j) {
+      return lattice::bias_at(tq + sbase[j], Xp, gcol, swy[j], sf[j]);
+    });
   }
-
-  if (active) {
-    const float lsafe = fmaxf(l, 1e-30f);
-    float* op = out + ((size_t)bgh * M + m) * CH;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) op[c] = o[c] / lsafe;
-    // scores are in base 2: back to natural-log units, once
-    if (lse != nullptr) lse[(size_t)bgh * M + m] = (mrun + log2f(lsafe)) * LN2;
-  }
+  if (active)
+    site::finish(state, out + ((size_t)bgh * M + m) * CH,
+                 lse == nullptr ? nullptr : lse + (size_t)bgh * M + m);
 }
 
 template <int CH>

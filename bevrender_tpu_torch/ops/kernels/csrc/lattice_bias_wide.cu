@@ -62,19 +62,8 @@ __global__ void lattice_bias_wide_kernel(
     float vals[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      // lattice::bias_at, with the four reads from the raw table
-      const float phi = __fadd_rn(gcomb[ix], f);
-      const float cross = floorf(phi);
-      const float wx = __fsub_rn(phi, cross);
-      const int r = y0 + iy;
-      const int c = x0 + u0[ix] + (cross > 0.5f ? 1 : 0);
-      using lattice::lerp_rn;
-      using lattice::padded_at;
-      const float a0 = lerp_rn(padded_at(t, Ht, Wt, r, c),
-                               padded_at(t, Ht, Wt, r, c + 1), wx);
-      const float a1 = lerp_rn(padded_at(t, Ht, Wt, r + 1, c),
-                               padded_at(t, Ht, Wt, r + 1, c + 1), wx);
-      vals[e] = lerp_rn(a0, a1, w_y);
+      vals[e] = lattice::bias_at_raw(t, Ht, Wt, y0 + iy, x0 + u0[ix],
+                                     gcomb[ix], w_y, f);
       if (++ix == W) {
         ix = 0;
         ++iy;

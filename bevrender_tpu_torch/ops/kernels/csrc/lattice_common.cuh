@@ -143,6 +143,32 @@ __device__ __forceinline__ float padded_at(const __nv_bfloat16* __restrict__ t,
   return __bfloat162float(__ldg(t + (size_t)r * Wt + c));
 }
 
+// `bias_at` for the raw table in device memory: (r, c) is the padded-table
+// position that `p0` would point at (row ys + iy, column u0[ix] + ms). Each
+// of the four entries is read with __ldg where it lies in the raw table and
+// is 0 where it lies in the padding (one bounds check per row and per
+// column, as `padded_at` would make per entry). Same arithmetic, same
+// result.
+__device__ __forceinline__ float bias_at_raw(const __nv_bfloat16* __restrict__ t,
+                                             int Ht, int Wt, int r, int c,
+                                             float g, float wy, float f) {
+  const float phi = __fadd_rn(g, f);
+  const float cross = floorf(phi);
+  const float wx = __fsub_rn(phi, cross);
+  r -= PAD;
+  c += (cross > 0.5f ? 1 : 0) - PAD;
+  const bool r0 = (unsigned)r < (unsigned)Ht;
+  const bool r1 = (unsigned)(r + 1) < (unsigned)Ht;
+  const bool c0 = (unsigned)c < (unsigned)Wt;
+  const bool c1 = (unsigned)(c + 1) < (unsigned)Wt;
+  const __nv_bfloat16* p = t + (r * Wt + c);  // read only where in the table
+  const float t00 = r0 && c0 ? __bfloat162float(__ldg(p)) : 0.0f;
+  const float t01 = r0 && c1 ? __bfloat162float(__ldg(p + 1)) : 0.0f;
+  const float t10 = r1 && c0 ? __bfloat162float(__ldg(p + Wt)) : 0.0f;
+  const float t11 = r1 && c1 ? __bfloat162float(__ldg(p + Wt + 1)) : 0.0f;
+  return lerp_rn(lerp_rn(t00, t01, wx), lerp_rn(t10, t11, wx), wy);
+}
+
 // two floats -> two round-to-nearest bf16 in one word, lower address first
 __device__ __forceinline__ unsigned pack2(float a, float b) {
   return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |

@@ -14,7 +14,7 @@ from bevrender_tpu_torch.ops.kernels._launch import call, check, check_geometry
 launches = 0  # kernel launches since the last reset (ops.kernels.reset_counts)
 launches_lse = 0  # launches of the instance that writes the logsumexp
 HEAD_WIDTHS = (4, 8)  # the kernel's instances (csrc/fused_site.cu)
-KEY_TILE = 32  # keys per online-softmax step, KT in csrc/fused_site.cu
+KEY_TILE = 32  # keys per online-softmax step, KT in csrc/site_common.cuh
 
 
 def check_site_args(table, ys, ms, wy, f, u0, g, q, k, v, H: int, W: int):

@@ -1,0 +1,108 @@
+"""Wrappers of the wide fused-site kernels, for narrow-head sites whose
+table ``fused_site`` cannot stage in shared memory, or every site under
+``ModelConfig.lattice_route="wide"`` (``ops.deform_attn.site_kernels``):
+
+- ``fused_site_wide_cuda`` (csrc/fused_site_wide.cu), the counterpart of
+  bevrender_tpu/ops/pallas/fused_attn.py::fused_site_call (the
+  ``pallas_call`` of ``_fused_site_pallas_call``, plain staging);
+- ``fused_site_wide_lse_cuda``, its instance that also returns the
+  logsumexp, the counterpart of ``fused_site_call_lse`` there;
+- ``fused_site_wide_prefetch_cuda`` (csrc/fused_site_wide_prefetch.cu), the
+  same site with each key tile's windows prefetched into shared memory by
+  asynchronous copies, the counterpart of bevrender_tpu/ops/pallas/
+  experimental.py::fused_site_call_dma (``ModelConfig.site_prefetch``).
+
+They compute the function of ``fused_site`` and equal it bit for bit; the
+plain versions are ``ops.deform_attn.site_plain`` and ``site_plain_lse``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bevrender_tpu_torch.ops.kernels._launch import (
+    PAD,
+    SMEM_PER_BLOCK,
+    call,
+    window_columns,
+)
+from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
+
+# kernel launches since the last reset (ops.kernels.reset_counts)
+launches = 0  # fused_site_wide
+launches_lse = 0  # fused_site_wide_lse
+launches_prefetch = 0  # fused_site_wide_prefetch
+THREADS = 128  # queries per block, THREADS in csrc/fused_site_wide_prefetch.cu
+
+
+def prefetch_ring(Ht: int, Wt: int, H: int, W: int, ch: int) -> tuple:
+    """(R, CW, Xs, shared-memory bytes) of ``fused_site_wide_prefetch``'s
+    ring: two stages of KEY_TILE keys x R rows x CW columns in bf16, plus
+    the key tile's K, V and geometry, as the kernel lays them out. Raises
+    where that exceeds SMEM_PER_BLOCK."""
+    CW, Xs = window_columns(Wt)
+    R = min(-(-(THREADS - 1) // W), H - 1) + 2
+    smem = 2 * KEY_TILE * R * CW * 2 + KEY_TILE * (2 * ch + 3) * 4
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_site_wide_prefetch: a ring of 2 x {KEY_TILE} keys x {R} "
+            f"rows x {CW} columns needs {smem} bytes of shared memory, over "
+            f"{SMEM_PER_BLOCK}; take fused_site_wide (site_prefetch=False)")
+    return R, CW, Xs, smem
+
+
+def _launch(fn_name: str, table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
+            with_lse: bool):
+    B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
+                                               q, k, v, H, W)
+    dev = table.device
+    out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32, device=dev)
+    lse = (torch.empty((B, G, Hpg, H * W), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    call("fused_site_wide", fn_name,
+         (table, ys, ms, wy, f, u0, g, q, k, v, out)
+         + ((lse,) if with_lse else ())
+         + (B, G, Hpg, Ht, Wt, N, H, W, ch, float(scale)))
+    return out, lse
+
+
+def fused_site_wide_cuda(table, ys, ms, wy, f, u0, g, q, k, v, H: int,
+                         W: int, scale: float) -> torch.Tensor:
+    """Arguments as ``fused_site_cuda`` without the padded width (the
+    kernel reads the raw table) -> (B, G, Hpg, H*W, ch) float32."""
+    global launches
+    out, _ = _launch("fused_site_wide_launch", table, ys, ms, wy, f, u0, g, q,
+                     k, v, H, W, scale, False)
+    launches += 1
+    return out
+
+
+def fused_site_wide_lse_cuda(table, ys, ms, wy, f, u0, g, q, k, v, H: int,
+                             W: int, scale: float):
+    """``fused_site_wide_cuda`` that also returns the logsumexp over the
+    keys, (B, G, Hpg, H*W) float32 in natural-log units."""
+    global launches_lse
+    out = _launch("fused_site_wide_lse_launch", table, ys, ms, wy, f, u0, g,
+                  q, k, v, H, W, scale, True)
+    launches_lse += 1
+    return out
+
+
+def fused_site_wide_prefetch_cuda(table, ys, ms, wy, f, u0, g, q, k, v,
+                                  H: int, W: int, scale: float) -> torch.Tensor:
+    """``fused_site_wide_cuda`` through the prefetch kernel. The launch
+    first copies the table into scratch as a pitched zero-padded table
+    (G * Hpg * (Ht + 2 PAD) * Xs bf16), which its time includes."""
+    global launches_prefetch
+    B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
+                                               q, k, v, H, W)
+    R, CW, Xs, _ = prefetch_ring(Ht, Wt, H, W, ch)
+    dev = table.device
+    pitched = torch.empty((G * Hpg * (Ht + 2 * PAD) * Xs,),
+                          dtype=torch.bfloat16, device=dev)
+    out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32, device=dev)
+    call("fused_site_wide_prefetch", "fused_site_wide_prefetch_launch",
+         (table, pitched, ys, ms, wy, f, u0, g, q, k, v, out, B, G, Hpg, Ht,
+          Wt, Xs, N, H, W, R, CW, ch, float(scale)))
+    launches_prefetch += 1
+    return out

@@ -20,8 +20,9 @@ What differs from the JAX package, and why:
   arithmetic;
 * the retrieval embedding is the flattened render or a caller's
   ``embed_fn``; the trained retrieval head is not ported yet;
-* kernel choice for the training pass comes from ``TrainConfig.fused_bwd``
-  and ``TrainConfig.site_remat``, not from environment variables.
+* kernel choice comes from ``TrainConfig.fused_bwd`` and
+  ``TrainConfig.site_remat`` and from ``ModelConfig.lattice_route``,
+  ``site_prefetch`` and ``bias_prefetch``, not from environment variables.
 """
 
 from __future__ import annotations
@@ -163,7 +164,8 @@ class Trainer:
             net.load_state_dict(state_dict, strict=True)
         net = net.to(self.device)
         set_site_options(net, fused_bwd=self.tc.fused_bwd,
-                         site_remat=self.tc.site_remat)
+                         site_remat=self.tc.site_remat,
+                         **self.config.model.site_options())
         set_generator(net, self._gen)
         optimizer = torch.optim.AdamW(
             net.parameters(), lr=self.tc.learning_rate, betas=(0.9, 0.999),

@@ -58,7 +58,24 @@ Phases, each fatal on failure:
     memory;
 13. a small BEV 56 -> 28 -> 56 model whose SCA at 56 takes the wide kernels
     through the normal dispatch: its parameter gradients through the
-    kernels against plain PyTorch with the kernels' roundings, as phase 9.
+    kernels against plain PyTorch with the kernels' roundings, as phase 9;
+14. the wide-table route: the flagship serving as phase 3 (WIDE_REQUESTS
+    requests) with ``lattice_route="wide"``: exactly 24
+    ``fused_site_wide`` and 64 ``lattice_bias_wide`` launches per forward,
+    and the render equal to phase 3's;
+15. the same with ``site_prefetch`` and ``bias_prefetch``: 24
+    ``fused_site_wide_prefetch`` and 64 ``lattice_bias_wide_prefetch`` per
+    forward, the render equal to phase 3's;
+16. flagship training on the wide route with ``fused_bwd``, as phase 7:
+    the counts of phase 7 on the wide kernels (12 ``fused_site_wide_lse``
+    and 12 ``fused_site_bwd`` per step);
+17. the pyramid serving as phase 10 with ``bias_prefetch``: 24
+    ``lattice_bias_wide_prefetch`` and 64 ``lattice_bias`` per forward, the
+    render equal to phase 10's;
+18. each new kernel alone at every shape phases 14-17 give it, at two
+    table scales, against its plain version and, with tolerance 0, against
+    its bit-equal sibling; ``lattice_bias_wide`` and its backward at the
+    flagship's shapes; times, bounds, plain and library times.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -125,6 +142,30 @@ PYR_TRAIN_COUNTS = {
     "none": dict(lattice_bias=32 * 2, lattice_bias_wide=12 * 2,
                  lattice_bias_bwd=32, lattice_bias_wide_bwd=12),
 }
+# The wide-table route (ModelConfig.lattice_route="wide"): every flagship
+# site on the kernels that read the table through L1 (phase 14), or on
+# their window-prefetch variants (phase 15: site_prefetch, bias_prefetch);
+# a window of WIDE_REQUESTS requests each
+WIDE_REQUESTS = 10
+WIDE_PER_FORWARD = dict(fused_site_wide=FUSED_PER_FORWARD,
+                        lattice_bias_wide=BIAS_PER_FORWARD)
+WIDE_PREFETCH_PER_FORWARD = dict(fused_site_wide_prefetch=FUSED_PER_FORWARD,
+                                 lattice_bias_wide_prefetch=BIAS_PER_FORWARD)
+# a training step under "wide" with fused_bwd (phase 16): the counts of
+# TRAIN_COUNTS[(True, "nothing")] on the wide kernels; the site backward
+# stays fused_site_bwd, whose shared memory holds the flagship's tables
+WIDE_NAMES = dict(fused_site="fused_site_wide",
+                  fused_site_lse="fused_site_wide_lse",
+                  lattice_bias="lattice_bias_wide",
+                  lattice_bias_bwd="lattice_bias_wide_bwd",
+                  fused_site_bwd="fused_site_bwd")
+WIDE_TRAIN_COUNTS = {WIDE_NAMES[k]: v
+                     for k, v in TRAIN_COUNTS[(True, "nothing")].items()}
+# the pyramid with bias_prefetch (phase 17): its SCA at BEV 56, the one
+# site that takes the wide bias on the "auto" route, on the prefetch variant
+PYR_PREFETCH_PER_FORWARD = dict(lattice_bias=PYR_PER_FORWARD["lattice_bias"],
+                                lattice_bias_wide_prefetch=PYR_PER_FORWARD[
+                                    "lattice_bias_wide"])
 BIAS_ULP = 2.0 ** -7   # one bf16 ulp of x is at most |x| * 2^-7
 # fused site vs its plain version: both round p to bf16 (the kernel before
 # normalising, the plain version after), each off by at most 2^-8 of the
@@ -242,7 +283,8 @@ def serving_phase(card: str, tag: str, cfg, B: int, requests: int,
     """render+register at B, T=2, V=3, 224 x 224 against a 64-tile
     database, seeded weights: one warm-up request, then ``requests`` back to
     back with exact launch counts (``per_forward`` per request); time,
-    spread, host CPU, peak memory, device idle share, top operations."""
+    spread, host CPU, peak memory, device idle share, top operations. The
+    result holds the last render (float32, on the host) under "render"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -318,6 +360,7 @@ def serving_phase(card: str, tag: str, cfg, B: int, requests: int,
     for e in avgs[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:100]}", flush=True)
+    last = render.float().cpu()
     del pipe, render, idx, dist, db
     torch.cuda.empty_cache()
     return dict(requests=requests, request_ms=ms, request_ms_min=min(req_ms),
@@ -325,7 +368,7 @@ def serving_phase(card: str, tag: str, cfg, B: int, requests: int,
                 request_ms_p95=q[-1], request_ms_max=max(req_ms),
                 host_cpu_ms=host_cpu_ms, frames_per_s=B / ms * 1e3,
                 peak_gib=peak_gb, busy_ms=busy, idle_share=idle,
-                counts=counts)
+                counts=counts, render=last)
 
 
 # Sites of one flagship forward at B=4, V=3, BEV 28 x 28 (H = W = 28):
@@ -392,6 +435,21 @@ def check_bias(da, kernel_mod) -> dict:
     return dict(rows=rows, worst=worst)
 
 
+def site_bound(B, G, ch, N, Wt, extra_bytes=0, lse=False):
+    """(bound ms, what bounds it) of a fused site forward: bytes (q, k, v,
+    the table, the geometry, the output, the logsumexp, and ``extra_bytes``)
+    against 4 ch bf16 FLOP per (query, key) pair at the tensor-core rate
+    plus 18 float32 operations (bias lerps, score, running max, exp, sum)."""
+    pairs = B * G * HPG * H * W * N
+    q_el, kv_el = B * G * HPG * H * W * ch, B * G * HPG * N * ch
+    nbytes = ((q_el + 2 * kv_el) * 2 + G * HPG * (2 * H - 1) * Wt * 2
+              + B * G * N * 16 + W * 8 + q_el * 4
+              + (B * G * HPG * H * W * 4 if lse else 0) + extra_bytes)
+    t_ops = pairs * 4 * ch / BF16_FLOPS + pairs * 18 / F32_FLOPS
+    by = "bytes" if nbytes / HBM_BPS >= t_ops else "operations"
+    return max(nbytes / HBM_BPS, t_ops) * 1e3, by
+
+
 def site_errors(da, kernel_mod, seed, B, G, ch, N, Wt, table_std):
     """Run the fused-site kernel once at one shape and hold it against its
     plain version and against ``site_consumer_online``. Returns the errors,
@@ -454,14 +512,7 @@ def check_site(da, kernel_mod) -> dict:
         qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch) for x in (q, k, v))
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=scale), 20)
-        pairs = B * G * HPG * H * W * N
-        nbytes = ((q.numel() + k.numel() + v.numel()) * 2 + table.numel() * 2
-                  + B * G * N * 16 + W * 8 + q.numel() * 4)
-        # bf16 products (QK, AV) at the tensor-core rate; bias lerps, score,
-        # running max, exp and sum in float32 (18 per pair)
-        t_ops = pairs * 4 * ch / BF16_FLOPS + pairs * 18 / F32_FLOPS
-        bound = max(nbytes / HBM_BPS, t_ops) * 1e3
-        by = "bytes" if nbytes / HBM_BPS >= t_ops else "operations"
+        bound, by = site_bound(B, G, ch, N, Wt)
         rows.append(dict(site=name, ms=ms, events_ms=ev, plain_ms=plain,
                          library_ms=lib,
                          bound_ms=bound, bound_by=by, per_forward=per_fwd,
@@ -490,11 +541,11 @@ def plain_sites(da, online: bool = False):
         # ``t`` unrounded, as the kernels' float32 table gradient does
         return t + (t.detach().bfloat16().float() - t.detach())
 
-    def bias(t, p, h, w):
+    def bias(t, p, h, w, kernel=None):
         return da.lattice_bias_plain(rounded(t), p, h, w,
                                      torch.float32).bfloat16()
 
-    def site(q, k, v, p, t, h, w, scale):
+    def site(q, k, v, p, t, h, w, scale, kernel=None):
         b = da.lattice_bias_plain(rounded(t), p, h, w, torch.float32)
         consumer = da.site_consumer_online if online else da.site_consumer
         return consumer(q, k, v, b, scale)
@@ -518,7 +569,7 @@ def plain_sites(da, online: bool = False):
                 q, k, v, p, t, h, w, scale, dout, lse, (dout * out).sum(-1))
             return dq, dk, dv, dp, dt, None, None, None
 
-    def site_train(q, k, v, p, t, h, w, scale):
+    def site_train(q, k, v, p, t, h, w, scale, kernel=None):
         if online:
             return OnlineSite.apply(q, k, v, p, t, h, w, scale)
         return site(q, k, v, p, t, h, w, scale)
@@ -559,14 +610,24 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-def check_bias_bwd(da, kernel_mod) -> dict:
+def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
     """lattice_bias_bwd against autograd through the plain bias at every
     shape of a training step, at the init's table scale and at std 1.0; the
-    forward kernel's output at those shapes against the plain bias too."""
+    forward kernel's output at those shapes against the plain bias too.
+    With ``wide``, the wide kernels (``lattice_route="wide"``) at the same
+    shapes, the forward also against the whole-table one bit for bit; their
+    launches per step are those of phase 16 (``fused_bwd``: the narrow
+    sites take the fused site instead)."""
     import torch
 
+    fwd_kernel = "lattice_bias_wide" if wide else None
+    bwd_call = (kernel_mod.lattice_bias_wide_bwd_cuda if wide
+                else kernel_mod.lattice_bias_bwd_cuda)
+    tag = "lattice_bias_wide_bwd" if wide else "lattice_bias_bwd"
     rows, worst, worst_fwd, bad = [], 0.0, 0.0, []
     for i, (name, B, G, ch, N, Wt, per_step) in enumerate(TRAIN_BIAS_SITES):
+        if wide and ch <= 8:
+            per_step = 0
         for std in SITE_TABLE_STDS:
             table, k_pos, *_ = site_inputs(40 + i, B, G, ch, N, Wt, std)
             gen = torch.Generator(device="cuda").manual_seed(50 + i)
@@ -574,7 +635,7 @@ def check_bias_bwd(da, kernel_mod) -> dict:
                                device="cuda").bfloat16()
             t1 = table.clone().requires_grad_()
             p1 = k_pos.clone().requires_grad_()
-            fwd = da.lattice_bias(t1, p1, H, W)
+            fwd = da.lattice_bias(t1, p1, H, W, fwd_kernel)
             dt, dp = torch.autograd.grad(fwd, (t1, p1), gout)
             t2 = table.bfloat16().float().requires_grad_()
             p2 = k_pos.clone().requires_grad_()
@@ -587,15 +648,19 @@ def check_bias_bwd(da, kernel_mod) -> dict:
                 rb = ref.bfloat16().float()
                 e_f = (fwd.float() - rb).abs()
                 ok_f = bool((e_f <= rb.abs() * BIAS_ULP).all())
+                if wide:
+                    ok_f = ok_f and torch.equal(
+                        fwd, da.lattice_bias(table, k_pos, H, W))
                 e_f = float(e_f.max())
                 del rb
             torch.cuda.synchronize()
             e_t, e_p = rel_err(dt, rdt), rel_err(dp, rdp)
             ok = ok_f and e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL and bool(
                 torch.isfinite(dt).all() and torch.isfinite(dp).all())
-            print(f"lattice_bias_bwd {name} table std {std}: forward max "
+            print(f"{tag} {name} table std {std}: forward max "
                   f"abs err {e_f:.3g} ({'within' if ok_f else 'BEYOND'} 1 "
-                  f"bf16 ulp); dtable rel err {e_t:.3g}, dk_pos rel err "
+                  f"bf16 ulp{', equal to lattice_bias' if wide else ''}); "
+                  f"dtable rel err {e_t:.3g}, dk_pos rel err "
                   f"{e_p:.3g} ({'ok' if ok else 'FAIL'})", flush=True)
             worst_fwd = max(worst_fwd, e_f)
             del fwd
@@ -605,9 +670,8 @@ def check_bias_bwd(da, kernel_mod) -> dict:
                 err = float((dt - rdt).abs().max())
                 worst = max(worst, err)
                 args = da._kernel_args(table, k_pos, H, W)
-                launch = lambda: kernel_mod.lattice_bias_bwd_cuda(  # noqa: E731
-                    *args, gout, H, W)
-                ms = device_ms(launch, 10, "lattice_bias_bwd_kernel")
+                launch = lambda: bwd_call(*args, gout, H, W)  # noqa: E731
+                ms = device_ms(launch, 10, f"{tag}_kernel")
                 ev = events_ms(launch, 10)
                 gf = gout.float()
                 plain = device_ms(lambda: torch.autograd.grad(
@@ -617,13 +681,13 @@ def check_bias_bwd(da, kernel_mod) -> dict:
                                  plain_ms=plain, bound_ms=bound, bound_by=by,
                                  per_step=per_step, max_abs_err=err,
                                  rel_err_dtable=e_t, rel_err_dkpos=e_p))
-                print(f"lattice_bias_bwd {name}: kernel {ms:.4f} ms (events "
+                print(f"{tag} {name}: kernel {ms:.4f} ms (events "
                       f"{ev:.4f}) plain {plain:.4f} ms bound {bound:.4f} ms "
                       f"({by}) x{per_step}/step", flush=True)
             del ref, rdt, rdp, dt, dp
         torch.cuda.empty_cache()
     if bad:
-        fail(f"lattice_bias / lattice_bias_bwd beyond tolerance at {bad}")
+        fail(f"{tag} beyond tolerance at {bad}")
     return dict(rows=rows, worst=worst, worst_fwd=worst_fwd)
 
 
@@ -664,13 +728,14 @@ def bias_inputs(seed, B, G, N, Wt, H, table_std):
     return table, k_pos, gout
 
 
-def bias_bounds(B, G, N, Wt, H, backward: bool):
+def bias_bounds(B, G, N, Wt, H, backward: bool, extra_bytes: int = 0):
     """(bound ms, what bounds it) of the bias forward or backward: bytes
     (each input read once, each output written once) against float32
     operations (forward 12 per element: phi, floor, frac and three lerps of
     three; backward 28: window fractions 3, two x-lerps 6, the tail 15 (dwy
     3, d0/d1 3, df 7, 1 - wx, 4 weights as 2 per pair of corners) and 4 adds
-    into the table gradient) at the H100's published peaks."""
+    into the table gradient) at the H100's published peaks; ``extra_bytes``
+    (a prefetch kernel's pitched table copy) adds to the bytes."""
     elems = B * G * HPG * N * H * H
     table = G * HPG * (2 * H - 1) * Wt
     if backward:
@@ -679,6 +744,7 @@ def bias_bounds(B, G, N, Wt, H, backward: bool):
     else:
         nbytes = elems * 2 + table * 2 + B * G * N * 16 + H * 8
         ops = elems * 12
+    nbytes += extra_bytes
     by = "bytes" if nbytes / HBM_BPS >= ops / F32_FLOPS else "operations"
     return max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3, by
 
@@ -903,9 +969,6 @@ def check_site_train(da, kernels) -> tuple:
         del sd, mask
         pairs = B * G * HPG * H * W * N
         geo = B * G * N * 16 + W * 8
-        by_l = ((q.numel() + k.numel() + v.numel()) * 2 + table.numel() * 2
-                + geo + q.numel() * 4 + lse.numel() * 4)
-        t_l = pairs * 4 * ch / BF16_FLOPS + pairs * 18 / F32_FLOPS
         by_b = ((q.numel() + k.numel() + v.numel()) * 2 + dout.numel() * 4
                 + lse.numel() * 8 + (q.numel() + k.numel() + v.numel()) * 4
                 + table.numel() * (2 + 4) + geo + B * G * N * 8)
@@ -915,20 +978,21 @@ def check_site_train(da, kernels) -> tuple:
         # 2, and of the bias tail's 28 the 19 that are its own (it shares
         # the window fractions and the x-lerps with the forward bias)
         t_b = pairs * 10 * ch / BF16_FLOPS + pairs * 38 / F32_FLOPS
-        for rows, ms, plain, lib, nbytes, t_ops, extra in (
-                (rows_l, ms_l, plain_l, lib_l, by_l, t_l,
+        bound_b = (max(by_b / HBM_BPS, t_b) * 1e3,
+                   "bytes" if by_b / HBM_BPS >= t_b else "operations")
+        for rows, ms, plain, lib, (bound, by), extra in (
+                (rows_l, ms_l, plain_l, lib_l,
+                 site_bound(B, G, ch, N, Wt, lse=True),
                  dict(max_abs_err=kept["lse_err"],
                       max_abs_err_online=kept["lse_err_online"])),
-                (rows_b, ms_b, plain_b, lib_b, by_b, t_b,
+                (rows_b, ms_b, plain_b, lib_b, bound_b,
                  dict(events_ms=ev_b, max_abs_err=kept["abs_err"],
                       max_abs_err_online=kept["abs_err_online"],
                       rel_err=kept["e_plain"],
                       rel_err_online=kept["e_online"]))):
             rows.append(dict(
                 site=name, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=max(nbytes / HBM_BPS, t_ops) * 1e3,
-                bound_by="bytes" if nbytes / HBM_BPS >= t_ops else "operations",
-                per_step=per_step, **extra))
+                bound_ms=bound, bound_by=by, per_step=per_step, **extra))
         print(f"fused_site_lse {name}: kernel {ms_l:.4f} ms plain "
               f"{plain_l:.4f} ms sdpa+mask {lib_l:.4f} ms bound "
               f"{rows_l[-1]['bound_ms']:.4f} ms ({rows_l[-1]['bound_by']}) "
@@ -945,6 +1009,280 @@ def check_site_train(da, kernels) -> tuple:
                  worst_online=worst["lse_online"]),
             dict(rows=rows_b, worst=worst["bwd"],
                  worst_online=worst["bwd_online"]))
+
+
+def pitched_bytes(G, Ht, Wt) -> int:
+    """Bytes that a prefetch kernel's pitched table copy writes and reads
+    back: (Ht + 2 PAD) x Xs bf16 per head, twice."""
+    from bevrender_tpu_torch.ops.kernels._launch import PAD, window_columns
+
+    return 2 * G * HPG * (Ht + 2 * PAD) * window_columns(Wt)[1] * 2
+
+
+def check_wide_site(da, kernels) -> tuple:
+    """Phase 18, the fused sites of the wide route at every serving shape of
+    phases 14-15 (SITE_SITES) and two table scales: ``fused_site_wide``
+    equal to ``fused_site`` bit for bit and ``fused_site_wide_prefetch``
+    equal to it, both within the fused site's tolerances of the plain
+    version and of the online mirror. Times (the prefetch variant's as
+    the sum of its kernel's and its pitched table copy's), bounds, plain
+    and library times, and
+    ``fused_site``'s time at the same shapes for comparison. Returns
+    (fused_site_wide record, fused_site_wide_prefetch record)."""
+    import torch
+    import torch.nn.functional as F
+
+    wide = kernels.fused_site_wide
+    rows_w, rows_p, bad = [], [], []
+    worst = dict(wide=0.0, wide_online=0.0, prefetch=0.0, prefetch_online=0.0)
+    for i, (name, B, G, ch, N, Wt, per_fwd) in enumerate(SITE_SITES):
+        for std in SITE_TABLE_STDS:
+            table, k_pos, q, k, v = site_inputs(80 + i, B, G, ch, N, Wt, std)
+            scale = ch ** -0.5
+            bf = torch.bfloat16
+            kargs = da._kernel_args(table, k_pos, H, W) + tuple(
+                x.to(bf).contiguous() for x in (q, k, v))
+            geo, qkv = kargs[:7], kargs[8:]
+            whole = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
+            out_w = wide.fused_site_wide_cuda(*geo, *qkv, H, W, scale)
+            out_p = wide.fused_site_wide_prefetch_cuda(*geo, *qkv, H, W, scale)
+            tb = table.bfloat16().float()
+            bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+            ref = da.site_consumer(q, k, v, bias, scale)
+            wabs = da.site_consumer(q, k, v.abs(), bias, scale)
+            online = da.site_consumer_online(q, k, v, bias, scale)
+            torch.cuda.synchronize()
+            same_w = torch.equal(out_w, whole)
+            same_p = torch.equal(out_p, out_w)
+            errs = {}
+            for tag, out in (("wide", out_w), ("prefetch", out_p)):
+                d_plain, d_online = (out - ref).abs(), (out - online).abs()
+                errs[tag] = (float(d_plain.max()), float(d_online.max()),
+                             bool((d_plain <= SITE_P_ROUND * wabs + 1e-5).all())
+                             and bool((d_online <= ONLINE_TOL * wabs
+                                       + 1e-7).all()))
+            ok = same_w and same_p and errs["wide"][2] and errs["prefetch"][2]
+            print(f"fused_site_wide {name} table std {std}: "
+                  f"{'equals' if same_w else 'DIFFERS FROM'} fused_site; "
+                  f"prefetch {'equals' if same_p else 'DIFFERS FROM'} "
+                  f"fused_site_wide; max abs err vs plain {errs['wide'][0]:.3g}"
+                  f", vs site_consumer_online {errs['wide'][1]:.3g} "
+                  f"({'ok' if ok else 'FAIL'})", flush=True)
+            if not ok:
+                bad.append(f"{name} std {std}")
+            for tag in ("wide", "prefetch"):
+                worst[tag] = max(worst[tag], errs[tag][0])
+                worst[tag + "_online"] = max(worst[tag + "_online"],
+                                             errs[tag][1])
+            if std != SITE_TABLE_STDS[0]:
+                continue
+            ms_whole = device_ms(lambda: kernels.fused_site.fused_site_cuda(
+                *kargs, H, W, scale), 20, "fused_site_kernel")
+            ms_w = device_ms(lambda: wide.fused_site_wide_cuda(
+                *geo, *qkv, H, W, scale), 20, "fused_site_wide_kernel")
+            launch_p = lambda: wide.fused_site_wide_prefetch_cuda(  # noqa: E731
+                *geo, *qkv, H, W, scale)
+            ms_p_kernel = device_ms(launch_p, 20,
+                                    "fused_site_wide_prefetch_kernel")
+            ms_p = ms_p_kernel + device_ms(launch_p, 20, "pitch_table_kernel")
+            plain = device_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
+                                                    scale, torch.float32), 5)
+            mask = bias.transpose(-1, -2).to(bf).reshape(-1, H * W, N)
+            mask = mask.contiguous()
+            qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch)
+                          for x in (q, k, v))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=scale), 20)
+            b_w = site_bound(B, G, ch, N, Wt)
+            b_p = site_bound(B, G, ch, N, Wt, pitched_bytes(G, 2 * H - 1, Wt))
+            common = dict(site=name, plain_ms=plain, library_ms=lib,
+                          per_forward=per_fwd, fused_site_ms=ms_whole)
+            rows_w.append(dict(common, ms=ms_w, bound_ms=b_w[0],
+                               bound_by=b_w[1], max_abs_err=errs["wide"][0],
+                               max_abs_err_online=errs["wide"][1]))
+            rows_p.append(dict(common, ms=ms_p, kernel_only_ms=ms_p_kernel,
+                               bound_ms=b_p[0], bound_by=b_p[1],
+                               max_abs_err=errs["prefetch"][0],
+                               max_abs_err_online=errs["prefetch"][1]))
+            print(f"fused_site_wide {name}: kernel {ms_w:.4f} ms, prefetch "
+                  f"{ms_p:.4f} ms (kernel alone {ms_p_kernel:.4f}), "
+                  f"fused_site {ms_whole:.4f} ms; plain {plain:.4f} ms "
+                  f"sdpa+mask {lib:.4f} ms; bound {b_w[0]:.4f} / "
+                  f"{b_p[0]:.4f} ms ({b_w[1]}) x{per_fwd}/forward", flush=True)
+            del mask, qs, ks, vs
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"fused_site_wide / fused_site_wide_prefetch at {bad}")
+    return (dict(rows=rows_w, worst=worst["wide"],
+                 worst_online=worst["wide_online"]),
+            dict(rows=rows_p, worst=worst["prefetch"],
+                 worst_online=worst["prefetch_online"]))
+
+
+def check_wide_site_lse(da, kernels) -> dict:
+    """Phase 18, ``fused_site_wide_lse`` at every narrow site of a training
+    step (TRAIN_SITE_SITES, phase 16) and two table scales: output and
+    logsumexp equal to ``fused_site_lse``'s bit for bit, the output within
+    the fused site's tolerance of the plain version and the logsumexp
+    within LSE_TOL of the plain one and LSE_ONLINE_TOL of the online
+    mirror's. Times, bound, plain and library (SDPA forward) times."""
+    import torch
+    import torch.nn.functional as F
+
+    wide = kernels.fused_site_wide
+    rows, bad = [], []
+    worst = dict(err=0.0, lse=0.0, lse_online=0.0)
+    for i, (name, B, G, ch, N, Wt, per_step) in enumerate(TRAIN_SITE_SITES):
+        for std in SITE_TABLE_STDS:
+            table, k_pos, q, k, v = site_inputs(90 + i, B, G, ch, N, Wt, std)
+            scale = ch ** -0.5
+            bf = torch.bfloat16
+            kargs = da._kernel_args(table, k_pos, H, W) + tuple(
+                x.to(bf).contiguous() for x in (q, k, v))
+            geo, qkv = kargs[:7], kargs[8:]
+            o_whole, l_whole = kernels.fused_site.fused_site_lse_cuda(
+                *kargs, H, W, scale)
+            out, lse = wide.fused_site_wide_lse_cuda(*geo, *qkv, H, W, scale)
+            tb = table.bfloat16().float()
+            ref, ref_lse = da.site_plain_lse(q, k, v, k_pos, tb, H, W, scale,
+                                             torch.float32)
+            bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+            _, on_lse = da.site_consumer_online(q, k, v, bias, scale,
+                                                return_lse=True)
+            wabs = da.site_consumer(q, k, v.abs(), bias, scale)
+            torch.cuda.synchronize()
+            same = torch.equal(out, o_whole) and torch.equal(lse, l_whole)
+            err = float((out - ref).abs().max())
+            e_l = float((lse - ref_lse).abs().max())
+            e_lo = float((lse - on_lse).abs().max())
+            ok = (same and e_l <= LSE_TOL and e_lo <= LSE_ONLINE_TOL and bool(
+                ((out - ref).abs() <= SITE_P_ROUND * wabs + 1e-5).all()))
+            print(f"fused_site_wide_lse {name} table std {std}: out and lse "
+                  f"{'equal' if same else 'DIFFER FROM'} fused_site_lse's; "
+                  f"out err {err:.3g}, lse err {e_l:.3g} (online {e_lo:.3g}) "
+                  f"({'ok' if ok else 'FAIL'})", flush=True)
+            if not ok:
+                bad.append(f"{name} std {std}")
+            worst = dict(err=max(worst["err"], err),
+                         lse=max(worst["lse"], e_l),
+                         lse_online=max(worst["lse_online"], e_lo))
+            if std != SITE_TABLE_STDS[0]:
+                continue
+            ms = device_ms(lambda: wide.fused_site_wide_lse_cuda(
+                *geo, *qkv, H, W, scale), 10, "fused_site_wide_kernel")
+            ms_whole = device_ms(lambda: kernels.fused_site.fused_site_lse_cuda(
+                *kargs, H, W, scale), 10, "fused_site_kernel")
+            plain = device_ms(lambda: da.site_plain_lse(
+                q, k, v, k_pos, tb, H, W, scale, torch.float32), 3)
+            mask = bias.transpose(-1, -2).to(bf).reshape(-1, H * W, N)
+            mask = mask.contiguous()
+            qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch)
+                          for x in (q, k, v))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=scale), 10)
+            bound, by = site_bound(B, G, ch, N, Wt, lse=True)
+            rows.append(dict(site=name, ms=ms, fused_site_lse_ms=ms_whole,
+                             plain_ms=plain, library_ms=lib, bound_ms=bound,
+                             bound_by=by, per_step=per_step, max_abs_err=e_l,
+                             max_abs_err_online=e_lo, max_abs_err_out=err))
+            print(f"fused_site_wide_lse {name}: kernel {ms:.4f} ms "
+                  f"(fused_site_lse {ms_whole:.4f}) plain {plain:.4f} ms "
+                  f"sdpa+mask {lib:.4f} ms bound {bound:.4f} ms ({by}) "
+                  f"x{per_step}/step", flush=True)
+            del mask, qs, ks, vs
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"fused_site_wide_lse beyond tolerance at {bad}")
+    return dict(rows=rows, worst=worst["lse"], worst_online=worst["lse_online"],
+                worst_out=worst["err"])
+
+
+# The prefetch bias at every shape that phases 15 (the flagship's serving
+# bias sites, H = 28) and 17 (the pyramid's SCA at BEV 56) give it: (name,
+# H, batch, G, N, table width, launches per forward)
+PREFETCH_BIAS_SITES = [
+    (name, H, B, G, N, Wt, per_fwd)
+    for name, B, G, ch, N, Wt, per_fwd in BIAS_SITES
+] + [("pyramid_sca56_g1_n7840", 56, 2, 1, 7840, 559,
+      PYR_BIAS_PER_FORWARD["sca56_g1_n7840"])]
+
+
+def check_prefetch_bias(da, kernels) -> tuple:
+    """Phase 18, ``lattice_bias_wide_prefetch`` and ``lattice_bias_wide`` at
+    every shape of PREFETCH_BIAS_SITES and two table scales: the prefetch
+    variant equal to the wide kernel bit for bit and both to the
+    whole-table one where its shared memory holds the table (the flagship's
+    shapes), all within one bf16 ulp of the plain version. Times (the
+    prefetch variant's as the sum of its kernel's and its pitched table
+    copy's), bounds, plain times.
+    Returns (prefetch record, wide record at the flagship's shapes)."""
+    import torch
+
+    fwd = kernels.lattice_bias
+    rows_p, rows_w, bad = [], [], []
+    worst = dict(prefetch=0.0, wide=0.0)
+    for i, (name, Hs, B, G, N, Wt, per_fwd) in enumerate(PREFETCH_BIAS_SITES):
+        for std in SITE_TABLE_STDS:
+            table, k_pos, _ = bias_inputs(100 + i, B, G, N, Wt, Hs, std)
+            args = da._kernel_args(table, k_pos, Hs, Hs)
+            out_w = fwd.lattice_bias_wide_cuda(*args[:7], Hs, Hs)
+            out_p = fwd.lattice_bias_wide_prefetch_cuda(*args[:7], Hs, Hs)
+            whole = da.bias_route(table.shape, Hs, Hs) == "whole"
+            same_whole = (not whole or torch.equal(
+                fwd.lattice_bias_cuda(*args, Hs, Hs), out_w))
+            rb = da.lattice_bias_plain(table.bfloat16().float(), k_pos, Hs, Hs,
+                                       torch.float32).bfloat16().float()
+            torch.cuda.synchronize()
+            same = torch.equal(out_p, out_w)
+            err = (out_p.float() - rb).abs()
+            ok = (same and same_whole
+                  and bool((err <= rb.abs() * BIAS_ULP).all()))
+            err = float(err.max())
+            vs_whole = ("" if not whole else ", which equals lattice_bias"
+                        if same_whole else ", which DIFFERS FROM lattice_bias")
+            print(f"lattice_bias_wide_prefetch {name} table std {std}: "
+                  f"{'equals' if same else 'DIFFERS FROM'} lattice_bias_wide"
+                  f"{vs_whole}; max abs err vs plain {err:.3g} "
+                  f"({'ok' if ok else 'FAIL'})", flush=True)
+            if not ok:
+                bad.append(f"{name} std {std}")
+            worst["prefetch"] = max(worst["prefetch"], err)
+            worst["wide"] = max(worst["wide"], err)
+            del out_w, out_p, rb
+            if std != SITE_TABLE_STDS[0]:
+                continue
+            launch_p = lambda: fwd.lattice_bias_wide_prefetch_cuda(  # noqa: E731
+                *args[:7], Hs, Hs)
+            ms_p_kernel = device_ms(launch_p, 10,
+                                    "lattice_bias_wide_prefetch_kernel")
+            ms_p = ms_p_kernel + device_ms(launch_p, 10, "pitch_table_kernel")
+            ms_w = device_ms(lambda: fwd.lattice_bias_wide_cuda(
+                *args[:7], Hs, Hs), 10, "lattice_bias_wide_kernel")
+            tb = table.bfloat16().float()
+            plain = device_ms(lambda: da.lattice_bias_plain(
+                tb, k_pos, Hs, Hs, torch.float32), 3)
+            b_w = bias_bounds(B, G, N, Wt, Hs, backward=False)
+            extra = pitched_bytes(G, 2 * Hs - 1, Wt)
+            b_p = bias_bounds(B, G, N, Wt, Hs, backward=False,
+                              extra_bytes=extra)
+            common = dict(site=name, plain_ms=plain, library_ms=None,
+                          per_forward=per_fwd, max_abs_err=err)
+            rows_p.append(dict(common, ms=ms_p, kernel_only_ms=ms_p_kernel,
+                               wide_ms=ms_w, bound_ms=b_p[0],
+                               bound_by=b_p[1]))
+            if whole:  # the flagship's shapes (phase 14)
+                rows_w.append(dict(common, ms=ms_w, bound_ms=b_w[0],
+                                   bound_by=b_w[1]))
+            print(f"lattice_bias_wide_prefetch {name}: {ms_p:.4f} ms (kernel "
+                  f"alone {ms_p_kernel:.4f}), lattice_bias_wide {ms_w:.4f} "
+                  f"ms, plain {plain:.4f} ms; bound {b_p[0]:.4f} / "
+                  f"{b_w[0]:.4f} ms ({b_p[1]}) x{per_fwd}/forward",
+                  flush=True)
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"lattice_bias_wide_prefetch beyond tolerance at {bad}")
+    return (dict(rows=rows_p, worst=worst["prefetch"]),
+            dict(rows=rows_w, worst=worst["wide"]))
 
 
 def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
@@ -1068,11 +1406,13 @@ def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
                           key=lambda e: -e.self_device_time_total)
             busy = sum(e.self_device_time_total for e in avgs) / 1e3
             idle = max(0.0, 1 - busy / ms)
-            # fused_site_kernel is both instances, with and without lse
+            # fused_site_kernel is both instances, with and without lse, and
+            # so is fused_site_wide_kernel
             seen_k = {n: sum(e.count for e in avgs if f"{n}_kernel" in e.key)
                       for n in ("fused_site", "lattice_bias",
                                 "lattice_bias_bwd", "fused_site_bwd",
-                                "lattice_bias_wide", "lattice_bias_wide_bwd")}
+                                "lattice_bias_wide", "lattice_bias_wide_bwd",
+                                "fused_site_wide", "lattice_bias_wide_prefetch")}
             print(f"{tag}: device time of one step (profiler): busy "
                   f"{busy:.3f} ms of {ms:.3f} ms/step, idle share "
                   f"{idle:.3f}; kernels seen by name {seen_k} [{card}]",
@@ -1348,6 +1688,52 @@ def main() -> None:
     pyr_bias = check_pyramid_bias(da, kernels)
     grads_wide = small_model_grads(da, kernels, fused_bwd=False, wide=True)
 
+    # ---- the wide-table route (ModelConfig.lattice_route="wide"): the
+    # flagship's sites on the kernels that read the table through L1, then
+    # on their window-prefetch variants, its training step on the wide
+    # kernels, the pyramid with the prefetch bias, and each new kernel
+    # alone. Every site kernel of these routes equals its sibling bit for
+    # bit and the convolutions pick the same cuDNN algorithms for the same
+    # shapes, so each render equals the "auto" route's exactly ----
+    auto_render, pyr_render = serve.pop("render"), pyr_serve.pop("render")
+
+    def flagship_route(**route):
+        return flagship_config(dtype="bfloat16", **route)
+
+    wide_serve = serving_phase(card, "flagship wide",
+                               flagship_route(lattice_route="wide"), SERVE_B,
+                               WIDE_REQUESTS, WIDE_PER_FORWARD)
+    prefetch_serve = serving_phase(
+        card, "flagship wide prefetch",
+        flagship_route(lattice_route="wide", site_prefetch=True,
+                       bias_prefetch=True),
+        SERVE_B, WIDE_REQUESTS, WIDE_PREFETCH_PER_FORWARD)
+    wide_train = train_phase(card, "flagship wide",
+                             flagship_route(lattice_route="wide"), True,
+                             "nothing", TRAIN_STEPS, True, WIDE_TRAIN_COUNTS)
+    pyr_prefetch_cfg = pyramid_config()
+    pyr_prefetch_cfg.model.bias_prefetch = True
+    pyr_prefetch = serving_phase(card, "pyramid prefetch", pyr_prefetch_cfg,
+                                 PYR_B, PYR_REQUESTS, PYR_PREFETCH_PER_FORWARD)
+    render_diff = {
+        "flagship_wide": float((wide_serve.pop("render")
+                                - auto_render).abs().max()),
+        "flagship_wide_prefetch": float((prefetch_serve.pop("render")
+                                         - auto_render).abs().max()),
+        "pyramid_prefetch": float((pyr_prefetch.pop("render")
+                                   - pyr_render).abs().max())}
+    print(f"renders against the \"auto\" route's, same weights and batch "
+          f"(max abs difference): {render_diff}", flush=True)
+    if any(d != 0.0 for d in render_diff.values()):
+        fail(f"a wide-route render differs from the auto route's: "
+             f"{render_diff}")
+    with torch.no_grad():
+        site_wide, site_prefetch = check_wide_site(da, kernels)
+        site_wide_lse = check_wide_site_lse(da, kernels)
+        bias_prefetch, bias_wide_flagship = check_prefetch_bias(da, kernels)
+    bias_wide_bwd_flagship = check_bias_bwd(da, kernels.lattice_bias_bwd,
+                                            wide=True)
+
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
         top = max(data["rows"], key=lambda r: r[per] * r["ms"])
@@ -1399,15 +1785,47 @@ def main() -> None:
               "bevrender_tpu/ops/pallas/lattice_bias.py:422",
               pyr_bias["lattice_bias_wide"],
               pyr_serve["counts"]["lattice_bias_wide"],
-              launches_pyramid_train=pyr_train["counts"]["lattice_bias_wide"]),
+              launches_pyramid_train=pyr_train["counts"]["lattice_bias_wide"],
+              launches_flagship_wide=wide_serve["counts"]["lattice_bias_wide"],
+              launches_flagship_wide_train=wide_train["counts"][
+                  "lattice_bias_wide"],
+              per_shape_flagship=bias_wide_flagship["rows"]),
         entry("lattice_bias_wide_bwd", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_wide_bwd.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:549",
               pyr_bias["lattice_bias_wide_bwd"],
-              pyr_train["counts"]["lattice_bias_wide_bwd"]),
+              pyr_train["counts"]["lattice_bias_wide_bwd"],
+              launches_flagship_wide_train=wide_train["counts"][
+                  "lattice_bias_wide_bwd"],
+              per_shape_flagship=bias_wide_bwd_flagship["rows"]),
+        entry("fused_site_wide", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/fused_site_wide.cu",
+              "bevrender_tpu/ops/pallas/fused_attn.py:193", site_wide,
+              wide_serve["counts"]["fused_site_wide"],
+              launches_flagship_wide_train=wide_train["counts"][
+                  "fused_site_wide"]),
+        entry("fused_site_wide_lse", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/fused_site_wide.cu",
+              "bevrender_tpu/ops/pallas/fused_attn.py:278", site_wide_lse,
+              wide_train["counts"]["fused_site_wide_lse"]),
+        entry("fused_site_wide_prefetch", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/"
+              "fused_site_wide_prefetch.cu",
+              "bevrender_tpu/ops/pallas/experimental.py:184", site_prefetch,
+              prefetch_serve["counts"]["fused_site_wide_prefetch"]),
+        entry("lattice_bias_wide_prefetch", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/"
+              "lattice_bias_wide_prefetch.cu",
+              "bevrender_tpu/ops/pallas/lattice_bias.py:165", bias_prefetch,
+              prefetch_serve["counts"]["lattice_bias_wide_prefetch"],
+              launches_pyramid_serving=pyr_prefetch["counts"][
+                  "lattice_bias_wide_prefetch"]),
     ], "card": card, "train": [train_default, train_none, train_fused],
         "pyramid": {"serving": pyr_serve, "train": [pyr_train, pyr_none],
                     "small_model_grad_err": grads_wide["worst"]},
+        "wide": {"serving": wide_serve, "prefetch_serving": prefetch_serve,
+                 "train": wide_train, "pyramid_prefetch_serving": pyr_prefetch,
+                 "render_diff": render_diff},
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}

@@ -29,6 +29,15 @@ PYRAMID_MODULES = (
 )
 
 
+# the modules the wide-table route added or changed that the lists above do
+# not name: the wide site's wrappers, the counters, and the plumbing of the
+# route fields to every site
+WIDE_ROUTE_MODULES = (
+    "ops/kernels/fused_site_wide.py", "ops/kernels/__init__.py",
+    "models/attention.py", "inference/register.py",
+)
+
+
 def _port_files():
     return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -59,7 +68,8 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES + PYRAMID_MODULES)
+@pytest.mark.parametrize("module", TRAINING_MODULES + PYRAMID_MODULES
+                         + WIDE_ROUTE_MODULES)
 def test_training_module_imports_no_jax(module):
     path = ROOT / "bevrender_tpu_torch" / module
     assert path.exists()
@@ -119,4 +129,5 @@ def test_every_kernel_source_is_built_and_counted():
     assert sorted(build.SOURCES) == sorted(p.stem for p in csrc.glob("*.cu"))
     names = set(kernels.counts())
     assert set(build.SOURCES) <= names
-    assert names - set(build.SOURCES) == {"fused_site_lse"}
+    assert names - set(build.SOURCES) == {"fused_site_lse",
+                                          "fused_site_wide_lse"}

@@ -332,6 +332,107 @@ def test_bias_kernels_at_pyramid_shapes(cuda_device, H, G, N, Wt, table_std):
     assert _close(dp, rdp, BWD_SUM_TOL)
 
 
+# The wide-table route: the fused site that reads its table through L1, its
+# logsumexp instance and its prefetch variant at the flagship's site shapes
+# (SCA 279 columns, TSA 55) and a small one, at two table scales.
+WIDE_SITES = [
+    (4, 1960, 279, 0.01), (8, 1960, 279, 1.0), (8, 196, 55, 0.01),
+    (4, 784, 55, 1.0), (4, 10, 15, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch,N,Wt,table_std", WIDE_SITES)
+def test_wide_site_kernels_equal_fused_site(cuda_device, ch, N, Wt,
+                                            table_std):
+    """``fused_site_wide`` and its logsumexp instance equal ``fused_site``
+    bit for bit (same tiles, order and roundings), the prefetch variant
+    equals ``fused_site_wide`` bit for bit, and all stand within the fused
+    site's tolerances of the plain version and of the online mirror."""
+    H = W = 28 if Wt != 15 else 8
+    table, k_pos, q, k, v = _inputs(18, 2, 4, 2, H, W, Wt, N, ch, cuda_device,
+                                    table_std)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, W)
+    geo, qkv = kargs[:7], kargs[8:]
+    wide = kernels.fused_site_wide
+    before = kernels.counts()
+    with torch.no_grad():
+        whole = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
+        whole_o, whole_lse = kernels.fused_site.fused_site_lse_cuda(
+            *kargs, H, W, scale)
+        out = wide.fused_site_wide_cuda(*geo, *qkv, H, W, scale)
+        out_o, out_lse = wide.fused_site_wide_lse_cuda(*geo, *qkv, H, W, scale)
+        pre = wide.fused_site_wide_prefetch_cuda(*geo, *qkv, H, W, scale)
+        bias = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, W,
+                                      torch.float32)
+        ref = tda.site_consumer(q, k, v, bias, scale)
+        online = tda.site_consumer_online(q, k, v, bias, scale)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"fused_site": 1, "fused_site_lse": 1, "fused_site_wide": 1,
+            "fused_site_wide_lse": 1, "fused_site_wide_prefetch": 1}
+    assert torch.equal(out, whole) and torch.equal(out_o, whole_o)
+    assert torch.equal(out_lse, whole_lse)
+    assert torch.equal(pre, out)
+    assert bool(((out - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
+    assert bool(((out - online).abs() <= 2.0 ** -15 * wabs + 1e-7).all())
+
+
+@pytest.mark.cuda
+def test_narrow_site_over_shared_memory_takes_the_wide_kernel(cuda_device):
+    """A narrow-head site whose table (BEV 64, depth 5: 127 x 639) does not
+    fit ``fused_site``'s shared memory runs through ``fused_site`` on the
+    wide kernel, within the fused site's tolerances of the online mirror."""
+    H = W = 64
+    table, k_pos, q, k, v = _inputs(19, 1, 1, 2, H, W, 639, 300, 4,
+                                    cuda_device, 1.0)
+    assert tda.site_route(table.shape, H, W, 4) == "wide"
+    before = kernels.counts()
+    with torch.no_grad():
+        out = tda.fused_site(q, k, v, k_pos, table, H, W, 0.5)
+        bias = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, W,
+                                      torch.float32)
+        online = tda.site_consumer_online(q, k, v, bias, 0.5)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, 0.5)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["fused_site_wide"] == before["fused_site_wide"] + 1
+    assert after["fused_site"] == before["fused_site"]
+    assert bool(((out - online).abs() <= 2.0 ** -15 * wabs + 1e-7).all())
+
+
+# (H, G, N, Wt, table std): the flagship's bias sites (H = 28) and the
+# pyramid's SCA at BEV 56 and its M = 196 and 49 sites
+WIDE_BIAS = [
+    (28, 1, 1960, 279, 0.01), (28, 2, 49, 55, 1.0), (56, 1, 600, 559, 1.0),
+    (56, 1, 300, 559, 0.01), (14, 4, 490, 139, 1.0), (7, 8, 49, 13, 0.01)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,G,N,Wt,table_std", WIDE_BIAS)
+def test_wide_bias_prefetch_equals_wide_bias(cuda_device, H, G, N, Wt,
+                                             table_std):
+    """``lattice_bias_wide_prefetch`` equals ``lattice_bias_wide`` bit for
+    bit, and ``lattice_bias`` where that kernel's shared memory holds the
+    table; all within one bf16 ulp of the plain version."""
+    table, k_pos, *_ = _inputs(20, 2, G, 2, H, H, Wt, N, 4, cuda_device,
+                               table_std)
+    args = tda._kernel_args(table, k_pos, H, H)
+    fwd = kernels.lattice_bias
+    with torch.no_grad():
+        wide = fwd.lattice_bias_wide_cuda(*args[:7], H, H)
+        pre = fwd.lattice_bias_wide_prefetch_cuda(*args[:7], H, H)
+        ref = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, H,
+                                     torch.float32).bfloat16().float()
+        if tda.bias_route(table.shape, H, H) == "whole":
+            assert torch.equal(fwd.lattice_bias_cuda(*args, H, H), wide)
+    torch.cuda.synchronize()
+    assert torch.equal(pre, wide)
+    assert bool(((pre.float() - ref).abs() <= ref.abs() * 2.0 ** -7).all())
+
+
 @pytest.mark.parametrize("ch,N,table_std", [
     (4, 96, 0.01), (8, 70, 0.01), (4, 96, 1.0), (8, 45, 1.0)])
 def test_online_consumer_matches_plain_consumer(ch, N, table_std):
@@ -380,7 +481,10 @@ def test_cpu_gradients_take_the_plain_versions():
     assert kernels.counts() == before
     assert set(before) == {"lattice_bias", "fused_site", "lattice_bias_bwd",
                            "fused_site_lse", "fused_site_bwd",
-                           "lattice_bias_wide", "lattice_bias_wide_bwd"}
+                           "lattice_bias_wide", "lattice_bias_wide_bwd",
+                           "fused_site_wide", "fused_site_wide_lse",
+                           "fused_site_wide_prefetch",
+                           "lattice_bias_wide_prefetch"}
 
 
 @pytest.mark.parametrize("which", ["bias_bwd", "site_bwd", "site_lse"])

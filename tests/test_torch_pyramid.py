@@ -79,13 +79,14 @@ def f32_sites(monkeypatch):
         s = torch.matmul(k, q.transpose(-1, -2)) * scale + bias
         return torch.matmul(torch.softmax(s, dim=-2).transpose(-1, -2), v)
 
-    def bias(t, p, H, W):
+    def bias(t, p, H, W, kernel=None):
         return tda.lattice_bias_plain(t, p, H, W, torch.float32)
 
     monkeypatch.setattr(jda, "_site_xla", jsite)
     monkeypatch.setattr(tda, "site_consumer", consumer)
     monkeypatch.setattr(tda, "lattice_bias", bias)
-    monkeypatch.setattr(tda, "fused_site", lambda q, k, v, p, t, H, W, scale:
+    monkeypatch.setattr(tda, "fused_site",
+                        lambda q, k, v, p, t, H, W, scale, kernel=None:
                         consumer(q, k, v, bias(t, p, H, W), scale))
 
 
