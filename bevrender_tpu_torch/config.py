@@ -2,9 +2,10 @@
 ``ModelConfig`` that the ported paths read and its ``TrainConfig``, with the
 same names and defaults, plus ``flagship_config`` and ``tiny_model_config``
 (config.py:338-396 there), and the port's own kernel choices
-(``ModelConfig.lattice_route``, ``site_prefetch``, ``bias_prefetch``;
-``TrainConfig.fused_bwd``, ``site_remat``). The window length is the
-input's T axis."""
+(``ModelConfig.lattice_route``, ``site_prefetch``, ``bias_prefetch``,
+``site_fold_heads``, ``site_fold_rows``; ``TrainConfig.fused_bwd``,
+``site_remat``, ``fused_fwd_fold``). The window length is the input's T
+axis."""
 
 from __future__ import annotations
 
@@ -58,13 +59,21 @@ class ModelConfig:
     # so does a bias forward on the wide route, in eval and in training
     # (BEVRENDER_BIAS_DMA=1)
     bias_prefetch: bool = False
+    # that prefetch site serves all heads of a (b, g) cell in one block
+    # where Hpg * W <= 128 (BEVRENDER_SITE_DMA=2); needs site_prefetch
+    site_fold_heads: bool = False
+    # so does the whole-table fused site of the "auto" route
+    # (BEVRENDER_SITE_SH2=1)
+    site_fold_rows: bool = False
 
     def site_options(self) -> dict:
         """The fields above, as ``models.attention.set_site_options``
         takes them."""
         return dict(lattice_route=self.lattice_route,
                     site_prefetch=self.site_prefetch,
-                    bias_prefetch=self.bias_prefetch)
+                    bias_prefetch=self.bias_prefetch,
+                    site_fold_heads=self.site_fold_heads,
+                    site_fold_rows=self.site_fold_rows)
 
 
 @dataclass
@@ -74,9 +83,10 @@ class TrainConfig:
     the JAX package's GSPMD sharding) are left out: nothing in the port reads
     them. ``steps_per_dispatch`` stays: the trainer accepts it and runs k
     plain steps, since the one-dispatch ``lax.scan`` it selects in the JAX
-    package is a device of TPU dispatch. ``fused_bwd`` and ``site_remat``
-    are the port's own: they replace the JAX package's trace-time
-    environment knobs BEVRENDER_FUSED_BWD and BEVRENDER_SITE_REMAT."""
+    package is a device of TPU dispatch. ``fused_bwd``, ``site_remat`` and
+    ``fused_fwd_fold`` are the port's own: they replace the JAX package's
+    trace-time environment knobs BEVRENDER_FUSED_BWD, BEVRENDER_SITE_REMAT
+    and BEVRENDER_TRAIN_FWD_V2."""
 
     seed: int = 15213
     total_epochs: int = 100
@@ -112,6 +122,9 @@ class TrainConfig:
     # "nothing": a plain-consumer site saves its inputs only and recomputes
     # bias, scores and softmax in the backward; "none": autograd keeps all
     site_remat: str = "nothing"
+    # a fused_bwd site's forward folds the heads as ModelConfig.
+    # site_fold_heads does (BEVRENDER_TRAIN_FWD_V2); None follows that field
+    fused_fwd_fold: Optional[bool] = None
 
 
 @dataclass

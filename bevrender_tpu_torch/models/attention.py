@@ -78,10 +78,12 @@ class _Site(nn.Module):
 
 def set_site_options(module: nn.Module, **options) -> None:
     """Set the named fields of ``ops.deform_attn.SiteOptions`` on every
-    attention site under ``module``: the training pass's ``fused_bwd`` and
-    ``site_remat`` (``TrainConfig``), and ``lattice_route``,
-    ``site_prefetch`` and ``bias_prefetch`` (``ModelConfig.site_options``).
-    Fields not named keep their values."""
+    attention site under ``module``: the training pass's ``fused_bwd``,
+    ``site_remat`` and ``fused_fwd_fold`` (``TrainConfig``), and
+    ``lattice_route``, ``site_prefetch``, ``bias_prefetch``,
+    ``site_fold_heads`` and ``site_fold_rows`` (``ModelConfig.
+    site_options``). Fields not named keep their values; the result is
+    checked as ``SiteOptions`` checks it."""
     for mod in module.modules():
         if isinstance(mod, _Site):
             mod.site_options = dataclasses.replace(mod.site_options, **options)

@@ -28,6 +28,11 @@ table that does not fit ``fused_site``'s shared memory (``site_route``).
 and ``site_prefetch`` / ``bias_prefetch`` take their variants that stage
 the key windows in shared memory by asynchronous copies
 (``fused_site_wide_prefetch``, ``lattice_bias_wide_prefetch``).
+``site_fold_rows`` and ``site_fold_heads`` take the folded kernels, whose
+block serves every head of a (b, g) cell (``fused_site_fold_rows`` in place
+of ``fused_site``, ``fused_site_fold_heads`` in place of
+``fused_site_wide_prefetch``, and ``fused_site_fold_heads_lse`` as the
+forward of a ``fused_bwd`` site under ``fused_fwd_fold``).
 ``site_kernels`` makes every choice, from the shapes and the options alone.
 The functions ``lattice_bias``, ``fused_site`` and ``fused_site_train``
 below launch the kernels for CUDA tensors and run their plain versions,
@@ -50,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from bevrender_tpu_torch.ops.kernels import fused_site as _fused_site_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_bwd as _site_bwd_kernel
+from bevrender_tpu_torch.ops.kernels import fused_site_fold as _fold_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_wide as _wide_site_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias as _bias_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias_bwd as _bias_bwd_kernel
@@ -164,10 +170,11 @@ def site_consumer(q, k, v, bias, scale: float, keep=None,
 
 def site_consumer_online(q, k, v, bias, scale: float, return_lse: bool = False):
     """The fused site kernels' own arithmetic (``fused_site``,
-    ``fused_site_wide``, ``fused_site_wide_prefetch``), in PyTorch: an online
-    softmax over tiles of ``KEY_TILE`` keys in base 2, with p = exp2(s - running
-    max) rounded to bf16 before it multiplies V and the sum l taken from
-    the unrounded p. Every float32 rounding of the kernel happens here in
+    ``fused_site_wide``, ``fused_site_wide_prefetch`` and the folded
+    ``fused_site_fold_rows`` and ``fused_site_fold_heads``), in PyTorch: an
+    online softmax over tiles of ``KEY_TILE`` keys in base 2, with p =
+    exp2(s - running max) rounded to bf16 before it multiplies V and the sum
+    l taken from the unrounded p. Every float32 rounding of the kernel happens here in
     the same order: float64 holds each exact product and sum before it is
     rounded once, as an ``fmaf`` rounds it, and l and O accumulate one key
     at a time. The same function as ``site_consumer`` up to where p is
@@ -211,7 +218,8 @@ def site_consumer_online(q, k, v, bias, scale: float, return_lse: bool = False):
 def site_plain(q, k, v, k_pos, table, H: int, W: int, scale: float,
                compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of the fused site kernels (``fused_site``,
-    ``fused_site_wide``, ``fused_site_wide_prefetch``; ``_site_xla`` with
+    ``fused_site_wide``, ``fused_site_wide_prefetch``,
+    ``fused_site_fold_rows``, ``fused_site_fold_heads``; ``_site_xla`` with
     the plain bias). Autograd through it is the plain version of the
     ``fused_site_bwd`` kernel."""
     bias = lattice_bias_plain(table, k_pos, H, W, compute_dtype)
@@ -221,8 +229,8 @@ def site_plain(q, k, v, k_pos, table, H: int, W: int, scale: float,
 def site_plain_lse(q, k, v, k_pos, table, H: int, W: int, scale: float,
                    compute_dtype=torch.bfloat16):
     """Plain version of the logsumexp instances (``fused_site_lse``,
-    ``fused_site_wide_lse``): ``site_plain`` and the logsumexp of the
-    scores over the keys, (B, G, Hpg, M)."""
+    ``fused_site_wide_lse``, ``fused_site_fold_heads_lse``): ``site_plain``
+    and the logsumexp of the scores over the keys, (B, G, Hpg, M)."""
     bf = torch.bfloat16
     bias = lattice_bias_plain(table, k_pos, H, W, compute_dtype)
     s = torch.matmul(k.to(bf).float(), q.to(bf).float().transpose(-1, -2))
@@ -334,17 +342,24 @@ LATTICE_ROUTES = ("auto", "wide")
 @dataclasses.dataclass(frozen=True)
 class SiteOptions:
     """The kernel choice of an attention site, from the port's config in
-    place of the JAX package's trace-time environment knobs: ``fused_bwd``
-    and ``site_remat`` (``TrainConfig``) replace BEVRENDER_FUSED_BWD and
-    BEVRENDER_SITE_REMAT; ``lattice_route``, ``site_prefetch`` and
-    ``bias_prefetch`` (``ModelConfig``) replace BEVRENDER_SHIFT_REPLICA,
-    BEVRENDER_SITE_DMA=1 and BEVRENDER_BIAS_DMA=1 (``site_kernels``)."""
+    place of the JAX package's trace-time environment knobs: ``fused_bwd``,
+    ``site_remat`` and ``fused_fwd_fold`` (``TrainConfig``) replace
+    BEVRENDER_FUSED_BWD, BEVRENDER_SITE_REMAT and BEVRENDER_TRAIN_FWD_V2;
+    ``lattice_route``, ``site_prefetch``, ``bias_prefetch``,
+    ``site_fold_heads`` and ``site_fold_rows`` (``ModelConfig``) replace
+    BEVRENDER_SHIFT_REPLICA, BEVRENDER_SITE_DMA=1, BEVRENDER_BIAS_DMA=1,
+    BEVRENDER_SITE_DMA=2 and BEVRENDER_SITE_SH2=1 (``site_kernels``).
+    ``site_fold_heads`` folds the window-prefetch site, so it needs
+    ``site_prefetch``; ``fused_fwd_fold=None`` follows it."""
 
     fused_bwd: bool = False
     site_remat: str = "nothing"
     lattice_route: str = "auto"
     site_prefetch: bool = False
     bias_prefetch: bool = False
+    site_fold_heads: bool = False
+    site_fold_rows: bool = False
+    fused_fwd_fold: bool | None = None
 
     def __post_init__(self):
         if self.site_remat not in SITE_REMAT_MODES:
@@ -353,6 +368,15 @@ class SiteOptions:
         if self.lattice_route not in LATTICE_ROUTES:
             raise ValueError(f"lattice_route must be one of {LATTICE_ROUTES}, "
                              f"got {self.lattice_route!r}")
+        if self.site_fold_heads and not self.site_prefetch:
+            raise ValueError("site_fold_heads folds the window-prefetch site: "
+                             "it needs site_prefetch=True")
+
+    @property
+    def fold_train_forward(self) -> bool:
+        """Whether a ``fused_bwd`` site's forward folds the heads."""
+        return (self.site_fold_heads if self.fused_fwd_fold is None
+                else self.fused_fwd_fold)
 
 
 def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
@@ -368,27 +392,45 @@ def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
     ``site_route``'s or ``bias_route``'s under ``lattice_route="auto"`` and
     "wide" under "wide"; on the wide route ``site_prefetch`` and
     ``bias_prefetch`` take the prefetch variants of the eval fused site and
-    of the bias forward. ``streamed_deform_attention`` dispatches on the
-    first name, so a run's launch counts follow from the shapes and the
-    options alone. Raises NotImplementedError for ``fused_bwd`` at a site
-    whose table the site backward cannot hold."""
+    of the bias forward. Where the heads fold (``fused_site_fold``: Hpg * W
+    <= 128 and the shared memory fits, the JAX package's shape rule),
+    ``site_fold_rows`` takes ``fused_site_fold_rows`` for ``fused_site``,
+    ``site_fold_heads`` ``fused_site_fold_heads`` for
+    ``fused_site_wide_prefetch``, and ``fold_train_forward`` the forward
+    ``fused_site_fold_heads_lse`` of a ``fused_bwd`` site on either route.
+    ``streamed_deform_attention`` dispatches on the first name, so a run's
+    launch counts follow from the shapes and the options alone. Raises
+    NotImplementedError for ``fused_bwd`` at a site whose table the site
+    backward cannot hold."""
     ch = q_shape[-1]
     wide = options.lattice_route == "wide"
+    _, Hpg, Ht, Wt = table_shape
     if ch <= 8 and not dropout and (options.fused_bwd or not training):
         route = "wide" if wide else site_route(table_shape, H, W, ch)
+        heads_fold = _fold_kernel.heads_fit(Hpg, Wt, H, W, ch)
         if not training:
             if route == "whole":
-                return ("fused_site",)
-            return ("fused_site_wide_prefetch" if options.site_prefetch
-                    else "fused_site_wide",)
+                rows_fold = _fold_kernel.rows_fit(
+                    Hpg, Ht, padded_width(Wt, W), W, ch)
+                return ("fused_site_fold_rows"
+                        if options.site_fold_rows and rows_fold
+                        else "fused_site",)
+            if not options.site_prefetch:
+                return ("fused_site_wide",)
+            return ("fused_site_fold_heads"
+                    if options.site_fold_heads and heads_fold
+                    else "fused_site_wide_prefetch",)
         if not _site_bwd_fits(table_shape, W, ch):
             raise NotImplementedError(
                 f"fused_bwd at a site whose table {tuple(table_shape)} and "
                 f"its float32 gradient overflow the site backward's shared "
                 f"memory: the wide site backward is not ported yet (ROADMAP "
                 f"section 1); train with fused_bwd=False")
-        return ("fused_site_lse" if route == "whole" else "fused_site_wide_lse",
-                "fused_site_bwd")
+        if options.fold_train_forward and heads_fold:
+            fwd = "fused_site_fold_heads_lse"
+        else:
+            fwd = "fused_site_lse" if route == "whole" else "fused_site_wide_lse"
+        return (fwd, "fused_site_bwd")
     route = "wide" if wide else bias_route(table_shape, H, W)
     if route == "whole":
         fwd, bwd = "lattice_bias", "lattice_bias_bwd"
@@ -437,9 +479,10 @@ class _LatticeBiasFn(torch.autograd.Function):
 
 
 class _FusedSiteTrainFn(torch.autograd.Function):
-    """``fused_site_lse`` or ``fused_site_wide_lse`` kernel forward,
-    ``fused_site_bwd`` kernel backward. Saves q, k, v in bf16, the
-    geometry, the output and the logsumexp."""
+    """``fused_site_lse``, ``fused_site_wide_lse`` or
+    ``fused_site_fold_heads_lse`` kernel forward, ``fused_site_bwd`` kernel
+    backward. Saves q, k, v in bf16, the geometry, the output and the
+    logsumexp."""
 
     @staticmethod
     def forward(ctx, q, k, v, table, wy, f, ys, ms, u0, g, Xp, H, W, scale,
@@ -450,11 +493,14 @@ class _FusedSiteTrainFn(torch.autograd.Function):
         if kernel == "fused_site_lse":
             out, lse = _fused_site_kernel.fused_site_lse_cuda(
                 tb, ys, ms, wy, f, u0, g, Xp, qb, kb, vb, H, W, scale)
-        elif kernel == "fused_site_wide_lse":
-            out, lse = _wide_site_kernel.fused_site_wide_lse_cuda(
-                tb, ys, ms, wy, f, u0, g, qb, kb, vb, H, W, scale)
         else:
-            raise ValueError(f"no fused training site kernel {kernel!r}")
+            launch = {
+                "fused_site_wide_lse": _wide_site_kernel.fused_site_wide_lse_cuda,
+                "fused_site_fold_heads_lse":
+                    _fold_kernel.fused_site_fold_heads_lse_cuda}.get(kernel)
+            if launch is None:
+                raise ValueError(f"no fused training site kernel {kernel!r}")
+            out, lse = launch(tb, ys, ms, wy, f, u0, g, qb, kb, vb, H, W, scale)
         ctx.save_for_backward(tb, ys, ms, wy, f, u0, g, qb, kb, vb, out, lse)
         ctx.meta = (Xp, H, W, scale, q.dtype, k.dtype, v.dtype, table.dtype)
         return out
@@ -490,9 +536,10 @@ def fused_site(q, k, v, k_pos, table, H: int, W: int, scale: float,
                kernel: str | None = None) -> torch.Tensor:
     """Whole attention site (B, G, Hpg, M, ch) float32, no gradient: for
     CUDA tensors the fused CUDA kernel ``kernel`` ("fused_site",
-    "fused_site_wide" or "fused_site_wide_prefetch"; by default as
-    ``site_kernels`` chooses in eval), the plain version for CPU. The site
-    that trains is ``fused_site_train``."""
+    "fused_site_wide", "fused_site_wide_prefetch", "fused_site_fold_rows" or
+    "fused_site_fold_heads"; by default as ``site_kernels`` chooses in
+    eval), the plain version for CPU. The site that trains is
+    ``fused_site_train``."""
     if not q.is_cuda:
         return site_plain(q, k, v, k_pos, table, H, W, scale)
     for t in (q, k, v, k_pos, table):
@@ -507,12 +554,15 @@ def fused_site(q, k, v, k_pos, table, H: int, W: int, scale: float,
     bf = torch.bfloat16
     *geo, Xp = _kernel_args(table, k_pos, H, W)
     qkv = tuple(t.detach().to(bf).contiguous() for t in (q, k, v))
-    if kernel == "fused_site":
-        return _fused_site_kernel.fused_site_cuda(*geo, Xp, *qkv, H, W,
-                                                  float(scale))
+    with_xp = {"fused_site": _fused_site_kernel.fused_site_cuda,
+               "fused_site_fold_rows": _fold_kernel.fused_site_fold_rows_cuda}
+    if kernel in with_xp:
+        return with_xp[kernel](*geo, Xp, *qkv, H, W, float(scale))
     launch = {"fused_site_wide": _wide_site_kernel.fused_site_wide_cuda,
               "fused_site_wide_prefetch":
-                  _wide_site_kernel.fused_site_wide_prefetch_cuda}.get(kernel)
+                  _wide_site_kernel.fused_site_wide_prefetch_cuda,
+              "fused_site_fold_heads":
+                  _fold_kernel.fused_site_fold_heads_cuda}.get(kernel)
     if launch is None:
         raise ValueError(f"no fused site kernel {kernel!r}")
     return launch(*geo, *qkv, H, W, float(scale))
@@ -522,10 +572,11 @@ def fused_site_train(q, k, v, k_pos, table, H: int, W: int, scale: float,
                      kernel: str | None = None) -> torch.Tensor:
     """The fused site with a fused backward (``fused_site_attention_train``,
     deform_attn.py:689-807): on CUDA tensors the ``kernel`` forward
-    ("fused_site_lse" or "fused_site_wide_lse"; by default as
-    ``site_kernels`` chooses under ``fused_bwd``) and the ``fused_site_bwd``
-    kernel backward, with the chain from dwy, df to ``k_pos`` left to
-    autograd; on CPU tensors the plain version with autograd."""
+    ("fused_site_lse", "fused_site_wide_lse" or "fused_site_fold_heads_lse";
+    by default as ``site_kernels`` chooses under ``fused_bwd``) and the
+    ``fused_site_bwd`` kernel backward, with the chain from dwy, df to
+    ``k_pos`` left to autograd; on CPU tensors the plain version with
+    autograd."""
     if not q.is_cuda:
         return site_plain(q, k, v, k_pos, table, H, W, scale)
     if kernel is None:
@@ -563,12 +614,15 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
                               lattice_route: str = "auto",
                               site_prefetch: bool = False,
                               bias_prefetch: bool = False,
+                              site_fold_heads: bool = False,
+                              site_fold_rows: bool = False,
+                              fused_fwd_fold: bool | None = None,
                               dropout_rate: float = 0.0,
                               generator=None) -> torch.Tensor:
     """One lattice attention site (deform_attn.py:866-917), on the kernels
-    that ``site_kernels`` names for ``SiteOptions(fused_bwd, site_remat,
-    lattice_route, site_prefetch, bias_prefetch)``; ``fuse_site`` says that
-    the pass is an eval one (no gradient).
+    that ``site_kernels`` names for the ``SiteOptions`` of the keyword
+    arguments from ``fused_bwd`` to ``fused_fwd_fold``; ``fuse_site`` says
+    that the pass is an eval one (no gradient).
 
     The fused site (eval) and the fused training site are built for head
     widths 4 and 8 (another width <= 8 raises on the card). A site that
@@ -578,8 +632,11 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     autograd keep what it wants. Attention dropout (``dropout_rate`` > 0,
     drawn from ``generator``) always takes the plain consumer."""
     use_dropout = dropout_rate > 0.0
-    options = SiteOptions(fused_bwd, site_remat, lattice_route, site_prefetch,
-                          bias_prefetch)
+    options = SiteOptions(
+        fused_bwd=fused_bwd, site_remat=site_remat, lattice_route=lattice_route,
+        site_prefetch=site_prefetch, bias_prefetch=bias_prefetch,
+        site_fold_heads=site_fold_heads, site_fold_rows=site_fold_rows,
+        fused_fwd_fold=fused_fwd_fold)
     kernel = site_kernels(q.shape, rpe_table.shape, H, W, options,
                           training=not fuse_site, dropout=use_dropout)[0]
     if kernel.endswith("_lse"):

@@ -5,6 +5,7 @@
 from bevrender_tpu_torch.ops.kernels import (
     fused_site,
     fused_site_bwd,
+    fused_site_fold,
     fused_site_wide,
     lattice_bias,
     lattice_bias_bwd,
@@ -23,6 +24,9 @@ _COUNTERS = {
     "fused_site_wide_lse": (fused_site_wide, "launches_lse"),
     "fused_site_wide_prefetch": (fused_site_wide, "launches_prefetch"),
     "lattice_bias_wide_prefetch": (lattice_bias, "launches_wide_prefetch"),
+    "fused_site_fold_rows": (fused_site_fold, "launches_rows"),
+    "fused_site_fold_heads": (fused_site_fold, "launches_heads"),
+    "fused_site_fold_heads_lse": (fused_site_fold, "launches_heads_lse"),
 }
 
 

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "bevrender_tpu_torch"
 SOURCES = ("lattice_bias", "fused_site", "lattice_bias_bwd", "fused_site_bwd",
            "lattice_bias_wide", "lattice_bias_wide_bwd", "fused_site_wide",
-           "fused_site_wide_prefetch", "lattice_bias_wide_prefetch")
+           "fused_site_wide_prefetch", "lattice_bias_wide_prefetch",
+           "fused_site_fold_rows", "fused_site_fold_heads")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -24,19 +24,36 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float w) {
   return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, w), a), __fmul_rn(w, b));
 }
 
-// Bias for one (key, query) pair. `p0` points into the padded table (row
-// pitch Xp) at row ys + iy, column u0[ix] + ms.
-__device__ __forceinline__ float bias_at(const __nv_bfloat16* p0, int Xp,
-                                         float g, float wy, float f) {
+// What every head shares of one (key, query) pair's bias: the column
+// fraction wx = frac(g + f) and whether the column crossed into the next
+// cell.
+struct Column {
+  float wx;
+  int cross;
+};
+
+__device__ __forceinline__ Column column(float g, float f) {
   const float phi = __fadd_rn(g, f);
   const float cross = floorf(phi);
-  const float wx = __fsub_rn(phi, cross);
-  const __nv_bfloat16* p = p0 + (cross > 0.5f ? 1 : 0);
+  return {__fsub_rn(phi, cross), cross > 0.5f ? 1 : 0};
+}
+
+// Bias for one (key, query) pair whose column is `col`. `p0` points into the
+// padded table (row pitch Xp) at row ys + iy, column u0[ix] + ms.
+__device__ __forceinline__ float bias_col(const __nv_bfloat16* p0, int Xp,
+                                          Column col, float wy) {
+  const __nv_bfloat16* p = p0 + col.cross;
   const float x0 =
-      lerp_rn(__bfloat162float(p[0]), __bfloat162float(p[1]), wx);
+      lerp_rn(__bfloat162float(p[0]), __bfloat162float(p[1]), col.wx);
   const float x1 =
-      lerp_rn(__bfloat162float(p[Xp]), __bfloat162float(p[Xp + 1]), wx);
+      lerp_rn(__bfloat162float(p[Xp]), __bfloat162float(p[Xp + 1]), col.wx);
   return lerp_rn(x0, x1, wy);
+}
+
+// Bias for one (key, query) pair, `p0` as for `bias_col`.
+__device__ __forceinline__ float bias_at(const __nv_bfloat16* p0, int Xp,
+                                         float g, float wy, float f) {
+  return bias_col(p0, Xp, column(g, f), wy);
 }
 
 // The four table entries that one (key, query) pair reads, as floats, and its
@@ -50,10 +67,9 @@ struct Window {
 __device__ __forceinline__ Window load_window(const __nv_bfloat16* p0, int Xp,
                                               float g, float f) {
   Window w;
-  const float phi = __fadd_rn(g, f);
-  const float cross = floorf(phi);
-  w.wx = __fsub_rn(phi, cross);
-  w.cross = cross > 0.5f ? 1 : 0;
+  const Column col = column(g, f);
+  w.wx = col.wx;
+  w.cross = col.cross;
   const __nv_bfloat16* p = p0 + w.cross;
   w.t00 = __bfloat162float(p[0]);
   w.t01 = __bfloat162float(p[1]);
@@ -152,11 +168,9 @@ __device__ __forceinline__ float padded_at(const __nv_bfloat16* __restrict__ t,
 __device__ __forceinline__ float bias_at_raw(const __nv_bfloat16* __restrict__ t,
                                              int Ht, int Wt, int r, int c,
                                              float g, float wy, float f) {
-  const float phi = __fadd_rn(g, f);
-  const float cross = floorf(phi);
-  const float wx = __fsub_rn(phi, cross);
+  const Column col = column(g, f);
   r -= PAD;
-  c += (cross > 0.5f ? 1 : 0) - PAD;
+  c += col.cross - PAD;
   const bool r0 = (unsigned)r < (unsigned)Ht;
   const bool r1 = (unsigned)(r + 1) < (unsigned)Ht;
   const bool c0 = (unsigned)c < (unsigned)Wt;
@@ -166,7 +180,7 @@ __device__ __forceinline__ float bias_at_raw(const __nv_bfloat16* __restrict__ t
   const float t01 = r0 && c1 ? __bfloat162float(__ldg(p + 1)) : 0.0f;
   const float t10 = r1 && c0 ? __bfloat162float(__ldg(p + Wt)) : 0.0f;
   const float t11 = r1 && c1 ? __bfloat162float(__ldg(p + Wt + 1)) : 0.0f;
-  return lerp_rn(lerp_rn(t00, t01, wx), lerp_rn(t10, t11, wx), wy);
+  return lerp_rn(lerp_rn(t00, t01, col.wx), lerp_rn(t10, t11, col.wx), wy);
 }
 
 // two floats -> two round-to-nearest bf16 in one word, lower address first

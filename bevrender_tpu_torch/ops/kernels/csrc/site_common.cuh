@@ -1,7 +1,9 @@
 // Shared pieces of the fused-site forward kernels (fused_site.cu,
-// fused_site_wide.cu, fused_site_wide_prefetch.cu): one thread per query,
-// the keys in tiles of KT staged in shared memory, an online softmax in
-// base 2. The kernels differ only in where a pair's bias comes from.
+// fused_site_wide.cu, fused_site_wide_prefetch.cu, and the folded
+// fused_site_fold_rows.cu and fused_site_fold_heads.cu, whose threads carry
+// every head of their query): one thread per query, the keys in tiles of KT
+// staged in shared memory, an online softmax in base 2. The kernels differ
+// only in where a pair's bias comes from.
 //
 // Every float32 step is written with an explicit rounding (fmaf for q . k
 // and for scale * qk + bias, then one rounded multiply by log2 e; the
@@ -9,7 +11,8 @@
 // ops/deform_attn.py::site_consumer_online repeats it in PyTorch, and the
 // three kernels give the same output and logsumexp bit for bit. p = exp2(s
 // - running max) is rounded to bf16 before it multiplies V, as the Pallas
-// kernels round it; l sums the unrounded p.
+// kernels round it; l sums the unrounded p. The folded kernels run the same
+// steps per head (`scores_heads`, `update`), so they equal the others too.
 #pragma once
 
 #include "lattice_common.cuh"
@@ -42,24 +45,26 @@ __device__ __forceinline__ void stage_kv(float* sk, float* sv,
   }
 }
 
-// One tile of nk keys (sk, sv as `stage_kv` left them) for the query qf:
-// `bias(j)` gives the rpe bias of the tile's key j.
-template <int CH, class Bias>
-__device__ __forceinline__ void tile(Online<CH>& st, const float (&qf)[CH],
-                                     const float* sk, const float* sv, int nk,
-                                     float scale, Bias bias) {
-  float s[KT];
+// Base-2 score of one (query, key) pair: (scale * q . k + bias) * log2 e,
+// with q . k as an fmaf chain over the channels.
+template <int CH>
+__device__ __forceinline__ float score(const float (&qf)[CH], const float* kj,
+                                       float scale, float bias) {
+  float qk = 0.0f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) qk = __fmaf_rn(qf[c], kj[c], qk);
+  return __fmul_rn(__fmaf_rn(scale, qk, bias), LOG2E);
+}
+
+// Fold the base-2 scores s[0 .. nk) of one tile of keys (their values sv
+// as `stage_kv` left them) into the state.
+template <int CH>
+__device__ __forceinline__ void update(Online<CH>& st, const float (&s)[KT],
+                                       const float* sv, int nk) {
   float tmax = -1e30f;
 #pragma unroll
-  for (int j = 0; j < KT; ++j) {
-    if (j < nk) {
-      float qk = 0.0f;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) qk = __fmaf_rn(qf[c], sk[j * CH + c], qk);
-      s[j] = __fmul_rn(__fmaf_rn(scale, qk, bias(j)), LOG2E);
-      tmax = fmaxf(tmax, s[j]);
-    }
-  }
+  for (int j = 0; j < KT; ++j)
+    if (j < nk) tmax = fmaxf(tmax, s[j]);
   const float mnew = fmaxf(st.m, tmax);
   const float alpha = exp2f(__fsub_rn(st.m, mnew));
   st.l = __fmul_rn(st.l, alpha);
@@ -77,6 +82,42 @@ __device__ __forceinline__ void tile(Online<CH>& st, const float (&qf)[CH],
     }
   }
   st.m = mnew;
+}
+
+// One tile of nk keys (sk, sv as `stage_kv` left them) for the query qf:
+// `bias(j)` gives the rpe bias of the tile's key j.
+template <int CH, class Bias>
+__device__ __forceinline__ void tile(Online<CH>& st, const float (&qf)[CH],
+                                     const float* sk, const float* sv, int nk,
+                                     float scale, Bias bias) {
+  float s[KT];
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+    if (j < nk) s[j] = score(qf, sk + j * CH, scale, bias(j));
+  update(st, s, sv, nk);
+}
+
+// The scores of keys J0 .. J1 - 1 (and below nk) of one tile for the HPG
+// heads of one query (the folded kernels): `bias(j, b)` writes the bias of
+// the tile's key j for every head into b[HPG], so what the heads share of a
+// pair's geometry is found once. sk holds the heads' key tiles one after
+// the other, (HPG, KT, CH). Each score is `tile`'s, so `update` on a head's
+// row of s leaves that head's state as `tile` would.
+template <int J0, int J1, int CH, int HPG, class Bias>
+__device__ __forceinline__ void scores_heads(float (&s)[HPG][KT],
+                                             const float (&qf)[HPG][CH],
+                                             const float* sk, int nk,
+                                             float scale, Bias bias) {
+#pragma unroll
+  for (int j = J0; j < J1; ++j) {
+    if (j < nk) {
+      float b[HPG];
+      bias(j, b);
+#pragma unroll
+      for (int h = 0; h < HPG; ++h)
+        s[h][j] = score(qf[h], sk + (h * KT + j) * CH, scale, b[h]);
+    }
+  }
 }
 
 // Write O / l to `op` and, with a non-null `lsep`, the logsumexp in

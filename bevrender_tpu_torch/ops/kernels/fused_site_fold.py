@@ -1,0 +1,164 @@
+"""Wrappers of the folded fused-site kernels, whose block serves all Hpg
+heads of a (b, g) cell (``ops.deform_attn.site_kernels``):
+
+- ``fused_site_fold_rows_cuda`` (csrc/fused_site_fold_rows.cu), the
+  counterpart of bevrender_tpu/ops/pallas/experimental.py::
+  fused_site_call_sh2 (``ModelConfig.site_fold_rows``): ``fused_site`` with
+  the heads folded;
+- ``fused_site_fold_heads_cuda`` (csrc/fused_site_fold_heads.cu), the
+  counterpart of ``fused_site_call_v2`` there (``ModelConfig.
+  site_fold_heads``): ``fused_site_wide_prefetch`` with the heads folded;
+- ``fused_site_fold_heads_lse_cuda``, its instance that also returns the
+  logsumexp, the counterpart of ``fused_site_call_v2_lse`` (the forward of a
+  ``fused_bwd`` training site under ``TrainConfig.fused_fwd_fold``).
+
+They compute the function of ``fused_site`` and equal it bit for bit; the
+plain versions are ``ops.deform_attn.site_plain`` and ``site_plain_lse``.
+A site folds where Hpg * W <= FOLD_WIDTH (the JAX package's condition: one
+query row of every head in one 128-lane block) and the kernels have an
+instance for Hpg (``folds``); its shared memory must fit as well
+(``rows_fit``, ``heads_fit``). The wrappers refuse any other site.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bevrender_tpu_torch.ops.kernels._launch import (
+    PAD,
+    SMEM_PER_BLOCK,
+    call,
+    window_columns,
+)
+from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
+
+# kernel launches since the last reset (ops.kernels.reset_counts)
+launches_rows = 0  # fused_site_fold_rows
+launches_heads = 0  # fused_site_fold_heads
+launches_heads_lse = 0  # fused_site_fold_heads_lse
+THREADS = 128  # queries per block, THREADS in both sources
+KEY_HALF = KEY_TILE // 2  # keys per ring slot, KH in fused_site_fold_heads.cu
+# heads per group the kernels have instances for (every supported model has
+# two)
+HEADS = (1, 2)
+FOLD_WIDTH = 128  # Hpg * W at most
+
+
+def folds(Hpg: int, W: int) -> bool:
+    """Whether a site of ``Hpg`` heads per group on query rows of ``W``
+    folds (shared memory aside)."""
+    return Hpg in HEADS and Hpg * W <= FOLD_WIDTH
+
+
+def rows_smem(Hpg: int, Ht: int, Xp: int, ch: int) -> int:
+    """Shared memory of ``fused_site_fold_rows``: the Hpg zero-padded
+    tables ((Ht + 2 PAD) x Xp bf16 each) and every head's K and V of a key
+    tile in float32 with three words of geometry a key."""
+    return (Hpg * (Ht + 2 * PAD) * Xp * 2 + 2 * Hpg * KEY_TILE * ch * 4
+            + KEY_TILE * 3 * 4)
+
+
+def rows_fit(Hpg: int, Ht: int, Xp: int, W: int, ch: int) -> bool:
+    return folds(Hpg, W) and rows_smem(Hpg, Ht, Xp, ch) <= SMEM_PER_BLOCK
+
+
+def _ring(Hpg: int, Wt: int, H: int, W: int, ch: int) -> tuple:
+    CW, Xs = window_columns(Wt)
+    R = min(-(-(THREADS - 1) // W), H - 1) + 2
+    smem = (2 * KEY_HALF * Hpg * R * CW * 2 + 2 * Hpg * KEY_TILE * ch * 4
+            + KEY_TILE * 3 * 4)
+    return R, CW, Xs, smem
+
+
+def heads_fit(Hpg: int, Wt: int, H: int, W: int, ch: int) -> bool:
+    return folds(Hpg, W) and _ring(Hpg, Wt, H, W, ch)[3] <= SMEM_PER_BLOCK
+
+
+def fold_ring(Hpg: int, Wt: int, H: int, W: int, ch: int) -> tuple:
+    """(R, CW, Xs, shared-memory bytes) of ``fused_site_fold_heads``'s ring:
+    two slots of KEY_HALF keys x Hpg heads x R rows x CW columns in bf16
+    (a KEY_TILE tile staged in two halves), plus every head's K and V of
+    the key tile and its geometry, as the kernel lays them out. Raises
+    where that exceeds SMEM_PER_BLOCK."""
+    R, CW, Xs, smem = _ring(Hpg, Wt, H, W, ch)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_site_fold_heads: a ring of 2 x {KEY_HALF} keys x {Hpg} "
+            f"heads x {R} rows x {CW} columns needs {smem} bytes of shared "
+            f"memory, over {SMEM_PER_BLOCK}; take fused_site_wide_prefetch "
+            f"(site_fold_heads=False)")
+    return R, CW, Xs, smem
+
+
+def _check_fold(name: str, Hpg: int, W: int) -> None:
+    if not folds(Hpg, W):
+        raise ValueError(
+            f"{name}: {Hpg} heads per group on rows of {W} queries do not "
+            f"fold (heads per group {HEADS}, Hpg * W <= {FOLD_WIDTH})")
+
+
+def fused_site_fold_rows_cuda(table, ys, ms, wy, f, u0, g, Xp: int, q, k, v,
+                              H: int, W: int, scale: float) -> torch.Tensor:
+    """Arguments as ``fused_site_cuda`` -> (B, G, Hpg, H*W, ch) float32."""
+    global launches_rows
+    B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
+                                               q, k, v, H, W)
+    _check_fold("fused_site_fold_rows", Hpg, W)
+    smem = rows_smem(Hpg, Ht, Xp, ch)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_site_fold_rows: {Hpg} padded tables of {Ht + 2 * PAD} x "
+            f"{Xp} and the key tile need {smem} bytes of shared memory, over "
+            f"{SMEM_PER_BLOCK}; take fused_site (site_fold_rows=False)")
+    out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32,
+                      device=table.device)
+    call("fused_site_fold_rows", "fused_site_fold_rows_launch",
+         (table, ys, ms, wy, f, u0, g, q, k, v, out, B, G, Hpg, Ht, Wt, Xp, N,
+          H, W, ch, float(scale)))
+    launches_rows += 1
+    return out
+
+
+def _launch_heads(table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
+                  with_lse: bool):
+    B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
+                                               q, k, v, H, W)
+    _check_fold("fused_site_fold_heads", Hpg, W)
+    R, CW, Xs, _ = fold_ring(Hpg, Wt, H, W, ch)
+    dev = table.device
+    pitched = torch.empty((G * Hpg * (Ht + 2 * PAD) * Xs,),
+                          dtype=torch.bfloat16, device=dev)
+    out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32, device=dev)
+    lse = (torch.empty((B, G, Hpg, H * W), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    call("fused_site_fold_heads",
+         "fused_site_fold_heads_lse_launch" if with_lse
+         else "fused_site_fold_heads_launch",
+         (table, pitched, ys, ms, wy, f, u0, g, q, k, v, out)
+         + ((lse,) if with_lse else ())
+         + (B, G, Hpg, Ht, Wt, Xs, N, H, W, R, CW, ch, float(scale)))
+    return out, lse
+
+
+def fused_site_fold_heads_cuda(table, ys, ms, wy, f, u0, g, q, k, v, H: int,
+                               W: int, scale: float) -> torch.Tensor:
+    """Arguments as ``fused_site_wide_prefetch_cuda`` -> (B, G, Hpg, H*W,
+    ch) float32. The launch first copies the table into scratch as a
+    pitched zero-padded table (G * Hpg * (Ht + 2 PAD) * Xs bf16), which its
+    time includes."""
+    global launches_heads
+    out, _ = _launch_heads(table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
+                           False)
+    launches_heads += 1
+    return out
+
+
+def fused_site_fold_heads_lse_cuda(table, ys, ms, wy, f, u0, g, q, k, v,
+                                   H: int, W: int, scale: float):
+    """``fused_site_fold_heads_cuda`` that also returns the logsumexp over
+    the keys, (B, G, Hpg, H*W) float32 in natural-log units."""
+    global launches_heads_lse
+    out = _launch_heads(table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
+                        True)
+    launches_heads_lse += 1
+    return out

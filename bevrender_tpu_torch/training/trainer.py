@@ -20,9 +20,9 @@ What differs from the JAX package, and why:
   arithmetic;
 * the retrieval embedding is the flattened render or a caller's
   ``embed_fn``; the trained retrieval head is not ported yet;
-* kernel choice comes from ``TrainConfig.fused_bwd`` and
-  ``TrainConfig.site_remat`` and from ``ModelConfig.lattice_route``,
-  ``site_prefetch`` and ``bias_prefetch``, not from environment variables.
+* kernel choice comes from ``TrainConfig.fused_bwd``, ``site_remat`` and
+  ``fused_fwd_fold`` and from ``ModelConfig.site_options()``, not from
+  environment variables.
 """
 
 from __future__ import annotations
@@ -165,6 +165,7 @@ class Trainer:
         net = net.to(self.device)
         set_site_options(net, fused_bwd=self.tc.fused_bwd,
                          site_remat=self.tc.site_remat,
+                         fused_fwd_fold=self.tc.fused_fwd_fold,
                          **self.config.model.site_options())
         set_generator(net, self._gen)
         optimizer = torch.optim.AdamW(

@@ -75,7 +75,23 @@ Phases, each fatal on failure:
 18. each new kernel alone at every shape phases 14-17 give it, at two
     table scales, against its plain version and, with tolerance 0, against
     its bit-equal sibling; ``lattice_bias_wide`` and its backward at the
-    flagship's shapes; times, bounds, plain and library times.
+    flagship's shapes; times, bounds, plain and library times;
+19. the folded fused sites: the flagship serving as phase 14
+    (WIDE_REQUESTS requests) with ``lattice_route="wide"``,
+    ``site_prefetch`` and ``site_fold_heads``: exactly 24
+    ``fused_site_fold_heads`` and 64 ``lattice_bias_wide`` per forward, the
+    render equal to phase 3's;
+20. the flagship serving with ``site_fold_rows`` on "auto" (WIDE_REQUESTS
+    requests): 24 ``fused_site_fold_rows`` and 64 ``lattice_bias`` per
+    forward, the render equal to phase 3's;
+21. flagship training as phase 7 (``fused_bwd``) with ``site_prefetch`` and
+    ``site_fold_heads`` on "auto": phase 7's counts with 12
+    ``fused_site_fold_heads_lse`` in place of the 12 ``fused_site_lse`` per
+    step; step 1's loss printed beside phase 7's;
+22. each folded kernel alone at every shape phases 19-21 give it, at two
+    table scales, against its plain version and, with tolerance 0, against
+    its per-head sibling; times, bounds, plain and library times, and the
+    sibling's time in the same call.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -166,6 +182,21 @@ WIDE_TRAIN_COUNTS = {WIDE_NAMES[k]: v
 PYR_PREFETCH_PER_FORWARD = dict(lattice_bias=PYR_PER_FORWARD["lattice_bias"],
                                 lattice_bias_wide_prefetch=PYR_PER_FORWARD[
                                     "lattice_bias_wide"])
+# The folded fused sites (phases 19-21). Every flagship fused site has two
+# heads per group on rows of 28 queries (Hpg * W = 56 <= 128), so each one
+# folds: site_fold_heads with site_prefetch on "wide" takes
+# fused_site_fold_heads where fused_site_wide_prefetch would run,
+# site_fold_rows on "auto" takes fused_site_fold_rows for fused_site, and a
+# fused_bwd step with site_prefetch and site_fold_heads on "auto" takes
+# fused_site_fold_heads_lse for fused_site_lse (its history pass stays on
+# fused_site: site_prefetch acts on the wide route only)
+FOLD_HEADS_PER_FORWARD = dict(fused_site_fold_heads=FUSED_PER_FORWARD,
+                              lattice_bias_wide=BIAS_PER_FORWARD)
+FOLD_ROWS_PER_FORWARD = dict(fused_site_fold_rows=FUSED_PER_FORWARD,
+                             lattice_bias=BIAS_PER_FORWARD)
+FOLD_TRAIN_COUNTS = {
+    ("fused_site_fold_heads_lse" if k == "fused_site_lse" else k): v
+    for k, v in TRAIN_COUNTS[(True, "nothing")].items()}
 BIAS_ULP = 2.0 ** -7   # one bf16 ulp of x is at most |x| * 2^-7
 # fused site vs its plain version: both round p to bf16 (the kernel before
 # normalising, the plain version after), each off by at most 2^-8 of the
@@ -450,6 +481,19 @@ def site_bound(B, G, ch, N, Wt, extra_bytes=0, lse=False):
     return max(nbytes / HBM_BPS, t_ops) * 1e3, by
 
 
+def sdpa_ms(q, k, v, bias, scale, iters: int) -> float:
+    """Yardstick of a fused site forward: PyTorch's attention on the same
+    q, k, v in bf16 with the bias (not timed) as an additive mask."""
+    import torch
+    import torch.nn.functional as F
+
+    bf, ch, M, N = torch.bfloat16, q.shape[-1], q.shape[-2], k.shape[-2]
+    mask = bias.transpose(-1, -2).to(bf).reshape(-1, M, N).contiguous()
+    qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch) for x in (q, k, v))
+    return device_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, scale=scale), iters)
+
+
 def site_errors(da, kernel_mod, seed, B, G, ch, N, Wt, table_std):
     """Run the fused-site kernel once at one shape and hold it against its
     plain version and against ``site_consumer_online``. Returns the errors,
@@ -480,7 +524,6 @@ def site_errors(da, kernel_mod, seed, B, G, ch, N, Wt, table_std):
 
 def check_site(da, kernel_mod) -> dict:
     import torch
-    import torch.nn.functional as F
 
     rows, worst, worst_online, bad = [], 0.0, 0.0, []
     for i, (name, B, G, ch, N, Wt, per_fwd) in enumerate(SITE_SITES):
@@ -504,14 +547,8 @@ def check_site(da, kernel_mod) -> dict:
         ev = events_ms(launch, 20)
         plain = device_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
                                                 scale, torch.float32), 5)
-        # yardstick: PyTorch's attention with the bias given as a mask (the
-        # bias is computed beforehand and not timed)
-        bf = torch.bfloat16
         bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
-        mask = bias.transpose(-1, -2).to(bf).reshape(-1, H * W, N).contiguous()
-        qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch) for x in (q, k, v))
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, scale=scale), 20)
+        lib = sdpa_ms(q, k, v, bias, scale, 20)
         bound, by = site_bound(B, G, ch, N, Wt)
         rows.append(dict(site=name, ms=ms, events_ms=ev, plain_ms=plain,
                          library_ms=lib,
@@ -1030,7 +1067,6 @@ def check_wide_site(da, kernels) -> tuple:
     ``fused_site``'s time at the same shapes for comparison. Returns
     (fused_site_wide record, fused_site_wide_prefetch record)."""
     import torch
-    import torch.nn.functional as F
 
     wide = kernels.fused_site_wide
     rows_w, rows_p, bad = [], [], []
@@ -1087,12 +1123,7 @@ def check_wide_site(da, kernels) -> tuple:
             ms_p = ms_p_kernel + device_ms(launch_p, 20, "pitch_table_kernel")
             plain = device_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
                                                     scale, torch.float32), 5)
-            mask = bias.transpose(-1, -2).to(bf).reshape(-1, H * W, N)
-            mask = mask.contiguous()
-            qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch)
-                          for x in (q, k, v))
-            lib = device_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, scale=scale), 20)
+            lib = sdpa_ms(q, k, v, bias, scale, 20)
             b_w = site_bound(B, G, ch, N, Wt)
             b_p = site_bound(B, G, ch, N, Wt, pitched_bytes(G, 2 * H - 1, Wt))
             common = dict(site=name, plain_ms=plain, library_ms=lib,
@@ -1109,7 +1140,6 @@ def check_wide_site(da, kernels) -> tuple:
                   f"fused_site {ms_whole:.4f} ms; plain {plain:.4f} ms "
                   f"sdpa+mask {lib:.4f} ms; bound {b_w[0]:.4f} / "
                   f"{b_p[0]:.4f} ms ({b_w[1]}) x{per_fwd}/forward", flush=True)
-            del mask, qs, ks, vs
         torch.cuda.empty_cache()
     if bad:
         fail(f"fused_site_wide / fused_site_wide_prefetch at {bad}")
@@ -1127,7 +1157,6 @@ def check_wide_site_lse(da, kernels) -> dict:
     within LSE_TOL of the plain one and LSE_ONLINE_TOL of the online
     mirror's. Times, bound, plain and library (SDPA forward) times."""
     import torch
-    import torch.nn.functional as F
 
     wide = kernels.fused_site_wide
     rows, bad = [], []
@@ -1174,12 +1203,7 @@ def check_wide_site_lse(da, kernels) -> dict:
                 *kargs, H, W, scale), 10, "fused_site_kernel")
             plain = device_ms(lambda: da.site_plain_lse(
                 q, k, v, k_pos, tb, H, W, scale, torch.float32), 3)
-            mask = bias.transpose(-1, -2).to(bf).reshape(-1, H * W, N)
-            mask = mask.contiguous()
-            qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch)
-                          for x in (q, k, v))
-            lib = device_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, scale=scale), 10)
+            lib = sdpa_ms(q, k, v, bias, scale, 10)
             bound, by = site_bound(B, G, ch, N, Wt, lse=True)
             rows.append(dict(site=name, ms=ms, fused_site_lse_ms=ms_whole,
                              plain_ms=plain, library_ms=lib, bound_ms=bound,
@@ -1189,7 +1213,6 @@ def check_wide_site_lse(da, kernels) -> dict:
                   f"(fused_site_lse {ms_whole:.4f}) plain {plain:.4f} ms "
                   f"sdpa+mask {lib:.4f} ms bound {bound:.4f} ms ({by}) "
                   f"x{per_step}/step", flush=True)
-            del mask, qs, ks, vs
         torch.cuda.empty_cache()
     if bad:
         fail(f"fused_site_wide_lse beyond tolerance at {bad}")
@@ -1283,6 +1306,119 @@ def check_prefetch_bias(da, kernels) -> tuple:
         fail(f"lattice_bias_wide_prefetch beyond tolerance at {bad}")
     return (dict(rows=rows_p, worst=worst["prefetch"]),
             dict(rows=rows_w, worst=worst["wide"]))
+
+
+def check_fold_sites(da, kernels) -> tuple:
+    """Phase 22, the folded fused sites at every shape phases 19-21 give
+    them and two table scales: ``fused_site_fold_rows`` and
+    ``fused_site_fold_heads`` at the serving sites (SITE_SITES) equal to
+    ``fused_site`` and ``fused_site_wide_prefetch`` bit for bit, and
+    ``fused_site_fold_heads_lse`` at the training sites (TRAIN_SITE_SITES)
+    equal to ``fused_site_lse`` in output and logsumexp; every output within
+    SITE_P_ROUND of the plain version, the logsumexp within LSE_TOL of the
+    plain one. Times (a head-folded kernel's, as its prefetch sibling's, the
+    sum of its kernel's and its pitched table copy's), bounds, plain and
+    library times, and the sibling's time in the same call. Returns the
+    records of (fused_site_fold_rows, fused_site_fold_heads,
+    fused_site_fold_heads_lse)."""
+    import torch
+
+    fold, wide = kernels.fused_site_fold, kernels.fused_site_wide
+    bf = torch.bfloat16
+    recs = {n: dict(rows=[], worst=0.0) for n in ("rows", "heads", "lse")}
+    bad = []
+
+    def with_copy(launch, name):
+        return (device_ms(launch, 20, f"{name}_kernel")
+                + device_ms(launch, 20, "pitch_table_kernel"))
+
+    def run(tag, name, B, G, ch, N, Wt, per, std, seed):
+        table, k_pos, q, k, v = site_inputs(seed, B, G, ch, N, Wt, std)
+        scale = ch ** -0.5
+        kargs = da._kernel_args(table, k_pos, H, W) + tuple(
+            x.to(bf).contiguous() for x in (q, k, v))
+        geo, qkv = kargs[:7], kargs[8:]
+        tb = table.bfloat16().float()
+        bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+        wabs = da.site_consumer(q, k, v.abs(), bias, scale)
+        if tag == "lse":
+            launch = lambda: fold.fused_site_fold_heads_lse_cuda(  # noqa: E731
+                *geo, *qkv, H, W, scale)
+            sibling = lambda: kernels.fused_site.fused_site_lse_cuda(  # noqa: E731
+                *kargs, H, W, scale)
+            plain = lambda: da.site_plain_lse(  # noqa: E731
+                q, k, v, k_pos, tb, H, W, scale, torch.float32)
+            (out, lse), (s_out, s_lse), (ref, ref_lse) = (
+                launch(), sibling(), plain())
+            same = torch.equal(out, s_out) and torch.equal(lse, s_lse)
+            err = float((lse - ref_lse).abs().max())
+            ok = err <= LSE_TOL
+        else:
+            launch, sibling = {
+                "rows": (
+                    lambda: fold.fused_site_fold_rows_cuda(*kargs, H, W,
+                                                           scale),
+                    lambda: kernels.fused_site.fused_site_cuda(*kargs, H, W,
+                                                               scale)),
+                "heads": (
+                    lambda: fold.fused_site_fold_heads_cuda(*geo, *qkv, H, W,
+                                                            scale),
+                    lambda: wide.fused_site_wide_prefetch_cuda(
+                        *geo, *qkv, H, W, scale))}[tag]
+            plain = lambda: da.site_plain(  # noqa: E731
+                q, k, v, k_pos, tb, H, W, scale, torch.float32)
+            out, s_out, ref = launch(), sibling(), plain()
+            same = torch.equal(out, s_out)
+            err = float((out - ref).abs().max())
+            ok = True
+        torch.cuda.synchronize()
+        d_out = (out - ref).abs()
+        ok = ok and same and bool((d_out <= SITE_P_ROUND * wabs + 1e-5).all())
+        sib = dict(rows="fused_site", heads="fused_site_wide_prefetch",
+                   lse="fused_site_lse")[tag]
+        print(f"fold {tag} {name} table std {std}: "
+              f"{'equals' if same else 'DIFFERS FROM'} {sib}; max abs err vs "
+              f"plain {err:.3g}{' (lse)' if tag == 'lse' else ''}, out "
+              f"{float(d_out.max()):.3g} ({'ok' if ok else 'FAIL'})",
+              flush=True)
+        if not ok:
+            bad.append(f"{tag} {name} std {std}")
+        rec = recs[tag]
+        rec["worst"] = max(rec["worst"], err)
+        if std != SITE_TABLE_STDS[0]:
+            return
+        if tag == "rows":
+            ms = device_ms(launch, 20, "fused_site_fold_rows_kernel")
+            ms_sib = device_ms(sibling, 20, "fused_site_kernel")
+        elif tag == "heads":
+            ms = with_copy(launch, "fused_site_fold_heads")
+            ms_sib = with_copy(sibling, "fused_site_wide_prefetch")
+        else:
+            ms = with_copy(launch, "fused_site_fold_heads")
+            ms_sib = device_ms(sibling, 20, "fused_site_kernel")
+        extra = 0 if tag == "rows" else pitched_bytes(G, 2 * H - 1, Wt)
+        bound, by = site_bound(B, G, ch, N, Wt, extra, lse=tag == "lse")
+        plain_ms = device_ms(plain, 5)
+        lib = sdpa_ms(q, k, v, bias, scale, 20)
+        rec["rows"].append({
+            "site": name, "ms": ms, "sibling_ms": ms_sib, "plain_ms": plain_ms,
+            "library_ms": lib, "bound_ms": bound, "bound_by": by,
+            ("per_step" if tag == "lse" else "per_forward"): per,
+            "max_abs_err": err})
+        print(f"fold {tag} {name}: kernel {ms:.4f} ms, {sib} {ms_sib:.4f} ms; "
+              f"plain {plain_ms:.4f} ms sdpa+mask {lib:.4f} ms; bound "
+              f"{bound:.4f} ms ({by}) x{per}/"
+              f"{'step' if tag == 'lse' else 'forward'}", flush=True)
+
+    for tag, sites in (("rows", SITE_SITES), ("heads", SITE_SITES),
+                       ("lse", TRAIN_SITE_SITES)):
+        for i, (name, B, G, ch, N, Wt, per) in enumerate(sites):
+            for std in SITE_TABLE_STDS:
+                run(tag, name, B, G, ch, N, Wt, per, std, 110 + i)
+            torch.cuda.empty_cache()
+    if bad:
+        fail(f"folded fused sites beyond tolerance or unequal at {bad}")
+    return recs["rows"], recs["heads"], recs["lse"]
 
 
 def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
@@ -1412,7 +1548,8 @@ def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
                       for n in ("fused_site", "lattice_bias",
                                 "lattice_bias_bwd", "fused_site_bwd",
                                 "lattice_bias_wide", "lattice_bias_wide_bwd",
-                                "fused_site_wide", "lattice_bias_wide_prefetch")}
+                                "fused_site_wide", "lattice_bias_wide_prefetch",
+                                "fused_site_fold_heads")}
             print(f"{tag}: device time of one step (profiler): busy "
                   f"{busy:.3f} ms of {ms:.3f} ms/step, idle share "
                   f"{idle:.3f}; kernels seen by name {seen_k} [{card}]",
@@ -1734,6 +1871,38 @@ def main() -> None:
     bias_wide_bwd_flagship = check_bias_bwd(da, kernels.lattice_bias_bwd,
                                             wide=True)
 
+    # ---- the folded fused sites (ModelConfig.site_fold_heads and
+    # site_fold_rows; TrainConfig.fused_fwd_fold follows site_fold_heads):
+    # the flagship serving on each, its fused_bwd step with the folded
+    # forward, and each folded kernel alone. Each equals its per-head
+    # sibling bit for bit, so each render equals the "auto" route's ----
+    fold_heads_serve = serving_phase(
+        card, "flagship fold heads",
+        flagship_route(lattice_route="wide", site_prefetch=True,
+                       site_fold_heads=True),
+        SERVE_B, WIDE_REQUESTS, FOLD_HEADS_PER_FORWARD)
+    fold_rows_serve = serving_phase(
+        card, "flagship fold rows", flagship_route(site_fold_rows=True),
+        SERVE_B, WIDE_REQUESTS, FOLD_ROWS_PER_FORWARD)
+    fold_train = train_phase(
+        card, "flagship fold", flagship_route(site_prefetch=True,
+                                              site_fold_heads=True),
+        True, "nothing", TRAIN_STEPS, True, FOLD_TRAIN_COUNTS)
+    print(f"fused_bwd training, loss of step 1: folded forward "
+          f"{fold_train['loss_first']:.6f}, per-head forward (phase 7) "
+          f"{train_fused['loss_first']:.6f}", flush=True)
+    fold_diff = {
+        "flagship_fold_heads": float((fold_heads_serve.pop("render")
+                                      - auto_render).abs().max()),
+        "flagship_fold_rows": float((fold_rows_serve.pop("render")
+                                     - auto_render).abs().max())}
+    print(f"folded renders against the \"auto\" route's, same weights and "
+          f"batch (max abs difference): {fold_diff}", flush=True)
+    if any(d != 0.0 for d in fold_diff.values()):
+        fail(f"a folded render differs from the auto route's: {fold_diff}")
+    with torch.no_grad():
+        site_rows, site_heads, site_heads_lse = check_fold_sites(da, kernels)
+
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
         top = max(data["rows"], key=lambda r: r[per] * r["ms"])
@@ -1816,16 +1985,31 @@ def main() -> None:
         entry("lattice_bias_wide_prefetch", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/"
               "lattice_bias_wide_prefetch.cu",
-              "bevrender_tpu/ops/pallas/lattice_bias.py:165", bias_prefetch,
+              "bevrender_tpu/ops/pallas/lattice_bias.py:422", bias_prefetch,
               prefetch_serve["counts"]["lattice_bias_wide_prefetch"],
               launches_pyramid_serving=pyr_prefetch["counts"][
                   "lattice_bias_wide_prefetch"]),
+        entry("fused_site_fold_heads", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/fused_site_fold_heads.cu",
+              "bevrender_tpu/ops/pallas/experimental.py:439", site_heads,
+              fold_heads_serve["counts"]["fused_site_fold_heads"]),
+        entry("fused_site_fold_heads_lse", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/fused_site_fold_heads.cu",
+              "bevrender_tpu/ops/pallas/experimental.py:560", site_heads_lse,
+              fold_train["counts"]["fused_site_fold_heads_lse"]),
+        entry("fused_site_fold_rows", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/fused_site_fold_rows.cu",
+              "bevrender_tpu/ops/pallas/experimental.py:659", site_rows,
+              fold_rows_serve["counts"]["fused_site_fold_rows"]),
     ], "card": card, "train": [train_default, train_none, train_fused],
         "pyramid": {"serving": pyr_serve, "train": [pyr_train, pyr_none],
                     "small_model_grad_err": grads_wide["worst"]},
         "wide": {"serving": wide_serve, "prefetch_serving": prefetch_serve,
                  "train": wide_train, "pyramid_prefetch_serving": pyr_prefetch,
                  "render_diff": render_diff},
+        "fold": {"heads_serving": fold_heads_serve,
+                 "rows_serving": fold_rows_serve, "train": fold_train,
+                 "render_diff": fold_diff},
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}

@@ -1,0 +1,294 @@
+"""The folded fused sites of the port on the CPU: the plain versions that
+the folded CUDA kernels are held to against the JAX package's head-folded
+Pallas kernels (``fused_site_call_v2`` and its logsumexp instance, #11 and
+#12) and its row-folded one (``fused_site_call_sh2``, #13) in interpret
+mode, the kernel choice (``site_kernels``) under the fold fields at every
+site of the flagship and the pyramid against the launch counts that
+chip_smoke.py holds the card to, and the fold fields from the config to
+every site.
+
+Inputs are made with numpy from a seed and fed to both frameworks, at the
+shapes of the JAX package's own tests of these kernels
+(tests/test_ops_fused.py). The CUDA kernels themselves are held to the same
+plain versions, and with tolerance 0 to their per-head siblings, in
+test_torch_kernels.py on the card.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bevrender_tpu.ops.deform_attn import _kernel_inputs, _kernel_inputs_sh
+from bevrender_tpu.ops.pallas.experimental import (
+    fused_site_call_sh2,
+    fused_site_call_v2,
+    fused_site_call_v2_lse,
+)
+from bevrender_tpu_torch import config as tcfg
+from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+from bevrender_tpu_torch.inference.register import RegistrationPipeline
+from bevrender_tpu_torch.models.attention import _Site
+from bevrender_tpu_torch.ops import deform_attn as tda
+from bevrender_tpu_torch.ops import kernels
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+# the launch counts of a whole flagship or pyramid pass, summed over
+# site_kernels at every site, as the wide route's tests sum them
+_launches = _load("test_torch_wide_site",
+                  ROOT / "tests" / "test_torch_wide_site.py")._launches
+
+# site output against a Pallas site kernel: p rounded to bf16 before
+# normalising in one and after in the other (chip_smoke.SITE_P_ROUND)
+SITE_P_ROUND = chip_smoke.SITE_P_ROUND
+# logsumexp against the Pallas kernel's: both from bf16-rounded q, k and
+# table with float32 scores, summed in another order (chip_smoke.LSE_TOL,
+# the bound the card holds the CUDA logsumexp to)
+LSE_TOL = chip_smoke.LSE_TOL
+
+# (B, G, Hpg, H, W, N): the JAX package's fused-site tests' shapes (two key
+# tiles with padded keys; three groups of one head)
+SHAPES = [(1, 2, 2, 8, 8, 100), (2, 3, 1, 8, 8, 200)]
+# Hpg * W = 160 > 128: the JAX package's own shape for v2's fallback to
+# the per-head kernel
+WIDE_ROWS = (1, 1, 4, 8, 40, 80)
+
+
+def _inputs(seed, B, G, Hpg, H, W, N, ch):
+    """Table (std 1: the bias outweighs q . k), key positions, and q, k, v
+    in bf16 with N keys (numpy), as both frameworks take them."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((G, Hpg, 2 * H - 1, 2 * W * 4 - 1)).astype(
+        np.float32)
+    k_pos = rng.uniform(-0.95, 0.95, (B, G, N, 2)).astype(np.float32)
+    k, v = (rng.standard_normal((B, G, Hpg, N, ch)) for _ in range(2))
+    q = rng.standard_normal((B, G, Hpg, H * W, ch))
+    bf = jnp.bfloat16
+    return table, k_pos, *(np.asarray(jnp.asarray(x, bf), np.float32)
+                           for x in (q, k, v))
+
+
+def _padded(x, Np):
+    """(B, G, Hpg, N, ch) keys padded to the staging's Np, in bf16."""
+    pad = ((0, 0),) * 3 + ((0, Np - x.shape[3]), (0, 0))
+    return jnp.asarray(np.pad(x, pad), jnp.bfloat16)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+def _jax_site(kernel, table, k_pos, q, k, v, H, W, scale):
+    """The Pallas site ``kernel`` in interpret mode on the JAX package's own
+    staging; returns the output (B, G, Hpg, M, ch) and, for the logsumexp
+    instance, the logsumexp (B, G, Hpg, M)."""
+    Hpg, N = q.shape[2], k.shape[3]
+    qcm = jnp.asarray(np.swapaxes(q, -1, -2), jnp.bfloat16)
+    if kernel == "sh2":
+        lane_block = 64 if Hpg * W <= 64 else 128
+        t3s, wy4, f4, packed, gcol, Np = _kernel_inputs_sh(
+            jnp.asarray(table), jnp.asarray(k_pos), H, W, lane_block=lane_block)
+        out = fused_site_call_sh2(t3s, wy4, f4, packed, gcol, _padded(k, Np),
+                                  _padded(v, Np), qcm, H, W, Hpg, True, N,
+                                  scale)
+        return np.swapaxes(np.asarray(out), -1, -2), None
+    *staged, Np = _kernel_inputs(jnp.asarray(table), jnp.asarray(k_pos), H, W)
+    call = fused_site_call_v2_lse if kernel == "v2_lse" else fused_site_call_v2
+    res = call(*staged, _padded(k, Np), _padded(v, Np), qcm, H, W, Hpg, True,
+               N, scale)
+    out, lse = res if kernel == "v2_lse" else (res, None)
+    return np.swapaxes(np.asarray(out), -1, -2), (
+        None if lse is None else np.asarray(lse))
+
+
+def _check_against_pallas(kernel, shape, ch, seed):
+    B, G, Hpg, H, W, N = shape
+    table, k_pos, q, k, v = _inputs(seed, *shape, ch)
+    scale = ch ** -0.5
+    ref, ref_lse = _jax_site(kernel, table, k_pos, q, k, v, H, W, scale)
+    tq, tk, tv, kp = map(_t, (q, k, v, k_pos))
+    tb = _t(table).bfloat16().float()
+    out, lse = tda.site_plain_lse(tq, tk, tv, kp, tb, H, W, scale,
+                                  torch.float32)
+    bias = tda.lattice_bias_plain(tb, kp, H, W, torch.float32)
+    wabs = tda.site_consumer(tq, tk, tv.abs(), bias, scale).numpy()
+    assert out.shape == ref.shape == (B, G, Hpg, H * W, ch)
+    np.testing.assert_array_less(np.abs(out.numpy() - ref),
+                                 SITE_P_ROUND * wabs + 1e-5)
+    if ref_lse is not None:
+        assert ref_lse.shape == (B, G, Hpg, H * W)
+        assert float(np.abs(lse.numpy() - ref_lse).max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("kernel", ["v2", "v2_lse", "sh2"])
+@pytest.mark.parametrize("ch", [4, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_versions_match_folded_site_kernels(kernel, ch, shape):
+    """``site_plain`` (the plain version of ``fused_site_fold_heads`` and
+    ``fused_site_fold_rows``) against the head-folded DMA site (#11) and
+    the row-folded shift-replica site (#13, staged with its 64-lane row
+    blocks), and ``site_plain_lse`` (the plain version of
+    ``fused_site_fold_heads_lse``) against #12 in output and logsumexp."""
+    _check_against_pallas(kernel, shape, ch, 60 + ch)
+
+
+@pytest.mark.parametrize("kernel", ["v2", "v2_lse"])
+def test_wide_rows_take_the_per_head_kernels(kernel):
+    """Where Hpg * W = 160 > 128, ``fused_site_call_v2`` runs its per-head
+    fallback and the plain version stays within the same bounds of it; the
+    port names its per-head kernels there under every fold option."""
+    _check_against_pallas(kernel, WIDE_ROWS, 4, 70)
+    B, G, Hpg, H, W, N = WIDE_ROWS
+    q, t = (B, G, Hpg, H * W, 4), (G, Hpg, 2 * H - 1, 2 * W * 4 - 1)
+    fold = dict(site_prefetch=True, site_fold_heads=True, site_fold_rows=True)
+    assert tda.site_kernels(q, t, H, W, tda.SiteOptions(
+        lattice_route="wide", **fold), training=False) == (
+        "fused_site_wide_prefetch",)
+    assert tda.site_kernels(q, t, H, W, tda.SiteOptions(**fold),
+                            training=False) == ("fused_site",)
+    for route in ("auto", "wide"):
+        opts = tda.SiteOptions(fused_bwd=True, lattice_route=route,
+                               fused_fwd_fold=True, **fold)
+        assert tda.site_kernels(q, t, H, W, opts, training=True)[0] == (
+            "fused_site_lse" if route == "auto" else "fused_site_wide_lse")
+
+
+# ---- the kernel choice ------------------------------------------------------
+
+FLAGSHIP = tcfg.flagship_config().model
+PYRAMID = tcfg.Config().model
+FOLD_HEADS = dict(site_prefetch=True, site_fold_heads=True)
+FOLD_OPTIONS = [FOLD_HEADS, dict(site_fold_rows=True),
+                dict(FOLD_HEADS, site_fold_rows=True, fused_fwd_fold=True)]
+
+
+def test_flagship_fold_kernels():
+    """The flagship's serving forward (B=4, T=2) and training step (B=2,
+    T=2, ``fused_bwd``) take exactly the kernels whose launches chip_smoke's
+    phases 19-21 count on the card: every fused site folds (Hpg * W =
+    56)."""
+    heads = tda.SiteOptions(lattice_route="wide", **FOLD_HEADS)
+    assert _launches(FLAGSHIP, chip_smoke.SERVE_B, heads, False) == \
+        chip_smoke.FOLD_HEADS_PER_FORWARD
+    rows = tda.SiteOptions(site_fold_rows=True)
+    assert _launches(FLAGSHIP, chip_smoke.SERVE_B, rows, False) == \
+        chip_smoke.FOLD_ROWS_PER_FORWARD
+    train = tda.SiteOptions(fused_bwd=True, **FOLD_HEADS)
+    assert _launches(FLAGSHIP, chip_smoke.TRAIN_B, train, True) == \
+        chip_smoke.FOLD_TRAIN_COUNTS
+
+
+@pytest.mark.parametrize("options", FOLD_OPTIONS)
+def test_pyramid_kernels_are_unchanged_by_the_fold_fields(options):
+    """The pyramid's sites have head width 32: no fused site, so no fold;
+    its serving and training counts are those of chip_smoke's phases 10 and
+    11 under every fold option."""
+    for fused_bwd in (False, True):
+        opts = tda.SiteOptions(fused_bwd=fused_bwd, **options)
+        assert _launches(PYRAMID, chip_smoke.PYR_B, opts, False) == \
+            chip_smoke.PYR_PER_FORWARD
+        assert _launches(PYRAMID, chip_smoke.PYR_B, opts, True) == \
+            chip_smoke.PYR_TRAIN_COUNTS["nothing"]
+
+
+@pytest.mark.parametrize("route", ["auto", "wide"])
+@pytest.mark.parametrize("fold_heads,fused_fwd_fold,folded", [
+    (False, None, False), (True, None, True), (True, False, False),
+    (False, True, True)])
+def test_fused_fwd_fold_follows_site_fold_heads(route, fold_heads,
+                                                fused_fwd_fold, folded):
+    """The forward of a ``fused_bwd`` site folds the heads where
+    ``fused_fwd_fold`` says so, and follows ``site_fold_heads`` where it is
+    None (BEVRENDER_TRAIN_FWD_V2 unset), on either route; the backward
+    stays ``fused_site_bwd``."""
+    opts = tda.SiteOptions(fused_bwd=True, lattice_route=route,
+                           site_prefetch=True, site_fold_heads=fold_heads,
+                           fused_fwd_fold=fused_fwd_fold)
+    per_head = "fused_site_lse" if route == "auto" else "fused_site_wide_lse"
+    assert tda.site_kernels((6, 4, 2, 784, 8), (4, 2, 55, 279), 28, 28, opts,
+                            training=True) == (
+        "fused_site_fold_heads_lse" if folded else per_head, "fused_site_bwd")
+
+
+def test_fold_rows_needs_room_for_every_head():
+    """A narrow-head site whose one table fits ``fused_site`` but whose two
+    do not fit one block (two heads at BEV 56, depth 5: 2 x 119 x 849 x 2
+    B) keeps ``fused_site`` under ``site_fold_rows``."""
+    opts = tda.SiteOptions(site_fold_rows=True)
+    assert tda.site_kernels((2, 1, 2, 3136, 4), (1, 2, 111, 559), 56, 56,
+                            opts, training=False) == ("fused_site",)
+    assert tda.site_kernels((2, 1, 2, 784, 4), (1, 2, 55, 279), 28, 28,
+                            opts, training=False) == ("fused_site_fold_rows",)
+
+
+def test_site_fold_heads_needs_site_prefetch():
+    with pytest.raises(ValueError, match="site_prefetch"):
+        tda.SiteOptions(site_fold_heads=True, site_prefetch=False)
+    cfg = _tiny(site_fold_heads=True)
+    with pytest.raises(ValueError, match="site_prefetch"):
+        RegistrationPipeline(cfg, device="cpu", seed=1)
+
+
+# ---- the config fields, end to end on the CPU -------------------------------
+
+def _tiny(**fields):
+    cfg = tcfg.Config()
+    cfg.model = tcfg.tiny_model_config(embed_dims=(32, 32, 32),
+                                       n_heads=(2, 8), n_groups=(1, 4),
+                                       **fields)
+    return cfg
+
+
+def _sites(net):
+    return [m for m in net.modules() if isinstance(m, _Site)]
+
+
+@pytest.mark.parametrize("fields", [
+    dict(site_fold_rows=True),
+    dict(lattice_route="wide", site_fold_heads=True, site_prefetch=True)])
+def test_fold_fields_render_as_the_default_on_the_cpu(fields):
+    """A tiny model (stage 1 of head width 4 with G = 4 and two heads per
+    group on the fused site) under the fold fields renders what the default
+    renders: on CPU tensors every kernel is its plain version. The fields
+    reach every site of the pipeline's model, and no kernel launches."""
+    batch = SyntheticDataset(n_items=2, num_views=2, window_num_imgs=1,
+                             img_height=32, img_width=32, seed=3).batch(2)
+    before = kernels.counts()
+    base = RegistrationPipeline(_tiny(), device="cpu", seed=1)
+    fold = RegistrationPipeline(_tiny(**fields), device="cpu", seed=1)
+    assert torch.equal(fold.render(batch), base.render(batch))
+    sites = _sites(fold.net)
+    assert len(sites) == 4  # 2 stages x (TSA, SCA)
+    assert {s.site_options for s in sites} == {tda.SiteOptions(**fields)}
+    assert kernels.counts() == before
+
+
+def test_trainer_hands_the_fold_fields_to_every_site(tmp_path):
+    """``Trainer.create_state`` sets ``fused_fwd_fold`` with the training
+    pass's other fields, and the model's fold fields, on every site."""
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    cfg = _tiny(site_prefetch=True, site_fold_heads=True, site_fold_rows=True)
+    cfg.train.fused_bwd, cfg.train.fused_fwd_fold = True, False
+    cfg.train.work_dir = str(tmp_path)
+    ds = SyntheticDataset(n_items=2, num_views=2, window_num_imgs=1,
+                          img_height=32, img_width=32, map_tile=32)
+    net = Trainer(cfg, ds, device="cpu").create_state(seed=0).net
+    want = tda.SiteOptions(fused_bwd=True, site_prefetch=True,
+                           site_fold_heads=True, site_fold_rows=True,
+                           fused_fwd_fold=False)
+    assert {s.site_options for s in _sites(net)} == {want}
+    assert not want.fold_train_forward

@@ -38,6 +38,11 @@ WIDE_ROUTE_MODULES = (
 )
 
 
+# the folded fused sites' wrappers (the other modules this slice changed
+# are named above)
+FOLD_MODULES = ("ops/kernels/fused_site_fold.py",)
+
+
 def _port_files():
     return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -69,7 +74,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + PYRAMID_MODULES
-                         + WIDE_ROUTE_MODULES)
+                         + WIDE_ROUTE_MODULES + FOLD_MODULES)
 def test_training_module_imports_no_jax(module):
     path = ROOT / "bevrender_tpu_torch" / module
     assert path.exists()
@@ -130,4 +135,5 @@ def test_every_kernel_source_is_built_and_counted():
     names = set(kernels.counts())
     assert set(build.SOURCES) <= names
     assert names - set(build.SOURCES) == {"fused_site_lse",
-                                          "fused_site_wide_lse"}
+                                          "fused_site_wide_lse",
+                                          "fused_site_fold_heads_lse"}

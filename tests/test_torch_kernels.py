@@ -403,6 +403,154 @@ def test_narrow_site_over_shared_memory_takes_the_wide_kernel(cuda_device):
     assert bool(((out - online).abs() <= 2.0 ** -15 * wabs + 1e-7).all())
 
 
+# The folded fused sites, whose block serves both heads of a (b, g) cell
+# (Hpg = 2, W = 28 at the flagship; W = 8 at the small shape).
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch,N,Wt,table_std", WIDE_SITES)
+def test_fold_site_kernels_equal_their_siblings(cuda_device, ch, N, Wt,
+                                                table_std):
+    """``fused_site_fold_rows`` equals ``fused_site``,
+    ``fused_site_fold_heads`` equals ``fused_site_wide_prefetch`` and its
+    logsumexp instance equals ``fused_site_lse`` (output and logsumexp),
+    bit for bit; the folded outputs stand within the fused site's tolerance
+    of the plain version."""
+    H = W = 28 if Wt != 15 else 8
+    table, k_pos, q, k, v = _inputs(21, 2, 4, 2, H, W, Wt, N, ch, cuda_device,
+                                    table_std)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, W)
+    geo, qkv = kargs[:7], kargs[8:]
+    fold = kernels.fused_site_fold
+    before = kernels.counts()
+    with torch.no_grad():
+        whole = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
+        whole_o, whole_lse = kernels.fused_site.fused_site_lse_cuda(
+            *kargs, H, W, scale)
+        pre = kernels.fused_site_wide.fused_site_wide_prefetch_cuda(
+            *geo, *qkv, H, W, scale)
+        rows = fold.fused_site_fold_rows_cuda(*kargs, H, W, scale)
+        heads = fold.fused_site_fold_heads_cuda(*geo, *qkv, H, W, scale)
+        heads_o, heads_lse = fold.fused_site_fold_heads_lse_cuda(
+            *geo, *qkv, H, W, scale)
+        bias = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, W,
+                                      torch.float32)
+        ref = tda.site_consumer(q, k, v, bias, scale)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"fused_site": 1, "fused_site_lse": 1,
+            "fused_site_wide_prefetch": 1, "fused_site_fold_rows": 1,
+            "fused_site_fold_heads": 1, "fused_site_fold_heads_lse": 1}
+    assert torch.equal(rows, whole)
+    assert torch.equal(heads, pre)
+    assert torch.equal(heads_o, whole_o) and torch.equal(heads_lse, whole_lse)
+    for out in (rows, heads):
+        assert bool(((out - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_fold_options_reach_the_fold_kernels(cuda_device):
+    """A flagship SCA site through ``streamed_deform_attention`` takes the
+    folded kernels under the fold options and gives the per-head kernels'
+    output; the folded training forward's gradients (the same backward
+    kernel, float atomics) agree with the per-head forward's to
+    SITE_BWD_ONLINE_TOL."""
+    H = W = 28
+    table, k_pos, q, k, v = _inputs(22, 2, 4, 2, H, W, 279, 700, 8,
+                                    cuda_device, 1.0)
+
+    def site(**options):
+        with torch.no_grad():
+            return tda.streamed_deform_attention(
+                q, k, v, k_pos, table, H, W, scale=8 ** -0.5, fuse_site=True,
+                **options)
+
+    before = kernels.counts()
+    rows = site(site_fold_rows=True)
+    heads = site(lattice_route="wide", site_prefetch=True,
+                 site_fold_heads=True)
+    assert torch.equal(rows, site()) and torch.equal(heads, rows)
+    grads = []
+    for fold in (False, True):
+        a = [t.clone().requires_grad_() for t in (q, k, v, k_pos, table)]
+        out = tda.streamed_deform_attention(
+            *a, H, W, scale=8 ** -0.5, fuse_site=False, fused_bwd=True,
+            fused_fwd_fold=fold)
+        grads.append((out.detach(), torch.autograd.grad(out.sum(), a)))
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"fused_site": 1, "fused_site_fold_rows": 1,
+            "fused_site_fold_heads": 1, "fused_site_lse": 1,
+            "fused_site_fold_heads_lse": 1, "fused_site_bwd": 2}
+    assert torch.equal(grads[0][0], grads[1][0])
+    for x, r in zip(grads[1][1], grads[0][1]):
+        assert _close(x, r, SITE_BWD_ONLINE_TOL)
+
+
+@pytest.mark.cuda
+def test_fold_wrappers_refuse_sites_that_do_not_fold(cuda_device):
+    """On the card the folded kernels refuse, before launching, a site whose
+    tables or ring overflow shared memory (two heads of BEV 64 at depth 5;
+    two heads of BEV 64 at depth 8), whose Hpg * W is over 128, or whose
+    head count has no instance."""
+    fold = kernels.fused_site_fold
+    for Hpg, H, Wt, which, match in (
+            (2, 64, 639, "rows", "shared memory"),
+            (2, 64, 1023, "heads", "shared memory"),
+            (2, 72, 719, "heads", "do not fold"),
+            (4, 8, 79, "rows", "do not fold")):
+        table, k_pos, q, k, v = _inputs(23, 1, 1, Hpg, H, H, Wt, 40, 4,
+                                        cuda_device)
+        kargs = _site_kargs(table, k_pos, q, k, v, H, H)
+        with pytest.raises(ValueError, match=match):
+            if which == "rows":
+                fold.fused_site_fold_rows_cuda(*kargs, H, H, 0.5)
+            else:
+                fold.fused_site_fold_heads_cuda(*kargs[:7], *kargs[8:], H, H,
+                                                0.5)
+
+
+def test_fold_wrappers_refuse_cpu_tensors_and_other_heads():
+    """Checked before anything touches the card: CPU tensors. A site folds
+    where the kernels have an instance for its head count and Hpg * W <=
+    128."""
+    fold = kernels.fused_site_fold
+    table, k_pos, q, k, v = _inputs(24, 1, 1, 2, 8, 8, 15, 10, 4, "cpu")
+    kargs = _site_kargs(table, k_pos, q, k, v, 8, 8)
+    geo, qkv = kargs[:7], kargs[8:]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fold.fused_site_fold_rows_cuda(*kargs, 8, 8, 0.5)
+    for call in (fold.fused_site_fold_heads_cuda,
+                 fold.fused_site_fold_heads_lse_cuda):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(*geo, *qkv, 8, 8, 0.5)
+    assert not fold.folds(4, 8) and not fold.folds(2, 65)
+    assert fold.folds(2, 64) and fold.folds(1, 128) and fold.folds(2, 28)
+
+
+def test_fold_sizes_follow_the_shapes():
+    """At the flagship's SCA (55 x 279, W = 28, two heads) the row-folded
+    site stages two padded tables of 63 x 429 and the head-folded ring is
+    two slots of 16 keys x 2 heads x 7 rows x 152 columns, the per-head
+    prefetch ring's 136 KB; a shape whose ring overflows shared memory is
+    refused with the numbers (two heads of BEV 64 at depth 8)."""
+    fold = kernels.fused_site_fold
+    Xp = tda.padded_width(279, 28)
+    assert fold.rows_smem(2, 55, Xp, 8) == (2 * 63 * Xp * 2
+                                            + 2 * 2 * 32 * 8 * 4 + 32 * 12)
+    assert fold.rows_fit(2, 55, Xp, 28, 8)
+    assert not fold.rows_fit(2, 127, tda.padded_width(639, 64), 64, 4)
+    R, CW, _, smem = fold.fold_ring(2, 279, 28, 28, 8)
+    assert (R, CW) == (7, 152)
+    assert smem == 2 * 16 * 2 * 7 * 152 * 2 + 2 * 2 * 32 * 8 * 4 + 32 * 12
+    assert fold.heads_fit(2, 279, 28, 28, 8)
+    assert not fold.heads_fit(2, 1023, 64, 64, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        fold.fold_ring(2, 1023, 64, 64, 4)
+
+
 # (H, G, N, Wt, table std): the flagship's bias sites (H = 28) and the
 # pyramid's SCA at BEV 56 and its M = 196 and 49 sites
 WIDE_BIAS = [
@@ -484,7 +632,9 @@ def test_cpu_gradients_take_the_plain_versions():
                            "lattice_bias_wide", "lattice_bias_wide_bwd",
                            "fused_site_wide", "fused_site_wide_lse",
                            "fused_site_wide_prefetch",
-                           "lattice_bias_wide_prefetch"}
+                           "lattice_bias_wide_prefetch",
+                           "fused_site_fold_rows", "fused_site_fold_heads",
+                           "fused_site_fold_heads_lse"}
 
 
 @pytest.mark.parametrize("which", ["bias_bwd", "site_bwd", "site_lse"])
