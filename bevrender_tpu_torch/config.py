@@ -2,10 +2,10 @@
 ``ModelConfig`` that the ported paths read and its ``TrainConfig``, with the
 same names and defaults, plus ``flagship_config`` and ``tiny_model_config``
 (config.py:338-396 there), and the port's own kernel choices
-(``ModelConfig.lattice_route``, ``site_prefetch``, ``bias_prefetch``,
-``site_fold_heads``, ``site_fold_rows``; ``TrainConfig.fused_bwd``,
-``site_remat``, ``fused_fwd_fold``). The window length is the input's T
-axis."""
+(``ModelConfig.lattice_route``, ``site_prefetch``, ``bias_forward``,
+``site_fold_heads``, ``site_fold_rows``;
+``TrainConfig.fused_bwd``, ``site_remat``, ``fused_fwd_fold``). The window
+length is the input's T axis."""
 
 from __future__ import annotations
 
@@ -56,9 +56,16 @@ class ModelConfig:
     # a fused site on the wide route stages its key windows in shared memory
     # by asynchronous copies (BEVRENDER_SITE_DMA=1)
     site_prefetch: bool = False
-    # so does a bias forward on the wide route, in eval and in training
-    # (BEVRENDER_BIAS_DMA=1)
-    bias_prefetch: bool = False
+    # the bias forward of every site that takes the bias: "kernel", the bias
+    # kernels of the site's route; "prefetch", on the wide route their
+    # variant that stages the key windows by asynchronous copies, in eval
+    # and in training (BEVRENDER_BIAS_DMA=1); "windows", the JAX package's
+    # windowed bias, _lattice_bias(use_kernel=True), on either route: each
+    # key's window of the rearranged table cut by the lattice_windows
+    # kernel, its backward a scatter-add, the corners mixed in bf16. The
+    # last is the parity route of the JAX package's window kernels, slower
+    # than the bias kernels, not a speed option. Fused sites are not changed
+    bias_forward: str = "kernel"
     # that prefetch site serves all heads of a (b, g) cell in one block
     # where Hpg * W <= 128 (BEVRENDER_SITE_DMA=2); needs site_prefetch
     site_fold_heads: bool = False
@@ -71,7 +78,7 @@ class ModelConfig:
         takes them."""
         return dict(lattice_route=self.lattice_route,
                     site_prefetch=self.site_prefetch,
-                    bias_prefetch=self.bias_prefetch,
+                    bias_forward=self.bias_forward,
                     site_fold_heads=self.site_fold_heads,
                     site_fold_rows=self.site_fold_rows)
 

@@ -80,7 +80,7 @@ def set_site_options(module: nn.Module, **options) -> None:
     """Set the named fields of ``ops.deform_attn.SiteOptions`` on every
     attention site under ``module``: the training pass's ``fused_bwd``,
     ``site_remat`` and ``fused_fwd_fold`` (``TrainConfig``), and
-    ``lattice_route``, ``site_prefetch``, ``bias_prefetch``,
+    ``lattice_route``, ``site_prefetch``, ``bias_forward``,
     ``site_fold_heads`` and ``site_fold_rows`` (``ModelConfig.
     site_options``). Fields not named keep their values; the result is
     checked as ``SiteOptions`` checks it."""

@@ -14,26 +14,31 @@ starts plus fractions (``lattice_geometry``). Window starts are clipped, so
 a key displaced past the pad reads a clamped window, not zeros.
 
 Hand-written CUDA kernels carry this on the card (``ops/kernels``):
-``lattice_bias`` computes the bias alone (sites with head width > 8, and
-every site of a training pass unless ``fused_bwd`` is chosen; scores,
-softmax and AV stay plain PyTorch there) and ``lattice_bias_bwd`` is its
-backward, or ``lattice_bias_wide`` and ``lattice_bias_wide_bwd`` where the
+``lattice_bias`` computes the bias alone (sites of head widths other than
+4 and 8, and every site of a training pass unless ``fused_bwd`` is chosen;
+scores, softmax and AV stay plain PyTorch there) and ``lattice_bias_bwd`` is
+its backward, or ``lattice_bias_wide`` and ``lattice_bias_wide_bwd`` where the
 table does not fit their shared memory (``bias_route``); ``fused_site``
-computes bias, scores, an online softmax and AV in one pass (head width
-<= 8, no gradient), ``fused_site_lse`` also returns the logsumexp and
+computes bias, scores, an online softmax and AV in one pass (head width 4
+or 8, no gradient), ``fused_site_lse`` also returns the logsumexp and
 ``fused_site_bwd`` is the flash-style backward of that site;
 ``fused_site_wide`` and ``fused_site_wide_lse`` are the fused site on a
 table that does not fit ``fused_site``'s shared memory (``site_route``).
 ``SiteOptions.lattice_route="wide"`` sends every site to the wide kernels,
-and ``site_prefetch`` / ``bias_prefetch`` take their variants that stage
-the key windows in shared memory by asynchronous copies
+and ``site_prefetch`` / ``bias_forward="prefetch"`` take their variants
+that stage the key windows in shared memory by asynchronous copies
 (``fused_site_wide_prefetch``, ``lattice_bias_wide_prefetch``).
 ``site_fold_rows`` and ``site_fold_heads`` take the folded kernels, whose
 block serves every head of a (b, g) cell (``fused_site_fold_rows`` in place
 of ``fused_site``, ``fused_site_fold_heads`` in place of
 ``fused_site_wide_prefetch``, and ``fused_site_fold_heads_lse`` as the
 forward of a ``fused_bwd`` site under ``fused_fwd_fold``).
-``site_kernels`` makes every choice, from the shapes and the options alone.
+``SiteOptions.bias_forward="windows"`` takes the JAX package's windowed
+bias at every bias site instead (``lattice_bias_windowed``:
+``lattice_windows`` cuts each key's window of the rearranged table,
+``lattice_windows_bwd`` adds the windows' cotangents back).
+``site_kernels`` makes every choice, from the shapes and the options
+alone.
 The functions ``lattice_bias``, ``fused_site`` and ``fused_site_train``
 below launch the kernels for CUDA tensors and run their plain versions,
 with autograd, for CPU tensors.
@@ -59,6 +64,7 @@ from bevrender_tpu_torch.ops.kernels import fused_site_fold as _fold_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_wide as _wide_site_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias as _bias_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias_bwd as _bias_bwd_kernel
+from bevrender_tpu_torch.ops.kernels import lattice_windows as _win_kernel
 from bevrender_tpu_torch.ops.kernels._launch import PAD, SMEM_PER_BLOCK
 
 # float32 constants of the site kernels, which keep their scores in base 2
@@ -111,41 +117,65 @@ def lattice_geometry(table_shape, k_pos: torch.Tensor, H: int, W: int):
             (sy - y0).float(), (sx - s0).float())
 
 
-def lattice_bias_plain(table: torch.Tensor, k_pos: torch.Tensor, H: int,
-                       W: int, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain version of the bias kernels (``lattice_bias``,
-    ``lattice_bias_wide``, ``lattice_bias_wide_prefetch``): the n-major bias
-    (B, G, Hpg, N, H*W) in float32. Both lerps run in ``compute_dtype``
-    (the JAX package's default is bf16); the kernel lerps in float32 from a
-    bf16 table, which is this function on the bf16-rounded table with
-    ``compute_dtype=torch.float32``."""
+def lattice_t3(table: torch.Tensor, W: int,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The column-rearranged table the windows are cut from (``T3`` of
+    ``_lattice_bias``, deform_attn.py:131-145): the table in
+    ``compute_dtype``, zero-padded (PAD rows above and below, PAD columns on
+    the left, up to ``padded_width`` on the right), with per query column ix
+    the ``m_max`` columns from its start ``u0[ix]``:
+    ``t3[g, y, m, ix * Hpg + h] = padded[g, h, y, u0[ix] + m]``, (G, Ht + 2
+    PAD, m_max, W * Hpg). Plain ops, so autograd carries the gradient back
+    to ``table``."""
     G, Hpg, Ht, Wt = table.shape
-    B, _, N, _ = k_pos.shape
-    dev = table.device
-    ys, ms, wy, f = lattice_geometry(table.shape, k_pos, H, W)
-    u0, g = _comb_tensors(Wt, W, dev)
+    u0, _ = _comb_tensors(Wt, W, table.device)
+    _, _, m_max = static_comb(table.shape, W)
     tp = torch.nn.functional.pad(
         table.to(compute_dtype), (PAD, padded_width(Wt, W) - Wt - PAD, PAD, PAD)
-    )  # (G, Hpg, Yp, Xp), zero padded
-    Yp, Xp = tp.shape[2], tp.shape[3]
-    flat = tp.permute(0, 2, 3, 1).reshape(G * Yp * Xp, Hpg)
-    rows = ys.long()[..., None] + torch.arange(H + 1, device=dev)  # (B,G,N,H+1)
-    cols = (u0.long()[:, None] + torch.arange(3, device=dev)
-            + ms.long()[..., None, None])  # (B, G, N, W, 3)
-    gbase = torch.arange(G, device=dev).view(1, G, 1, 1, 1, 1) * Yp
-    idx = (gbase + rows[..., None, None]) * Xp + cols[:, :, :, None]
-    win = flat[idx]  # (B, G, N, H+1, W, 3, Hpg)
+    )  # (G, Hpg, Yp, Xp)
+    cols = u0.long() + torch.arange(m_max, device=table.device)[:, None]
+    t3 = tp[:, :, :, cols]  # (G, Hpg, Yp, m_max, W)
+    return t3.permute(0, 2, 3, 4, 1).reshape(G, Ht + 2 * PAD, m_max, W * Hpg)
 
+
+def lattice_mix(win, wy, f, g, H: int, W: int,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The bias from each key's windows ``win`` (B, G, N, 3, H + 1, W * Hpg),
+    m-major as ``lattice_windows`` cuts them, its fractions wy, f (B, G, N)
+    and the per-column fractions ``g`` (W,) of ``static_comb``: per query
+    column the two x-lerps between the window columns its fraction selects,
+    then the y-lerp between neighbouring rows, each in ``compute_dtype``
+    (deform_attn.py:178-189). Returns the n-major bias (B, G, Hpg, N, H * W)
+    in float32."""
+    B, G, N = wy.shape
+    win = win.reshape(B, G, N, 3, H + 1, W, -1)
+    Hpg = win.shape[-1]
     phi = g + f[..., None]  # (B, G, N, W)
     cross = torch.floor(phi)
     wx = (phi - cross)[:, :, :, None, :, None].to(compute_dtype)
     cb = (cross > 0.5)[:, :, :, None, :, None]
-    left = torch.where(cb, win[..., 1, :], win[..., 0, :])
-    right = torch.where(cb, win[..., 2, :], win[..., 1, :])
+    left = torch.where(cb, win[:, :, :, 1], win[:, :, :, 0])
+    right = torch.where(cb, win[:, :, :, 2], win[:, :, :, 1])
     xin = (1.0 - wx) * left + wx * right  # (B, G, N, H+1, W, Hpg)
     wyc = wy.to(compute_dtype)[..., None, None, None]
     bias = (1.0 - wyc) * xin[:, :, :, :H] + wyc * xin[:, :, :, 1:]
     return bias.permute(0, 1, 5, 2, 3, 4).reshape(B, G, Hpg, N, H * W).float()
+
+
+def lattice_bias_plain(table: torch.Tensor, k_pos: torch.Tensor, H: int,
+                       W: int, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the bias kernels (``lattice_bias``,
+    ``lattice_bias_wide``, ``lattice_bias_wide_prefetch``) and of the
+    windowed bias: the n-major bias (B, G, Hpg, N, H*W) in float32, from
+    the windows of ``lattice_t3`` mixed by ``lattice_mix``. Both lerps run
+    in ``compute_dtype`` (the JAX package's default is bf16); the kernels
+    lerp in float32 from a bf16 table, which is this function on the
+    bf16-rounded table with ``compute_dtype=torch.float32``."""
+    ys, ms, wy, f = lattice_geometry(table.shape, k_pos, H, W)
+    _, g = _comb_tensors(table.shape[3], W, table.device)
+    win = _win_kernel.lattice_windows_plain(
+        lattice_t3(table, W, compute_dtype), ys, ms, H + 1)
+    return lattice_mix(win, wy, f, g, H, W, compute_dtype)
 
 
 def site_consumer(q, k, v, bias, scale: float, keep=None,
@@ -337,6 +367,7 @@ def _site_bwd_fits(table_shape, W: int, ch: int) -> bool:
 
 SITE_REMAT_MODES = ("nothing", "none")
 LATTICE_ROUTES = ("auto", "wide")
+BIAS_FORWARDS = ("kernel", "prefetch", "windows")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,18 +376,22 @@ class SiteOptions:
     place of the JAX package's trace-time environment knobs: ``fused_bwd``,
     ``site_remat`` and ``fused_fwd_fold`` (``TrainConfig``) replace
     BEVRENDER_FUSED_BWD, BEVRENDER_SITE_REMAT and BEVRENDER_TRAIN_FWD_V2;
-    ``lattice_route``, ``site_prefetch``, ``bias_prefetch``,
+    ``lattice_route``, ``site_prefetch``, ``bias_forward="prefetch"``,
     ``site_fold_heads`` and ``site_fold_rows`` (``ModelConfig``) replace
     BEVRENDER_SHIFT_REPLICA, BEVRENDER_SITE_DMA=1, BEVRENDER_BIAS_DMA=1,
     BEVRENDER_SITE_DMA=2 and BEVRENDER_SITE_SH2=1 (``site_kernels``).
     ``site_fold_heads`` folds the window-prefetch site, so it needs
-    ``site_prefetch``; ``fused_fwd_fold=None`` follows it."""
+    ``site_prefetch``; ``fused_fwd_fold=None`` follows it.
+    ``bias_forward="windows"`` takes the JAX package's windowed bias,
+    ``_lattice_bias(use_kernel=True)``, at every site that takes the bias:
+    the parity route of the JAX package's window kernels, slower than the
+    bias kernels."""
 
     fused_bwd: bool = False
     site_remat: str = "nothing"
     lattice_route: str = "auto"
     site_prefetch: bool = False
-    bias_prefetch: bool = False
+    bias_forward: str = "kernel"
     site_fold_heads: bool = False
     site_fold_rows: bool = False
     fused_fwd_fold: bool | None = None
@@ -368,6 +403,9 @@ class SiteOptions:
         if self.lattice_route not in LATTICE_ROUTES:
             raise ValueError(f"lattice_route must be one of {LATTICE_ROUTES}, "
                              f"got {self.lattice_route!r}")
+        if self.bias_forward not in BIAS_FORWARDS:
+            raise ValueError(f"bias_forward must be one of {BIAS_FORWARDS}, "
+                             f"got {self.bias_forward!r}")
         if self.site_fold_heads and not self.site_prefetch:
             raise ValueError("site_fold_heads folds the window-prefetch site: "
                              "it needs site_prefetch=True")
@@ -384,28 +422,39 @@ def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
     """The kernels one lattice site launches on the card, one name (of
     ``ops.kernels.counts``) per launch, in order: those of its forward when
     ``training`` is false, those of a forward and its backward when it is
-    true. A site of head width <= 8 without attention ``dropout`` takes the
-    fused site in eval, and in training under ``fused_bwd`` its logsumexp
-    instance and the site backward; every other site takes the bias (and,
-    training, the bias again in the backward under ``site_remat="nothing"``,
-    and the bias backward) with the plain consumer. The route is
-    ``site_route``'s or ``bias_route``'s under ``lattice_route="auto"`` and
-    "wide" under "wide"; on the wide route ``site_prefetch`` and
-    ``bias_prefetch`` take the prefetch variants of the eval fused site and
-    of the bias forward. Where the heads fold (``fused_site_fold``: Hpg * W
-    <= 128 and the shared memory fits, the JAX package's shape rule),
-    ``site_fold_rows`` takes ``fused_site_fold_rows`` for ``fused_site``,
-    ``site_fold_heads`` ``fused_site_fold_heads`` for
-    ``fused_site_wide_prefetch``, and ``fold_train_forward`` the forward
-    ``fused_site_fold_heads_lse`` of a ``fused_bwd`` site on either route.
-    ``streamed_deform_attention`` dispatches on the first name, so a run's
-    launch counts follow from the shapes and the options alone. Raises
-    NotImplementedError for ``fused_bwd`` at a site whose table the site
-    backward cannot hold."""
+    true. A site whose head width has a fused-site instance (4 or 8,
+    ``fused_site.HEAD_WIDTHS``) and no attention ``dropout`` takes the fused
+    site in eval, and in training under ``fused_bwd`` its logsumexp
+    instance and the site backward where ``fused_site_bwd.cu``'s shared
+    memory holds one head's table and its float32 gradient
+    (``_site_bwd_fits``). Every other site takes the bias (and, training,
+    the bias again in the backward under ``site_remat="nothing"``, and the
+    bias backward) with the plain consumer: other head widths, dropout, a
+    training site without ``fused_bwd``, and a ``fused_bwd`` site whose
+    table the site backward cannot hold, which so trains on the route it
+    takes without ``fused_bwd``. These are routes of the shapes, not
+    fallbacks. The route is ``site_route``'s or ``bias_route``'s under
+    ``lattice_route="auto"`` and "wide" under "wide"; on the wide route
+    ``site_prefetch`` and ``bias_forward="prefetch"`` take the prefetch
+    variants of the eval fused site and of the bias forward.
+    ``bias_forward="windows"`` takes the windowed bias on either route:
+    ``lattice_windows`` forward and ``lattice_windows_bwd`` backward,
+    which need no shared memory. Where
+    the heads fold (``fused_site_fold``: Hpg * W <= 128 and the shared
+    memory fits, the JAX package's shape rule), ``site_fold_rows`` takes
+    ``fused_site_fold_rows`` for ``fused_site``, ``site_fold_heads``
+    ``fused_site_fold_heads`` for ``fused_site_wide_prefetch``, and
+    ``fold_train_forward`` the forward ``fused_site_fold_heads_lse`` of a
+    ``fused_bwd`` site on either route. ``streamed_deform_attention``
+    dispatches on the first name, so a run's launch counts follow from the
+    shapes and the options alone."""
     ch = q_shape[-1]
     wide = options.lattice_route == "wide"
     _, Hpg, Ht, Wt = table_shape
-    if ch <= 8 and not dropout and (options.fused_bwd or not training):
+    fused = (ch in _fused_site_kernel.HEAD_WIDTHS and not dropout
+             and (not training
+                  or (options.fused_bwd and _site_bwd_fits(table_shape, W, ch))))
+    if fused:
         route = "wide" if wide else site_route(table_shape, H, W, ch)
         heads_fold = _fold_kernel.heads_fit(Hpg, Wt, H, W, ch)
         if not training:
@@ -420,24 +469,19 @@ def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
             return ("fused_site_fold_heads"
                     if options.site_fold_heads and heads_fold
                     else "fused_site_wide_prefetch",)
-        if not _site_bwd_fits(table_shape, W, ch):
-            raise NotImplementedError(
-                f"fused_bwd at a site whose table {tuple(table_shape)} and "
-                f"its float32 gradient overflow the site backward's shared "
-                f"memory: the wide site backward is not ported yet (ROADMAP "
-                f"section 1); train with fused_bwd=False")
         if options.fold_train_forward and heads_fold:
             fwd = "fused_site_fold_heads_lse"
         else:
             fwd = "fused_site_lse" if route == "whole" else "fused_site_wide_lse"
         return (fwd, "fused_site_bwd")
-    route = "wide" if wide else bias_route(table_shape, H, W)
-    if route == "whole":
-        fwd, bwd = "lattice_bias", "lattice_bias_bwd"
-    else:
-        fwd = ("lattice_bias_wide_prefetch" if options.bias_prefetch
-               else "lattice_bias_wide")
+    if options.bias_forward == "windows":
+        fwd, bwd = "lattice_windows", "lattice_windows_bwd"
+    elif wide or bias_route(table_shape, H, W) == "wide":
+        fwd = ("lattice_bias_wide_prefetch"
+               if options.bias_forward == "prefetch" else "lattice_bias_wide")
         bwd = "lattice_bias_wide_bwd"
+    else:
+        fwd, bwd = "lattice_bias", "lattice_bias_bwd"
     if not training:
         return (fwd,)
     return (fwd, fwd, bwd) if options.site_remat == "nothing" else (fwd, bwd)
@@ -532,6 +576,58 @@ def lattice_bias(table, k_pos, H: int, W: int,
     return _LatticeBiasFn.apply(table, wy, f, ys, ms, u0, g, Xp, H, W, kernel)
 
 
+class _LatticeWindowsFn(torch.autograd.Function):
+    """``lattice_windows`` kernel forward, ``lattice_windows_bwd`` kernel
+    backward (the custom VJP ``lattice_windows``, lattice_win.py:100); their
+    plain versions for CPU tensors. Differentiable input: t3; the dt3 it
+    returns is in t3's dtype, as the JAX backward casts it (:137)."""
+
+    @staticmethod
+    def forward(ctx, t3, ys, ms, h1):
+        ctx.save_for_backward(ys, ms)
+        ctx.meta = (tuple(t3.shape), t3.dtype)
+        if t3.is_cuda:
+            return _win_kernel.lattice_windows_cuda(t3.contiguous(), ys, ms, h1)
+        return _win_kernel.lattice_windows_plain(t3, ys, ms, h1)
+
+    @staticmethod
+    def backward(ctx, gout):
+        ys, ms = ctx.saved_tensors
+        shape, dtype = ctx.meta
+        if gout.is_cuda:
+            dt3 = _win_kernel.lattice_windows_bwd_cuda(gout.contiguous(), ys,
+                                                       ms, shape, dtype)
+        else:
+            dt3 = _win_kernel.lattice_windows_bwd_plain(gout, ys, ms, shape,
+                                                        dtype)
+        return dt3, None, None, None
+
+
+def lattice_windows(t3, ys, ms, h1: int) -> torch.Tensor:
+    """Each key's window of ``t3`` (B, G, N, 3, h1, WH), differentiable in
+    t3: the CUDA kernels for CUDA tensors, their plain versions for CPU
+    ones (``_LatticeWindowsFn``)."""
+    return _LatticeWindowsFn.apply(t3, ys, ms, h1)
+
+
+def lattice_bias_windowed(table, k_pos, H: int, W: int) -> torch.Tensor:
+    """The JAX package's ``_lattice_bias(use_kernel=True)``
+    (deform_attn.py:79-190): the bf16 table rearranged into ``lattice_t3``
+    by plain ops, each key's window cut by ``lattice_windows`` (the
+    ``lattice_windows`` kernel and its scatter-add backward on the card),
+    and the corners mixed in bf16 by ``lattice_mix``. Returns the n-major
+    bias (B, G, Hpg, N, H*W) in float32; gradients reach ``table`` and
+    ``k_pos``. The windows are exact copies, so this equals
+    ``lattice_bias_plain(table, k_pos, H, W)`` bit for bit; the bias
+    kernels, which lerp in float32, differ from it by the bf16 lerps'
+    roundings."""
+    ys, ms, wy, f = lattice_geometry(table.shape, k_pos, H, W)
+    _, g = _comb_tensors(table.shape[3], W, table.device)
+    win = lattice_windows(lattice_t3(table, W, torch.bfloat16),
+                          ys.contiguous(), ms.contiguous(), H + 1)
+    return lattice_mix(win, wy, f, g, H, W, torch.bfloat16)
+
+
 def fused_site(q, k, v, k_pos, table, H: int, W: int, scale: float,
                kernel: str | None = None) -> torch.Tensor:
     """Whole attention site (B, G, Hpg, M, ch) float32, no gradient: for
@@ -613,7 +709,7 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
                               site_remat: str = "nothing",
                               lattice_route: str = "auto",
                               site_prefetch: bool = False,
-                              bias_prefetch: bool = False,
+                              bias_forward: str = "kernel",
                               site_fold_heads: bool = False,
                               site_fold_rows: bool = False,
                               fused_fwd_fold: bool | None = None,
@@ -625,16 +721,18 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     that the pass is an eval one (no gradient).
 
     The fused site (eval) and the fused training site are built for head
-    widths 4 and 8 (another width <= 8 raises on the card). A site that
-    takes the bias computes it alone and the plain consumer does the rest,
-    under ``site_remat``: "nothing" saves the site's inputs only and
-    recomputes bias, scores and softmax in the backward, "none" lets
-    autograd keep what it wants. Attention dropout (``dropout_rate`` > 0,
-    drawn from ``generator``) always takes the plain consumer."""
+    widths 4 and 8; a site of another head width takes the bias route, as
+    wider heads do. A site that takes the bias computes it alone (with the
+    bias kernels, or the windowed bias under ``bias_forward="windows"``)
+    and the plain consumer does the rest, under ``site_remat``: "nothing"
+    saves the site's inputs only and recomputes bias, scores and softmax
+    in the backward, "none" lets autograd keep what it wants. Attention dropout
+    (``dropout_rate`` > 0, drawn from ``generator``) always takes the plain
+    consumer."""
     use_dropout = dropout_rate > 0.0
     options = SiteOptions(
         fused_bwd=fused_bwd, site_remat=site_remat, lattice_route=lattice_route,
-        site_prefetch=site_prefetch, bias_prefetch=bias_prefetch,
+        site_prefetch=site_prefetch, bias_forward=bias_forward,
         site_fold_heads=site_fold_heads, site_fold_rows=site_fold_rows,
         fused_fwd_fold=fused_fwd_fold)
     kernel = site_kernels(q.shape, rpe_table.shape, H, W, options,
@@ -649,8 +747,11 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
                           generator, q.device)
 
     def full_site(q, k, v, k_pos, table):
-        return site_consumer(q, k, v, lattice_bias(table, k_pos, H, W, kernel),
-                             scale, keep, dropout_rate)
+        if kernel == "lattice_windows":
+            bias = lattice_bias_windowed(table, k_pos, H, W)
+        else:
+            bias = lattice_bias(table, k_pos, H, W, kernel)
+        return site_consumer(q, k, v, bias, scale, keep, dropout_rate)
 
     return _maybe_remat(full_site, site_remat, q, k, v, k_pos, rpe_table)
 

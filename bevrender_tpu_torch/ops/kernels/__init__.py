@@ -9,6 +9,7 @@ from bevrender_tpu_torch.ops.kernels import (
     fused_site_wide,
     lattice_bias,
     lattice_bias_bwd,
+    lattice_windows,
 )
 
 # kernel name -> (wrapper module, name of its counter)
@@ -27,6 +28,8 @@ _COUNTERS = {
     "fused_site_fold_rows": (fused_site_fold, "launches_rows"),
     "fused_site_fold_heads": (fused_site_fold, "launches_heads"),
     "fused_site_fold_heads_lse": (fused_site_fold, "launches_heads_lse"),
+    "lattice_windows": (lattice_windows, "launches"),
+    "lattice_windows_bwd": (lattice_windows, "launches_bwd"),
 }
 
 

@@ -7,8 +7,8 @@ whose table does not fit ``lattice_bias``'s shared memory
 "wide"``, and ``lattice_bias_wide_prefetch`` (csrc/
 lattice_bias_wide_prefetch.cu), the counterpart of ``_fwd_call(dma=True)``,
 which stages each key's window in shared memory by asynchronous copies
-(``ModelConfig.bias_prefetch``). All three compute the same function; its
-plain version is ``ops.deform_attn.lattice_bias_plain``."""
+(``ModelConfig.bias_forward="prefetch"``). All three compute the same
+function; its plain version is ``ops.deform_attn.lattice_bias_plain``."""
 
 from __future__ import annotations
 
@@ -89,7 +89,7 @@ def bias_ring(Wt: int, H: int, W: int) -> tuple:
             f"lattice_bias_wide_prefetch: two stages of one key's window of "
             f"{H + 1} rows x {CW} columns need {key_bytes} bytes of shared "
             f"memory, over {SMEM_PER_BLOCK}; take lattice_bias_wide "
-            f"(bias_prefetch=False)")
+            f"(bias_forward=\"kernel\")")
     vectors = H * W // (8 if H * W % 8 == 0 else 1)
     KS = min(-(-PREFETCH_THREADS // vectors), SMEM_PER_BLOCK // key_bytes)
     return KS, CW, Xs, KS * key_bytes

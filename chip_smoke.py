@@ -63,13 +63,13 @@ Phases, each fatal on failure:
     requests) with ``lattice_route="wide"``: exactly 24
     ``fused_site_wide`` and 64 ``lattice_bias_wide`` launches per forward,
     and the render equal to phase 3's;
-15. the same with ``site_prefetch`` and ``bias_prefetch``: 24
+15. the same with ``site_prefetch`` and ``bias_forward="prefetch"``: 24
     ``fused_site_wide_prefetch`` and 64 ``lattice_bias_wide_prefetch`` per
     forward, the render equal to phase 3's;
 16. flagship training on the wide route with ``fused_bwd``, as phase 7:
     the counts of phase 7 on the wide kernels (12 ``fused_site_wide_lse``
     and 12 ``fused_site_bwd`` per step);
-17. the pyramid serving as phase 10 with ``bias_prefetch``: 24
+17. the pyramid serving as phase 10 with ``bias_forward="prefetch"``: 24
     ``lattice_bias_wide_prefetch`` and 64 ``lattice_bias`` per forward, the
     render equal to phase 10's;
 18. each new kernel alone at every shape phases 14-17 give it, at two
@@ -91,7 +91,25 @@ Phases, each fatal on failure:
 22. each folded kernel alone at every shape phases 19-21 give it, at two
     table scales, against its plain version and, with tolerance 0, against
     its per-head sibling; times, bounds, plain and library times, and the
-    sibling's time in the same call.
+    sibling's time in the same call;
+23. the windowed bias (``bias_forward="windows"``): the flagship serving as
+    phase 3 (WINDOWS_REQUESTS requests), exactly 24 ``fused_site`` and 64
+    ``lattice_windows`` per forward, the render equal (max abs 0) to the
+    same model's render with every window cut by ``lattice_windows_plain``
+    on the card;
+24. flagship training as phase 6 with ``bias_forward="windows"``: phase
+    6's counts with ``lattice_windows`` for ``lattice_bias`` (120 per step)
+    and ``lattice_windows_bwd`` for ``lattice_bias_bwd`` (44);
+25. the window kernels alone: ``lattice_windows`` equal to its plain
+    version at every shape the bias sees (the flagship's serving and
+    training shapes, the pyramid's SCA 56 and BEV 7), ``lattice_windows_bwd``
+    within BWD_SUM_TOL of its plain version at the training shapes and the
+    pyramid's SCA 56; the windowed bias equal to the plain bias and within
+    WINDOWED_TOL of ``lattice_bias.cu`` / ``lattice_bias_wide.cu``; kernel,
+    plain, library and bound times; then the pyramid serving with
+    ``bias_forward="windows"`` (PYR_WINDOWS_REQUESTS requests): 88
+    ``lattice_windows`` per forward, the render equal to its plain-windows
+    render.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -117,6 +135,9 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
+# a sleep of ~10 ms at the H100's clocks, longer than the host takes to
+# enqueue one timing window of ``queued_ms``
+SLEEP_CYCLES = 20_000_000
 N_REQUESTS = 20
 TRAIN_STEPS = 10
 TRAIN_B = 2
@@ -160,7 +181,8 @@ PYR_TRAIN_COUNTS = {
 }
 # The wide-table route (ModelConfig.lattice_route="wide"): every flagship
 # site on the kernels that read the table through L1 (phase 14), or on
-# their window-prefetch variants (phase 15: site_prefetch, bias_prefetch);
+# their window-prefetch variants (phase 15: site_prefetch and bias_forward
+# "prefetch");
 # a window of WIDE_REQUESTS requests each
 WIDE_REQUESTS = 10
 WIDE_PER_FORWARD = dict(fused_site_wide=FUSED_PER_FORWARD,
@@ -177,8 +199,9 @@ WIDE_NAMES = dict(fused_site="fused_site_wide",
                   fused_site_bwd="fused_site_bwd")
 WIDE_TRAIN_COUNTS = {WIDE_NAMES[k]: v
                      for k, v in TRAIN_COUNTS[(True, "nothing")].items()}
-# the pyramid with bias_prefetch (phase 17): its SCA at BEV 56, the one
-# site that takes the wide bias on the "auto" route, on the prefetch variant
+# the pyramid with bias_forward "prefetch" (phase 17): its SCA at BEV 56, the
+# one site that takes the wide bias on the "auto" route, on the prefetch
+# variant
 PYR_PREFETCH_PER_FORWARD = dict(lattice_bias=PYR_PER_FORWARD["lattice_bias"],
                                 lattice_bias_wide_prefetch=PYR_PER_FORWARD[
                                     "lattice_bias_wide"])
@@ -197,7 +220,25 @@ FOLD_ROWS_PER_FORWARD = dict(fused_site_fold_rows=FUSED_PER_FORWARD,
 FOLD_TRAIN_COUNTS = {
     ("fused_site_fold_heads_lse" if k == "fused_site_lse" else k): v
     for k, v in TRAIN_COUNTS[(True, "nothing")].items()}
+# The windowed bias (ModelConfig.bias_forward="windows", phases 23-25): every
+# site that takes the bias takes lattice_windows in its forward and
+# lattice_windows_bwd in its backward; the fused sites do not change
+WINDOWS_REQUESTS = 10
+WINDOWS_PER_FORWARD = dict(fused_site=FUSED_PER_FORWARD,
+                           lattice_windows=BIAS_PER_FORWARD)
+WINDOW_NAMES = dict(lattice_bias="lattice_windows",
+                    lattice_bias_bwd="lattice_windows_bwd")
+WINDOWS_TRAIN_COUNTS = {WINDOW_NAMES.get(k, k): v
+                        for k, v in TRAIN_COUNTS[(False, "nothing")].items()}
+PYR_WINDOWS_REQUESTS = 3
+PYR_WINDOWS_PER_FORWARD = dict(lattice_windows=sum(PYR_PER_FORWARD.values()))
 BIAS_ULP = 2.0 ** -7   # one bf16 ulp of x is at most |x| * 2^-7
+# windowed bias against the bias kernels, as a share of the largest entry a
+# of the bf16 table: the windowed bias lerps in bf16, each operation rounded
+# (u = 2^-8 of its result), so its x-lerp is within 4 u a of the float32 one
+# (the weight, 1 - weight, two products and their sum) and its y-lerp adds
+# 4 u a more; the kernels lerp in float32 and round once (u a)
+WINDOWED_TOL = 9 * 2.0 ** -8
 # fused site vs its plain version: both round p to bf16 (the kernel before
 # normalising, the plain version after), each off by at most 2^-8 of the
 # p-weighted |v|
@@ -299,6 +340,29 @@ def device_ms(fn, iters: int, match: str = "") -> float:
     return us / (sum(e.count for e in hits) if match else iters) / 1e3
 
 
+def queued_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn`` (which must not synchronise), by CUDA
+    events around ``iters`` calls queued behind a sleep kernel: the host
+    enqueues them all while the device sleeps, so the device runs them back
+    to back and the events see no host gap between launches (``events_ms``
+    does, for calls shorter than their launch), and no profiler is
+    involved (it drops events over some windows: device times summed or
+    averaged from it can read low, once below a kernel's bound)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def expected(**nonzero) -> dict:
     """Launch counts with every kernel not named at 0."""
     from bevrender_tpu_torch.ops import kernels
@@ -310,12 +374,13 @@ def expected(**nonzero) -> dict:
 
 
 def serving_phase(card: str, tag: str, cfg, B: int, requests: int,
-                  per_forward: dict) -> dict:
+                  per_forward: dict, compare=None) -> dict:
     """render+register at B, T=2, V=3, 224 x 224 against a 64-tile
     database, seeded weights: one warm-up request, then ``requests`` back to
     back with exact launch counts (``per_forward`` per request); time,
     spread, host CPU, peak memory, device idle share, top operations. The
-    result holds the last render (float32, on the host) under "render"."""
+    result holds the last render (float32, on the host) under "render",
+    and what ``compare(pipe, batch)`` returns, called last."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -392,6 +457,7 @@ def serving_phase(card: str, tag: str, cfg, B: int, requests: int,
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:100]}", flush=True)
     last = render.float().cpu()
+    more = compare(pipe, batch) if compare is not None else {}
     del pipe, render, idx, dist, db
     torch.cuda.empty_cache()
     return dict(requests=requests, request_ms=ms, request_ms_min=min(req_ms),
@@ -399,7 +465,7 @@ def serving_phase(card: str, tag: str, cfg, B: int, requests: int,
                 request_ms_p95=q[-1], request_ms_max=max(req_ms),
                 host_cpu_ms=host_cpu_ms, frames_per_s=B / ms * 1e3,
                 peak_gib=peak_gb, busy_ms=busy, idle_share=idle,
-                counts=counts, render=last)
+                counts=counts, render=last, **more)
 
 
 # Sites of one flagship forward at B=4, V=3, BEV 28 x 28 (H = W = 28):
@@ -451,9 +517,9 @@ def check_bias(da, kernel_mod) -> dict:
             fail(f"lattice_bias {name}: max err {float(err.max())} > 1 bf16 ulp")
         worst = max(worst, float(err.max()))
         launch = lambda: kernel_mod.lattice_bias_cuda(*args, H, W)  # noqa: E731
-        ms = device_ms(launch, 20, "lattice_bias_kernel")
+        ms = queued_ms(launch, 20)
         ev = events_ms(launch, 20)
-        plain = device_ms(lambda: da.lattice_bias_plain(tb, k_pos, H, W,
+        plain = queued_ms(lambda: da.lattice_bias_plain(tb, k_pos, H, W,
                                                         torch.float32), 5)
         bound, by = bias_bounds(B, G, N, Wt, H, backward=False)
         rows.append(dict(site=name, ms=ms, events_ms=ev, plain_ms=plain,
@@ -490,7 +556,7 @@ def sdpa_ms(q, k, v, bias, scale, iters: int) -> float:
     bf, ch, M, N = torch.bfloat16, q.shape[-1], q.shape[-2], k.shape[-2]
     mask = bias.transpose(-1, -2).to(bf).reshape(-1, M, N).contiguous()
     qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch) for x in (q, k, v))
-    return device_ms(lambda: F.scaled_dot_product_attention(
+    return queued_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, scale=scale), iters)
 
 
@@ -543,9 +609,9 @@ def check_site(da, kernel_mod) -> dict:
                 kept = e
         table, k_pos, q, k, v, tb, kargs, scale = kept["inputs"]
         launch = lambda: kernel_mod.fused_site_cuda(*kargs, H, W, scale)  # noqa: E731
-        ms = device_ms(launch, 20, "fused_site_kernel")
+        ms = queued_ms(launch, 20)
         ev = events_ms(launch, 20)
-        plain = device_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
+        plain = queued_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
                                                 scale, torch.float32), 5)
         bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
         lib = sdpa_ms(q, k, v, bias, scale, 20)
@@ -708,10 +774,10 @@ def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
                 worst = max(worst, err)
                 args = da._kernel_args(table, k_pos, H, W)
                 launch = lambda: bwd_call(*args, gout, H, W)  # noqa: E731
-                ms = device_ms(launch, 10, f"{tag}_kernel")
+                ms = queued_ms(launch, 10)
                 ev = events_ms(launch, 10)
                 gf = gout.float()
-                plain = device_ms(lambda: torch.autograd.grad(
+                plain = queued_ms(lambda: torch.autograd.grad(
                     ref, (t2, p2), gf, retain_graph=True), 3)
                 bound, by = bias_bounds(B, G, N, Wt, H, backward=True)
                 rows.append(dict(site=name, ms=ms, events_ms=ev,
@@ -857,12 +923,12 @@ def check_pyramid_bias(da, kernels) -> dict:
                     continue
                 worst[kf] = max(worst[kf], float(e_f.max()))
                 worst[kb] = max(worst[kb], float((dt - rdt).abs().max()))
-                ms_f = device_ms(f_launch, 10, f"{kf}_kernel")
-                ms_b = device_ms(b_launch, 5, f"{kb}_kernel")
-                plain_f = device_ms(lambda: da.lattice_bias_plain(
+                ms_f = queued_ms(f_launch, 10)
+                ms_b = queued_ms(b_launch, 5)
+                plain_f = queued_ms(lambda: da.lattice_bias_plain(
                     t2, p2, H, H, torch.float32), 3)
                 gf = gout.float()
-                plain_b = device_ms(lambda: torch.autograd.grad(
+                plain_b = queued_ms(lambda: torch.autograd.grad(
                     ref, (t2, p2), gf, retain_graph=True), 3)
                 per = PYR_BIAS_PER_FORWARD[name] if (route == da.bias_route(
                     table.shape, H, H)) else 0
@@ -975,14 +1041,14 @@ def check_site_train(da, kernels) -> tuple:
             *kargs, H, W, scale)
         bwd = lambda: kernels.fused_site_bwd.fused_site_bwd_cuda(  # noqa: E731
             *kargs, dout, lse, dsum, H, W, scale)
-        ms_l = device_ms(fwd, 10, "fused_site_kernel")
-        ms_b = device_ms(bwd, 5, "fused_site_bwd_kernel")
+        ms_l = queued_ms(fwd, 10)
+        ms_b = queued_ms(bwd, 5)
         ev_b = events_ms(bwd, 5)
         tb = table.bfloat16().float()
         with torch.no_grad():
-            plain_l = device_ms(lambda: da.site_plain_lse(
+            plain_l = queued_ms(lambda: da.site_plain_lse(
                 q, k, v, k_pos, tb, H, W, scale, torch.float32), 3)
-        plain_b = device_ms(lambda: torch.autograd.grad(
+        plain_b = queued_ms(lambda: torch.autograd.grad(
             ref_out, leaves, dout, retain_graph=True), 3)
         # yardstick: PyTorch's attention with the bias as an additive mask
         # that requires grad; forward for the lse instance, autograd.grad
@@ -995,13 +1061,13 @@ def check_site_train(da, kernels) -> tuple:
         qs, ks, vs = (x.to(bf).reshape(-1, x.shape[-2], ch).requires_grad_()
                       for x in (q, k, v))
         with torch.no_grad():
-            lib_l = device_ms(lambda: F.scaled_dot_product_attention(
+            lib_l = queued_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, scale=scale), 10)
         mask.requires_grad_()
         sd = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                             scale=scale)
         dob = dout.to(bf).reshape(sd.shape)
-        lib_b = device_ms(lambda: torch.autograd.grad(
+        lib_b = queued_ms(lambda: torch.autograd.grad(
             sd, (qs, ks, vs, mask), dob, retain_graph=True), 3)
         del sd, mask
         pairs = B * G * HPG * H * W * N
@@ -1112,16 +1178,16 @@ def check_wide_site(da, kernels) -> tuple:
                                              errs[tag][1])
             if std != SITE_TABLE_STDS[0]:
                 continue
-            ms_whole = device_ms(lambda: kernels.fused_site.fused_site_cuda(
-                *kargs, H, W, scale), 20, "fused_site_kernel")
-            ms_w = device_ms(lambda: wide.fused_site_wide_cuda(
-                *geo, *qkv, H, W, scale), 20, "fused_site_wide_kernel")
+            ms_whole = queued_ms(lambda: kernels.fused_site.fused_site_cuda(
+                *kargs, H, W, scale), 20)
+            ms_w = queued_ms(lambda: wide.fused_site_wide_cuda(
+                *geo, *qkv, H, W, scale), 20)
             launch_p = lambda: wide.fused_site_wide_prefetch_cuda(  # noqa: E731
                 *geo, *qkv, H, W, scale)
             ms_p_kernel = device_ms(launch_p, 20,
                                     "fused_site_wide_prefetch_kernel")
-            ms_p = ms_p_kernel + device_ms(launch_p, 20, "pitch_table_kernel")
-            plain = device_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
+            ms_p = queued_ms(launch_p, 20)
+            plain = queued_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
                                                     scale, torch.float32), 5)
             lib = sdpa_ms(q, k, v, bias, scale, 20)
             b_w = site_bound(B, G, ch, N, Wt)
@@ -1197,11 +1263,12 @@ def check_wide_site_lse(da, kernels) -> dict:
                          lse_online=max(worst["lse_online"], e_lo))
             if std != SITE_TABLE_STDS[0]:
                 continue
-            ms = device_ms(lambda: wide.fused_site_wide_lse_cuda(
-                *geo, *qkv, H, W, scale), 10, "fused_site_wide_kernel")
-            ms_whole = device_ms(lambda: kernels.fused_site.fused_site_lse_cuda(
-                *kargs, H, W, scale), 10, "fused_site_kernel")
-            plain = device_ms(lambda: da.site_plain_lse(
+            ms = queued_ms(lambda: wide.fused_site_wide_lse_cuda(
+                *geo, *qkv, H, W, scale), 10)
+            ms_whole = queued_ms(
+                lambda: kernels.fused_site.fused_site_lse_cuda(
+                    *kargs, H, W, scale), 10)
+            plain = queued_ms(lambda: da.site_plain_lse(
                 q, k, v, k_pos, tb, H, W, scale, torch.float32), 3)
             lib = sdpa_ms(q, k, v, bias, scale, 10)
             bound, by = site_bound(B, G, ch, N, Wt, lse=True)
@@ -1278,11 +1345,11 @@ def check_prefetch_bias(da, kernels) -> tuple:
                 *args[:7], Hs, Hs)
             ms_p_kernel = device_ms(launch_p, 10,
                                     "lattice_bias_wide_prefetch_kernel")
-            ms_p = ms_p_kernel + device_ms(launch_p, 10, "pitch_table_kernel")
-            ms_w = device_ms(lambda: fwd.lattice_bias_wide_cuda(
-                *args[:7], Hs, Hs), 10, "lattice_bias_wide_kernel")
+            ms_p = queued_ms(launch_p, 10)
+            ms_w = queued_ms(lambda: fwd.lattice_bias_wide_cuda(
+                *args[:7], Hs, Hs), 10)
             tb = table.bfloat16().float()
-            plain = device_ms(lambda: da.lattice_bias_plain(
+            plain = queued_ms(lambda: da.lattice_bias_plain(
                 tb, k_pos, Hs, Hs, torch.float32), 3)
             b_w = bias_bounds(B, G, N, Wt, Hs, backward=False)
             extra = pitched_bytes(G, 2 * Hs - 1, Wt)
@@ -1327,10 +1394,6 @@ def check_fold_sites(da, kernels) -> tuple:
     bf = torch.bfloat16
     recs = {n: dict(rows=[], worst=0.0) for n in ("rows", "heads", "lse")}
     bad = []
-
-    def with_copy(launch, name):
-        return (device_ms(launch, 20, f"{name}_kernel")
-                + device_ms(launch, 20, "pitch_table_kernel"))
 
     def run(tag, name, B, G, ch, N, Wt, per, std, seed):
         table, k_pos, q, k, v = site_inputs(seed, B, G, ch, N, Wt, std)
@@ -1388,17 +1451,17 @@ def check_fold_sites(da, kernels) -> tuple:
         if std != SITE_TABLE_STDS[0]:
             return
         if tag == "rows":
-            ms = device_ms(launch, 20, "fused_site_fold_rows_kernel")
-            ms_sib = device_ms(sibling, 20, "fused_site_kernel")
+            ms = queued_ms(launch, 20)
+            ms_sib = queued_ms(sibling, 20)
         elif tag == "heads":
-            ms = with_copy(launch, "fused_site_fold_heads")
-            ms_sib = with_copy(sibling, "fused_site_wide_prefetch")
+            ms = queued_ms(launch, 20)
+            ms_sib = queued_ms(sibling, 20)
         else:
-            ms = with_copy(launch, "fused_site_fold_heads")
-            ms_sib = device_ms(sibling, 20, "fused_site_kernel")
+            ms = queued_ms(launch, 20)
+            ms_sib = queued_ms(sibling, 20)
         extra = 0 if tag == "rows" else pitched_bytes(G, 2 * H - 1, Wt)
         bound, by = site_bound(B, G, ch, N, Wt, extra, lse=tag == "lse")
-        plain_ms = device_ms(plain, 5)
+        plain_ms = queued_ms(plain, 5)
         lib = sdpa_ms(q, k, v, bias, scale, 20)
         rec["rows"].append({
             "site": name, "ms": ms, "sibling_ms": ms_sib, "plain_ms": plain_ms,
@@ -1419,6 +1482,218 @@ def check_fold_sites(da, kernels) -> tuple:
     if bad:
         fail(f"folded fused sites beyond tolerance or unequal at {bad}")
     return recs["rows"], recs["heads"], recs["lse"]
+
+
+@contextlib.contextmanager
+def plain_windows(da):
+    """Cut every window of the windowed bias with ``lattice_windows_plain``
+    on the card; the rest of the windowed bias is unchanged."""
+    from bevrender_tpu_torch.ops.kernels.lattice_windows import (
+        lattice_windows_plain,
+    )
+
+    saved = da.lattice_windows
+    da.lattice_windows = lattice_windows_plain
+    try:
+        yield
+    finally:
+        da.lattice_windows = saved
+
+
+def windows_render_check(da, tag: str):
+    """A ``serving_phase`` comparison: the pipeline's render through the
+    window kernel against its render with the plain windows, which must be
+    equal (the windows are exact copies; everything else is the same)."""
+    import torch
+
+    def compare(pipe, batch):
+        with torch.no_grad():
+            got = pipe.render(batch)
+            with plain_windows(da):
+                ref = pipe.render(batch)
+        torch.cuda.synchronize()
+        diff = float((got.float() - ref.float()).abs().max())
+        print(f"{tag}: render through lattice_windows against the render with "
+              f"lattice_windows_plain on the card, max abs difference {diff}",
+              flush=True)
+        if diff != 0.0 or not bool(torch.isfinite(got).all()):
+            fail(f"{tag}: the windowed render differs from the plain-windows "
+                 f"render by {diff}")
+        return dict(render_diff_plain_windows=diff)
+
+    return compare
+
+
+def windows_bounds(keys, G, Y, m_max, WH, h1, backward: bool):
+    """(bound ms, what bounds it) of the window kernels: the forward writes
+    every window (keys x 3 x h1 x WH bf16) and reads t3 (bf16) and 8 bytes of
+    starts a key; the backward reads every window's cotangent (bf16) and the
+    starts and writes the t3 gradient (bf16), against one float32 add per
+    cotangent entry. The kernel's float32 accumulator (zeroed, read back for
+    the cast) is its design, not the function's, and is not counted."""
+    win = keys * 3 * h1 * WH
+    t3 = G * Y * m_max * WH
+    nbytes = win * 2 + t3 * 2 + keys * 8
+    ops = win if backward else 0
+    by = "bytes" if nbytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+    return max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3, by
+
+
+# Every shape the bias sees in phases 3, 6, 10 (and so 23-25): (name, H,
+# batch, G, N, table width, #14 launches per serving forward, #14 and #15
+# launches per training step under bias_forward "windows"). A training step
+# runs its history pass (eval: the sites of head width 16 and 32; the others
+# take the fused site), its final pass and, under site_remat "nothing", the
+# final pass's bias again in the backward.
+WINDOW_SITES = (
+    [(f"serve_{name}", H, B, G, N, Wt, per, 0, 0)
+     for name, B, G, ch, N, Wt, per in BIAS_SITES]
+    + [(f"train_{name}", H, B, G, N, Wt, 0, per * (3 if ch > 8 else 2), per)
+       for name, B, G, ch, N, Wt, per in TRAIN_BIAS_SITES]
+    + [(f"pyramid_{name}", Hs, B, G, N, Wt,
+        PYR_BIAS_PER_FORWARD[name], 0, 0)
+       for name, Hs, B, G, N, Wt in PYR_BIAS_SITES
+       if name in ("sca56_g1_n7840", "tsa7_g8_n49", "sca7_bv6_g8_n140")])
+
+
+def check_windows(da, kernels) -> tuple:
+    """Phase 25: ``lattice_windows`` equal to ``lattice_windows_plain`` at
+    every shape of WINDOW_SITES; ``lattice_windows_bwd`` against
+    ``lattice_windows_bwd_plain`` at the training shapes and the pyramid's
+    SCA 56, its float32 sums within BWD_SUM_TOL of the largest entry and its
+    bf16 result within one bf16 ulp; kernel, plain, library
+    (``index_select`` / ``index_add_`` of t3's rows) and bound times, the
+    kernels and the library calls by ``queued_ms``. Then
+    the windowed bias at the serving and pyramid shapes and two table
+    scales: equal to ``lattice_bias_plain`` in bf16, and within WINDOWED_TOL
+    of the bias kernel of the site's route; both biases' times. Returns the
+    records of (lattice_windows, lattice_windows_bwd, windowed bias)."""
+    import torch
+
+    lw = kernels.lattice_windows
+    rows_f, rows_b, rec_bias, bad = [], [], [], []
+    worst_f = worst_b = 0.0
+    for i, (name, Hs, B, G, N, Wt, per_fwd, per_step, per_bwd) in enumerate(
+            WINDOW_SITES):
+        table, k_pos, _ = bias_inputs(130 + i, B, G, N, Wt, Hs,
+                                      SITE_TABLE_STDS[0])
+        ys, ms, _, _ = da.lattice_geometry(table.shape, k_pos, Hs, Hs)
+        ys, ms = ys.contiguous(), ms.contiguous()
+        t3 = da.lattice_t3(table, Hs, torch.bfloat16)
+        _, Y, m_max, WH = t3.shape
+        h1 = Hs + 1
+        win = lw.lattice_windows_cuda(t3, ys, ms, h1)
+        same = torch.equal(win, lw.lattice_windows_plain(t3, ys, ms, h1))
+        torch.cuda.synchronize()
+        rows = lw.window_rows(ys, ms, h1, Y, m_max).reshape(-1)
+        flat = t3.reshape(-1, WH)
+        ms_k = queued_ms(lambda: lw.lattice_windows_cuda(t3, ys, ms, h1), 20)
+        plain = queued_ms(lambda: lw.lattice_windows_plain(t3, ys, ms, h1), 5)
+        lib = queued_ms(lambda: torch.index_select(flat, 0, rows), 20)
+        bound, by = windows_bounds(B * G * N, G, Y, m_max, WH, h1, False)
+        rows_f.append(dict(site=name, ms=ms_k, plain_ms=plain, library_ms=lib,
+                           bound_ms=bound, bound_by=by, per_forward=per_fwd,
+                           per_step=per_step, max_abs_err=0.0 if same else None,
+                           window_mb=win.numel() * 2 / 1e6))
+        print(f"lattice_windows {name} ({tuple(win.shape)}): "
+              f"{'equals' if same else 'DIFFERS FROM'} lattice_windows_plain; "
+              f"kernel {ms_k:.4f} ms plain {plain:.4f} ms index_select "
+              f"{lib:.4f} ms bound {bound:.4f} ms ({by}) x{per_fwd}/forward "
+              f"x{per_step}/step", flush=True)
+        if not same:
+            bad.append(f"lattice_windows {name}")
+        if per_bwd or name.startswith("pyramid_sca56"):
+            gen = torch.Generator(device="cuda").manual_seed(150 + i)
+            gout = torch.randn(win.shape, generator=gen,
+                               device="cuda").bfloat16()
+            del win
+            acc = lw.lattice_windows_bwd_cuda(gout, ys, ms, t3.shape,
+                                              torch.float32)
+            ref = lw.lattice_windows_bwd_plain(gout, ys, ms, t3.shape,
+                                               torch.float32)
+            out = lw.lattice_windows_bwd_cuda(gout, ys, ms, t3.shape,
+                                              torch.bfloat16)
+            refb = ref.to(torch.bfloat16).float()
+            torch.cuda.synchronize()
+            e_rel = rel_err(acc, ref)
+            e_abs = float((acc - ref).abs().max())
+            ulp = bool(((out.float() - refb).abs() <= torch.maximum(
+                out.float().abs(), refb.abs()) * BIAS_ULP).all())
+            ok = e_rel <= BWD_SUM_TOL and ulp and bool(
+                torch.isfinite(acc).all()) and float(ref.abs().max()) > 0
+            del acc, ref, refb, out
+            launch = lambda: lw.lattice_windows_bwd_cuda(  # noqa: E731
+                gout, ys, ms, t3.shape, torch.bfloat16)
+            ms_b = queued_ms(launch, 10)
+            plain_b = queued_ms(lambda: lw.lattice_windows_bwd_plain(
+                gout, ys, ms, t3.shape, torch.bfloat16), 3)
+            gf = gout.reshape(-1, WH).float()
+            buf = torch.zeros(G * Y * m_max, WH, device="cuda")
+            lib_b = queued_ms(lambda: buf.index_add_(0, rows, gf), 10)
+            del gf, buf, gout
+            bound_b, by_b = windows_bounds(B * G * N, G, Y, m_max, WH, h1, True)
+            rows_b.append(dict(site=name, ms=ms_b,
+                               plain_ms=plain_b, library_ms=lib_b,
+                               bound_ms=bound_b, bound_by=by_b,
+                               per_step=per_bwd, max_abs_err=e_abs,
+                               rel_err=e_rel))
+            worst_b = max(worst_b, e_abs)
+            print(f"lattice_windows_bwd {name}: float32 sums rel err "
+                  f"{e_rel:.3g} (abs {e_abs:.3g}), bf16 result "
+                  f"{'within' if ulp else 'BEYOND'} one ulp "
+                  f"({'ok' if ok else 'FAIL'}); kernel {ms_b:.4f} ms plain "
+                  f"{plain_b:.4f} ms index_add_ "
+                  f"{lib_b:.4f} ms bound {bound_b:.4f} ms ({by_b}) "
+                  f"x{per_bwd}/step", flush=True)
+            if not ok:
+                bad.append(f"lattice_windows_bwd {name}")
+        del t3, rows, flat, table, k_pos
+        torch.cuda.empty_cache()
+    # the windowed bias, whole, at the serving and pyramid shapes
+    for i, (name, Hs, B, G, N, Wt, per_fwd, _, _) in enumerate(WINDOW_SITES):
+        if not per_fwd:
+            continue
+        for std in SITE_TABLE_STDS:
+            table, k_pos, _ = bias_inputs(170 + i, B, G, N, Wt, Hs, std)
+            with torch.no_grad():
+                wb = da.lattice_bias_windowed(table, k_pos, Hs, Hs)
+                pb = da.lattice_bias_plain(table, k_pos, Hs, Hs)
+                same = torch.equal(wb, pb)
+                del pb
+                kb = da.lattice_bias(table, k_pos, Hs, Hs).float()
+            a = float(table.bfloat16().float().abs().max())
+            err = float((wb - kb).abs().max())
+            torch.cuda.synchronize()
+            ok = same and err <= WINDOWED_TOL * a
+            route = da.bias_route(table.shape, Hs, Hs)
+            print(f"windowed bias {name} table std {std}: "
+                  f"{'equals' if same else 'DIFFERS FROM'} lattice_bias_plain "
+                  f"(bf16); against the {route}-route bias kernel max abs "
+                  f"{err:.3g} = {err / (a * 2.0 ** -8):.3g} u of the largest "
+                  f"table entry {a:.3g} (tolerance {WINDOWED_TOL / 2.0 ** -8:.0f}"
+                  f" u) ({'ok' if ok else 'FAIL'})", flush=True)
+            if not ok:
+                bad.append(f"windowed bias {name} std {std}")
+            del wb, kb
+            if std != SITE_TABLE_STDS[0]:
+                continue
+            with torch.no_grad():
+                ms_w = queued_ms(lambda: da.lattice_bias_windowed(
+                    table, k_pos, Hs, Hs), 5)
+                ms_c = queued_ms(lambda: da.lattice_bias(
+                    table, k_pos, Hs, Hs), 5)
+            rec_bias.append(dict(site=name, windowed_ms=ms_w,
+                                 bias_kernel_ms=ms_c, route=route,
+                                 per_forward=per_fwd, max_abs_err=err,
+                                 table_max=a))
+            print(f"windowed bias {name}: {ms_w:.4f} ms per call (every "
+                  f"kernel of t3, windows and mix), {route}-route bias kernel "
+                  f"{ms_c:.4f} ms x{per_fwd}/forward", flush=True)
+            torch.cuda.empty_cache()
+    if bad:
+        fail(f"window kernels or windowed bias beyond tolerance at {bad}")
+    return (dict(rows=rows_f, worst=worst_f), dict(rows=rows_b, worst=worst_b),
+            rec_bias)
 
 
 def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
@@ -1549,7 +1824,8 @@ def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
                                 "lattice_bias_bwd", "fused_site_bwd",
                                 "lattice_bias_wide", "lattice_bias_wide_bwd",
                                 "fused_site_wide", "lattice_bias_wide_prefetch",
-                                "fused_site_fold_heads")}
+                                "fused_site_fold_heads", "lattice_windows",
+                                "lattice_windows_bwd")}
             print(f"{tag}: device time of one step (profiler): busy "
                   f"{busy:.3f} ms of {ms:.3f} ms/step, idle share "
                   f"{idle:.3f}; kernels seen by name {seen_k} [{card}]",
@@ -1726,6 +2002,10 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
+
+    def stamp(phases: str) -> None:
+        print(f"[{time.perf_counter() - t0:.1f} s] {phases}", flush=True)
+
     logs = build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
@@ -1733,6 +2013,7 @@ def main() -> None:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {regs[0] if regs else 'cached'}", flush=True)
 
+    stamp("phases 3-4")
     # ---- main path: flagship bf16 render+register, B=4, T=2 ----
     serve = serving_phase(card, "flagship", flagship_config(dtype="bfloat16"),
                           SERVE_B, N_REQUESTS,
@@ -1744,6 +2025,7 @@ def main() -> None:
         bias = check_bias(da, kernels.lattice_bias)
         site = check_site(da, kernels.fused_site)
 
+    stamp("phase 5")
     # ---- reference: a small model through the kernels and through plain
     # PyTorch on the card. The flagship at random weights is chaotic over
     # two frames (its render moves O(1e-1) under a 1e-6 input change), a
@@ -1777,6 +2059,7 @@ def main() -> None:
     if not (d_kernel <= RENDER_TOL and bool(torch.isfinite(out_k).all())):
         fail(f"render through kernels differs from plain path by {d_kernel}")
 
+    stamp("phases 6-9")
     # ---- training: default route (with the peak memory of site_remat
     # "none" beside it), then fused_bwd, in one process on one card ----
     def flagship_train(fused_bwd, site_remat, steps, profile_step):
@@ -1802,6 +2085,7 @@ def main() -> None:
     grads_fused = small_model_grads(da, kernels, fused_bwd=True)
     small_model_epoch(kernels)
 
+    stamp("phases 10-13")
     # ---- the pyramid, Config() (the reference default) in bf16: serving,
     # training, its bias kernels at every shape, and a small model whose
     # wide site runs through the normal dispatch ----
@@ -1825,6 +2109,7 @@ def main() -> None:
     pyr_bias = check_pyramid_bias(da, kernels)
     grads_wide = small_model_grads(da, kernels, fused_bwd=False, wide=True)
 
+    stamp("phases 14-18")
     # ---- the wide-table route (ModelConfig.lattice_route="wide"): the
     # flagship's sites on the kernels that read the table through L1, then
     # on their window-prefetch variants, its training step on the wide
@@ -1843,13 +2128,13 @@ def main() -> None:
     prefetch_serve = serving_phase(
         card, "flagship wide prefetch",
         flagship_route(lattice_route="wide", site_prefetch=True,
-                       bias_prefetch=True),
+                       bias_forward="prefetch"),
         SERVE_B, WIDE_REQUESTS, WIDE_PREFETCH_PER_FORWARD)
     wide_train = train_phase(card, "flagship wide",
                              flagship_route(lattice_route="wide"), True,
                              "nothing", TRAIN_STEPS, True, WIDE_TRAIN_COUNTS)
     pyr_prefetch_cfg = pyramid_config()
-    pyr_prefetch_cfg.model.bias_prefetch = True
+    pyr_prefetch_cfg.model.bias_forward = "prefetch"
     pyr_prefetch = serving_phase(card, "pyramid prefetch", pyr_prefetch_cfg,
                                  PYR_B, PYR_REQUESTS, PYR_PREFETCH_PER_FORWARD)
     render_diff = {
@@ -1871,6 +2156,7 @@ def main() -> None:
     bias_wide_bwd_flagship = check_bias_bwd(da, kernels.lattice_bias_bwd,
                                             wide=True)
 
+    stamp("phases 19-22")
     # ---- the folded fused sites (ModelConfig.site_fold_heads and
     # site_fold_rows; TrainConfig.fused_fwd_fold follows site_fold_heads):
     # the flagship serving on each, its fused_bwd step with the folded
@@ -1902,6 +2188,40 @@ def main() -> None:
         fail(f"a folded render differs from the auto route's: {fold_diff}")
     with torch.no_grad():
         site_rows, site_heads, site_heads_lse = check_fold_sites(da, kernels)
+
+    stamp("phases 23-25")
+    # ---- the windowed bias (ModelConfig.bias_forward="windows"): the
+    # flagship serving and training with every bias site on the window
+    # kernels, each window kernel alone, and the pyramid serving ----
+    windows_serve = serving_phase(
+        card, "flagship windows", flagship_route(bias_forward="windows"),
+        SERVE_B, WINDOWS_REQUESTS, WINDOWS_PER_FORWARD,
+        compare=windows_render_check(da, "flagship windows"))
+    windows_train = train_phase(
+        card, "flagship windows", flagship_route(bias_forward="windows"),
+        False, "nothing", TRAIN_STEPS, True, WINDOWS_TRAIN_COUNTS)
+    win_fwd, win_bwd, win_bias = check_windows(da, kernels)
+    pyr_windows_cfg = pyramid_config()
+    pyr_windows_cfg.model.bias_forward = "windows"
+    pyr_windows = serving_phase(
+        card, "pyramid windows", pyr_windows_cfg, PYR_B, PYR_WINDOWS_REQUESTS,
+        PYR_WINDOWS_PER_FORWARD,
+        compare=windows_render_check(da, "pyramid windows"))
+    for r in (windows_serve, pyr_windows):
+        r.pop("render")
+    print(f"windowed bias against the bias kernels: flagship serving "
+          f"{windows_serve['request_ms']:.3f} ms/request, busy "
+          f"{windows_serve['busy_ms']:.3f} ms (phase 3: "
+          f"{serve['request_ms']:.3f}, busy {serve['busy_ms']:.3f}); training "
+          f"{windows_train['step_ms']:.3f} ms/step, busy "
+          f"{windows_train['busy_ms']:.3f} ms, peak "
+          f"{windows_train['peak_gib']:.3f} GiB (phase 6: "
+          f"{train_default['step_ms']:.3f}, busy {train_default['busy_ms']:.3f}"
+          f", peak {train_default['peak_gib']:.3f}); pyramid serving "
+          f"{pyr_windows['request_ms']:.3f} ms/request, busy "
+          f"{pyr_windows['busy_ms']:.3f} ms (phase 10: "
+          f"{pyr_serve['request_ms']:.3f}, busy {pyr_serve['busy_ms']:.3f}) "
+          f"[{card}]", flush=True)
 
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
@@ -2001,6 +2321,17 @@ def main() -> None:
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site_fold_rows.cu",
               "bevrender_tpu/ops/pallas/experimental.py:659", site_rows,
               fold_rows_serve["counts"]["fused_site_fold_rows"]),
+        entry("lattice_windows", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/lattice_windows.cu",
+              "bevrender_tpu/ops/pallas/lattice_win.py:169", win_fwd,
+              windows_serve["counts"]["lattice_windows"],
+              launches_train=windows_train["counts"]["lattice_windows"],
+              launches_pyramid_serving=pyr_windows["counts"][
+                  "lattice_windows"]),
+        entry("lattice_windows_bwd", "cuda",
+              "bevrender_tpu_torch/ops/kernels/csrc/lattice_windows.cu",
+              "bevrender_tpu/ops/pallas/lattice_win.py:113", win_bwd,
+              windows_train["counts"]["lattice_windows_bwd"]),
     ], "card": card, "train": [train_default, train_none, train_fused],
         "pyramid": {"serving": pyr_serve, "train": [pyr_train, pyr_none],
                     "small_model_grad_err": grads_wide["worst"]},
@@ -2010,9 +2341,12 @@ def main() -> None:
         "fold": {"heads_serving": fold_heads_serve,
                  "rows_serving": fold_rows_serve, "train": fold_train,
                  "render_diff": fold_diff},
+        "windows": {"serving": windows_serve, "train": windows_train,
+                    "pyramid_serving": pyr_windows, "bias": win_bias},
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}
+    stamp("record")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,11 @@ WIDE_ROUTE_MODULES = (
 FOLD_MODULES = ("ops/kernels/fused_site_fold.py",)
 
 
+# the window kernels' wrappers (the windowed bias itself is in
+# ops/deform_attn.py, and its config field in config.py, named above)
+WINDOWS_MODULES = ("ops/kernels/lattice_windows.py",)
+
+
 def _port_files():
     return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -74,7 +79,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + PYRAMID_MODULES
-                         + WIDE_ROUTE_MODULES + FOLD_MODULES)
+                         + WIDE_ROUTE_MODULES + FOLD_MODULES
+                         + WINDOWS_MODULES)
 def test_training_module_imports_no_jax(module):
     path = ROOT / "bevrender_tpu_torch" / module
     assert path.exists()
@@ -136,4 +142,5 @@ def test_every_kernel_source_is_built_and_counted():
     assert set(build.SOURCES) <= names
     assert names - set(build.SOURCES) == {"fused_site_lse",
                                           "fused_site_wide_lse",
-                                          "fused_site_fold_heads_lse"}
+                                          "fused_site_fold_heads_lse",
+                                          "lattice_windows_bwd"}

@@ -581,6 +581,150 @@ def test_wide_bias_prefetch_equals_wide_bias(cuda_device, H, G, N, Wt,
     assert bool(((pre.float() - ref).abs() <= ref.abs() * 2.0 ** -7).all())
 
 
+# The window kernels of the windowed bias (bias_forward="windows"): (B, G,
+# Hpg, H, Wt, N) with rows of W * Hpg = 56, 28, 14 and 7 bf16 (16-, 8-, 4-
+# and 2-byte vectors), at the flagship's SCA and TSA and the pyramid's BEV 7
+WINDOW_SHAPES = [(2, 2, 2, 28, 279, 1960), (2, 1, 1, 28, 55, 196),
+                 (2, 8, 2, 7, 69, 140), (1, 2, 1, 7, 13, 49)]
+# windowed bias against the bias kernel, as a share of the bf16 table's
+# largest entry: nine bf16 roundings (chip_smoke.WINDOWED_TOL)
+WINDOWED_TOL = 9 * 2.0 ** -8
+
+
+def _windows_inputs(seed, B, G, Hpg, H, Wt, N, device):
+    table, k_pos, *_ = _inputs(seed, B, G, Hpg, H, H, Wt, N, 4, device)
+    ys, ms, _, _ = tda.lattice_geometry(table.shape, k_pos, H, H)
+    t3 = tda.lattice_t3(table, H, torch.bfloat16)
+    return table, k_pos, t3, ys.contiguous(), ms.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,Hpg,H,Wt,N", WINDOW_SHAPES)
+def test_window_kernels_match_plain(cuda_device, B, G, Hpg, H, Wt, N):
+    """``lattice_windows`` equals its plain version (both copy); the float32
+    sums of ``lattice_windows_bwd`` stand within BWD_SUM_TOL of its plain
+    version's (the same additions in another order), and its bf16 result,
+    those sums rounded once, within one bf16 ulp of the plain one."""
+    _, _, t3, ys, ms = _windows_inputs(22, B, G, Hpg, H, Wt, N, cuda_device)
+    lw = kernels.lattice_windows
+    before = kernels.counts()
+    win = lw.lattice_windows_cuda(t3, ys, ms, H + 1)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    gout = torch.randn(win.shape, generator=gen, device="cuda").bfloat16()
+    acc = lw.lattice_windows_bwd_cuda(gout, ys, ms, t3.shape, torch.float32)
+    out = lw.lattice_windows_bwd_cuda(gout, ys, ms, t3.shape, torch.bfloat16)
+    ref = lw.lattice_windows_bwd_plain(gout, ys, ms, t3.shape, torch.float32)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"lattice_windows": 1, "lattice_windows_bwd": 2}
+    assert win.shape == (B, G, N, 3, H + 1, H * Hpg)
+    assert torch.equal(win, lw.lattice_windows_plain(t3, ys, ms, H + 1))
+    assert float(ref.abs().max()) > 0
+    assert _close(acc, ref, BWD_SUM_TOL)
+    refb = ref.bfloat16().float()
+    assert out.dtype == torch.bfloat16
+    assert bool(((out.float() - refb).abs()
+                 <= torch.maximum(out.float().abs(), refb.abs()) * 2.0 ** -7)
+                .all())
+
+
+@pytest.mark.cuda
+def test_windowed_bias_runs_on_the_window_kernels(cuda_device, monkeypatch):
+    """``lattice_bias_windowed`` on CUDA tensors launches one window kernel
+    in its forward and one in its backward; its bias equals
+    ``lattice_bias_plain`` in bf16 bit for bit and stands within
+    WINDOWED_TOL of the bias kernel. Its gradients are those of the same
+    function with the plain windows: dk_pos (which does not pass through
+    the windows) exactly, dtable within 2^-6 of its largest entry (a t3
+    gradient entry one bf16 ulp apart, 2^-7 of it, reaches the table
+    entries it is added into, whose bf16 sums round again)."""
+    H, W = 28, 28
+    table, k_pos, *_ = _inputs(25, 2, 2, 2, H, W, 279, 500, 4, cuda_device)
+    ct = torch.randn(2, 2, 2, 500, H * W, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(26))
+
+    def run():
+        t, p = table.clone().requires_grad_(), k_pos.clone().requires_grad_()
+        out = tda.lattice_bias_windowed(t, p, H, W)
+        return (out,) + torch.autograd.grad(out, (t, p), ct)
+
+    before = kernels.counts()
+    out, dt, dp = run()
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"lattice_windows": 1, "lattice_windows_bwd": 1}
+    lw = kernels.lattice_windows
+    monkeypatch.setattr(lw, "lattice_windows_cuda", lw.lattice_windows_plain)
+    monkeypatch.setattr(lw, "lattice_windows_bwd_cuda",
+                        lw.lattice_windows_bwd_plain)
+    ref, rdt, rdp = run()
+    with torch.no_grad():
+        plain = tda.lattice_bias_plain(table, k_pos, H, W)
+        kernel = tda.lattice_bias(table, k_pos, H, W).float()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(out, plain)
+    a = float(table.detach().bfloat16().abs().max())
+    assert float((out.detach() - kernel).abs().max()) <= WINDOWED_TOL * a
+    assert torch.equal(dp, rdp) and float(dp.abs().max()) > 0
+    assert _close(dt, rdt, 2.0 ** -6) and float(dt.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [1, 2, 6])
+def test_narrow_head_site_takes_the_bias_route(cuda_device, ch):
+    """A site whose head width has no fused-site instance (the flagship at
+    width 32 has head width 2 at stage 3) runs through
+    ``streamed_deform_attention`` on the bias kernel and the plain
+    consumer, within the fused site's tolerance of ``site_plain``."""
+    H = W = 28
+    table, k_pos, q, k, v = _inputs(24, 2, 4, 2, H, W, 279, 1960, ch,
+                                    cuda_device)
+    scale = ch ** -0.5
+    before = kernels.counts()
+    with torch.no_grad():
+        out = tda.streamed_deform_attention(q, k, v, k_pos, table, H, W,
+                                            scale=scale, fuse_site=True)
+        tb = table.bfloat16().float()
+        ref = tda.site_plain(q, k, v, k_pos, tb, H, W, scale, torch.float32)
+        bias = tda.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"lattice_bias": 1}
+    assert bool(((out - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
+
+
+def test_window_wrappers_refuse_bad_inputs():
+    """Checked before anything touches the card: CPU tensors, a float32
+    table, int64 starts, windows taller than the table, a float32
+    cotangent and an output type the backward has no instance for."""
+    _, _, t3, ys, ms = _windows_inputs(27, 1, 2, 2, 7, 13, 20, "cpu")
+    lw = kernels.lattice_windows
+    before = kernels.counts()
+    gout = torch.zeros(1, 2, 20, 3, 8, 14, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lw.lattice_windows_cuda(t3, ys, ms, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lw.lattice_windows_bwd_cuda(gout, ys, ms, t3.shape, torch.bfloat16)
+    meta = torch.device("meta")
+    m3, mys, mms, mg = (x.to(meta) for x in (t3, ys, ms, gout))
+    with pytest.raises(TypeError, match="t3"):
+        lw.lattice_windows_cuda(m3.float(), mys, mms, 8)
+    with pytest.raises(TypeError, match="ys"):
+        lw.lattice_windows_cuda(m3, mys.long(), mms, 8)
+    with pytest.raises(ValueError, match="do not fit"):
+        lw.lattice_windows_cuda(m3, mys, mms, t3.shape[1] + 1)
+    with pytest.raises(TypeError, match="gout"):
+        lw.lattice_windows_bwd_cuda(mg.float(), mys, mms, t3.shape,
+                                    torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        lw.lattice_windows_bwd_cuda(mg, mys, mms, t3.shape, torch.float16)
+    assert kernels.counts() == before
+
+
 @pytest.mark.parametrize("ch,N,table_std", [
     (4, 96, 0.01), (8, 70, 0.01), (4, 96, 1.0), (8, 45, 1.0)])
 def test_online_consumer_matches_plain_consumer(ch, N, table_std):
@@ -634,7 +778,8 @@ def test_cpu_gradients_take_the_plain_versions():
                            "fused_site_wide_prefetch",
                            "lattice_bias_wide_prefetch",
                            "fused_site_fold_rows", "fused_site_fold_heads",
-                           "fused_site_fold_heads_lse"}
+                           "fused_site_fold_heads_lse", "lattice_windows",
+                           "lattice_windows_bwd"}
 
 
 @pytest.mark.parametrize("which", ["bias_bwd", "site_bwd", "site_lse"])

@@ -171,7 +171,7 @@ def test_flagship_serving_kernels(route, prefetch, want):
     """The flagship's serving forward (B=4, T=2) takes exactly the kernels
     whose launches chip_smoke's phases 3, 14 and 15 count on the card."""
     opts = tda.SiteOptions(lattice_route=route, site_prefetch=prefetch,
-                           bias_prefetch=prefetch)
+                           bias_forward="prefetch" if prefetch else "kernel")
     assert _launches(FLAGSHIP, chip_smoke.SERVE_B, opts, False) == want
 
 
@@ -196,7 +196,7 @@ def test_flagship_training_prefetch_kernels():
     backward stays ``lattice_bias_wide_bwd``. ``site_prefetch`` reaches
     the eval fused site only."""
     opts = tda.SiteOptions(fused_bwd=True, lattice_route="wide",
-                           site_prefetch=True, bias_prefetch=True)
+                           site_prefetch=True, bias_forward="prefetch")
     want = dict(chip_smoke.WIDE_TRAIN_COUNTS)
     want["fused_site_wide_prefetch"] = want.pop("fused_site_wide")
     want["lattice_bias_wide_prefetch"] = want.pop("lattice_bias_wide")
@@ -210,13 +210,38 @@ def test_flagship_training_prefetch_kernels():
     (False, True, "none", chip_smoke.PYR_TRAIN_COUNTS["none"])])
 def test_pyramid_kernels(prefetch, training, remat, want):
     """The pyramid (B=2, T=2) on "auto": serving as chip_smoke's phases 10
-    and 17 count (``bias_prefetch`` moves its SCA at BEV 56 to the prefetch
-    bias), training as phase 11; ``fused_bwd`` changes nothing (head
+    and 17 count (``bias_forward="prefetch"`` moves its SCA at BEV 56 to
+    the prefetch bias), training as phase 11; ``fused_bwd`` changes nothing (head
     width 32)."""
     for fused_bwd in (False, True):
         opts = tda.SiteOptions(fused_bwd=fused_bwd, site_remat=remat,
-                               bias_prefetch=prefetch)
+                               bias_forward=("prefetch" if prefetch
+                                             else "kernel"))
         assert _launches(PYRAMID, chip_smoke.PYR_B, opts, training) == want
+
+
+@pytest.mark.parametrize("model,training,remat,want", [
+    ("flagship", False, "nothing", chip_smoke.WINDOWS_PER_FORWARD),
+    ("flagship", True, "nothing", chip_smoke.WINDOWS_TRAIN_COUNTS),
+    ("flagship", True, "none", dict(fused_site=12, lattice_windows=32 + 44,
+                                    lattice_windows_bwd=44)),
+    ("pyramid", False, "nothing", chip_smoke.PYR_WINDOWS_PER_FORWARD)])
+def test_windowed_bias_kernels(model, training, remat, want):
+    """With ``bias_forward="windows"`` every site that took a bias kernel
+    takes the window kernels, on either route, as chip_smoke's phases 23-25 count
+    them: the flagship's 64 bias launches per forward and its training
+    step's 120 forward and 44 backward ones, the pyramid's 88 per forward
+    (its SCA at BEV 56 included); the fused sites stay."""
+    mc, B = ((FLAGSHIP, chip_smoke.TRAIN_B if training else chip_smoke.SERVE_B)
+             if model == "flagship" else (PYRAMID, chip_smoke.PYR_B))
+    for route in tda.LATTICE_ROUTES:
+        opts = tda.SiteOptions(site_remat=remat, bias_forward="windows",
+                               lattice_route=route)
+        got = _launches(mc, B, opts, training)
+        if route == "wide":  # the fused sites take their wide kernels
+            want = {("fused_site_wide" if k == "fused_site" else k): v
+                    for k, v in want.items()}
+        assert got == want
 
 
 def _shipped_sites():
@@ -244,17 +269,47 @@ def test_site_route_at_shipped_and_oversized_tables():
 @pytest.mark.parametrize("route", ["auto", "wide"])
 def test_fused_bwd_on_an_oversized_table_is_refused(route):
     """The site backward keeps the head's table and its float32 gradient in
-    shared memory; where they do not fit, ``fused_bwd`` raises and names
-    the ROADMAP item, on either route. Without ``fused_bwd`` the site
-    trains on the wide bias kernels."""
+    shared memory; where they do not fit, the fused backward refuses the
+    site and ``fused_bwd`` trains it on the route it takes without
+    ``fused_bwd``, the wide bias kernels with the plain consumer under
+    ``site_remat``, on either route. Its eval pass stays on the fused
+    site."""
     wide = (1, 2, 127, 639)
+    assert not tda._site_bwd_fits(wide, 64, 4)
+    want = {"nothing": ("lattice_bias_wide", "lattice_bias_wide",
+                        "lattice_bias_wide_bwd"),
+            "none": ("lattice_bias_wide", "lattice_bias_wide_bwd")}
+    for remat, kernels_named in want.items():
+        for fused_bwd in (True, False):
+            opts = tda.SiteOptions(fused_bwd=fused_bwd, site_remat=remat,
+                                   lattice_route=route)
+            assert tda.site_kernels((1, 1, 2, 4096, 4), wide, 64, 64, opts,
+                                    training=True) == kernels_named
     opts = tda.SiteOptions(fused_bwd=True, lattice_route=route)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tda.site_kernels((1, 1, 2, 4096, 4), wide, 64, 64, opts, training=True)
-    plain = tda.SiteOptions(lattice_route=route)
-    assert tda.site_kernels((1, 1, 2, 4096, 4), wide, 64, 64, plain,
-                            training=True) == (
-        "lattice_bias_wide", "lattice_bias_wide", "lattice_bias_wide_bwd")
+    assert tda.site_kernels((1, 1, 2, 4096, 4), wide, 64, 64, opts,
+                            training=False) == ("fused_site_wide",)
+
+
+def test_fused_bwd_on_an_oversized_table_trains_as_without_it():
+    """A training step of one site on that table (BEV 64, depth 5: 127 x
+    639, head width 4) with ``fused_bwd``: on the CPU it runs the plain
+    versions of the bias route and gives the gradients of the same step
+    without ``fused_bwd``, exactly."""
+    H = W = 64
+    rng = np.random.default_rng(52)
+    q, k, v = (_t(rng.standard_normal(s) * 0.5) for s in (
+        (1, 1, 2, H * W, 4), (1, 1, 2, 24, 4), (1, 1, 2, 24, 4)))
+    k_pos = _t(rng.uniform(-1.2, 1.2, (1, 1, 24, 2)))
+    table = _t(rng.standard_normal((1, 2, 127, 639)) * 0.05)
+    grads = []
+    for fused_bwd in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, k_pos, table)]
+        out = tda.streamed_deform_attention(
+            *leaves, H, W, scale=0.5, fuse_site=False, fused_bwd=fused_bwd)
+        grads.append(torch.autograd.grad((out * out).sum(), leaves))
+    for name, a, b in zip(("dq", "dk", "dv", "dk_pos", "dtable"), *grads):
+        assert float(b.abs().max()) > 0, name
+        assert torch.equal(a, b), name
 
 
 def test_site_options_are_checked():
@@ -290,13 +345,14 @@ def test_wide_route_renders_as_auto_on_the_cpu():
     before = kernels.counts()
     auto = RegistrationPipeline(_tiny(), device="cpu", seed=1)
     wide = RegistrationPipeline(
-        _tiny(lattice_route="wide", site_prefetch=True, bias_prefetch=True),
+        _tiny(lattice_route="wide", site_prefetch=True,
+              bias_forward="prefetch"),
         device="cpu", seed=1)
     assert torch.equal(wide.render(batch), auto.render(batch))
     sites = _sites(wide.net)
     assert len(sites) == 4  # 2 stages x (TSA, SCA)
     assert {s.site_options for s in sites} == {tda.SiteOptions(
-        lattice_route="wide", site_prefetch=True, bias_prefetch=True)}
+        lattice_route="wide", site_prefetch=True, bias_forward="prefetch")}
     assert {s.site_options for s in _sites(auto.net)} == {tda.SiteOptions()}
     assert kernels.counts() == before
 
@@ -307,20 +363,20 @@ def test_trainer_hands_every_option_to_every_site(tmp_path):
     not given."""
     from bevrender_tpu_torch.training.trainer import Trainer
 
-    cfg = _tiny(lattice_route="wide", bias_prefetch=True)
+    cfg = _tiny(lattice_route="wide", bias_forward="prefetch")
     cfg.train.fused_bwd, cfg.train.site_remat = True, "none"
     cfg.train.work_dir = str(tmp_path)
     ds = SyntheticDataset(n_items=2, num_views=2, window_num_imgs=1,
                           img_height=32, img_width=32, map_tile=32)
     net = Trainer(cfg, ds, device="cpu").create_state(seed=0).net
     want = tda.SiteOptions(fused_bwd=True, site_remat="none",
-                           lattice_route="wide", bias_prefetch=True)
+                           lattice_route="wide", bias_forward="prefetch")
     assert {s.site_options for s in _sites(net)} == {want}
     set_site_options(net, site_prefetch=True)
     assert {s.site_options for s in _sites(net)} == {
         tda.SiteOptions(fused_bwd=True, site_remat="none",
                         lattice_route="wide", site_prefetch=True,
-                        bias_prefetch=True)}
+                        bias_forward="prefetch")}
 
 
 # ---- the wrappers refuse what their kernels do not take ---------------------
