@@ -275,10 +275,11 @@ def site_bwd_online(q, k, v, k_pos, table, H: int, W: int, scale: float,
     bf16-rounded table, scores in base 2, p = exp2(s - lse) from the given
     logsumexp, p, ds and dO rounded to bf16 before they multiply, float32
     sums, and the unrounded ds as the cotangent of the bias. Scores, p, dp
-    and ds repeat the kernel's float32 roundings one by one; only the order
-    of the float32 sums of the outputs differs from the kernel (its atomics
-    have none), so the two agree far more closely than either does with
-    autograd through ``site_plain``, which rounds elsewhere. ``dsum`` is rowsum(dO * O).
+    and ds repeat the kernel's float32 roundings one by one (its q . k and
+    v . dO are fmaf chains); only the order of the float32 sums of the
+    outputs differs from the kernel (tensor-core sums, atomics), so the two
+    agree far more closely than either does with autograd through
+    ``site_plain``, which rounds elsewhere. ``dsum`` is rowsum(dO * O).
     Returns (dq, dk, dv, dtable, dk_pos), float32."""
     bf, f64 = torch.bfloat16, torch.float64
     tb = table.detach().to(bf).float().requires_grad_()
@@ -357,11 +358,16 @@ def site_route(table_shape, H: int, W: int, ch: int) -> str:
 
 
 def _site_bwd_fits(table_shape, W: int, ch: int) -> bool:
-    """Whether csrc/fused_site_bwd.cu's shared memory fits one block: one
-    head's zero-padded table in bf16 with its gradient in float32, and a
-    tile of 32 queries (q, dO, lse and D)."""
+    """Whether csrc/fused_site_bwd.cu's shared memory fits one block at its
+    smallest (``fused_site_bwd.smem_bytes`` at one warp): one head's
+    zero-padded table in bf16 with its gradient in float32 (6 B an entry),
+    a strip of 32 queries (q and dO in float32, four words of geometry a
+    query) and the warp's float32 (32, ch) dq buffer. That is the size of
+    the kernel before its redesign, so the same sites fit; a block runs
+    more warps, each with its own dq buffer, only as far as shared memory
+    has room (``fused_site_bwd.tiling``)."""
     _, _, Ht, Wt = table_shape
-    need = (Ht + 2 * PAD) * padded_width(Wt, W) * 6 + 32 * (3 * ch + 4) * 4
+    need = _site_bwd_kernel.smem_bytes(Ht, padded_width(Wt, W), ch)
     return need <= SMEM_PER_BLOCK
 
 

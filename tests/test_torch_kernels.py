@@ -185,14 +185,23 @@ def test_fused_site_lse_kernel(cuda_device, ch, N, Wt, table_std):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ch,N,Wt,table_std", [
-    (4, 1960, 279, 0.01), (8, 196, 55, 0.01), (4, 300, 15, 0.01),
-    (8, 1960, 279, 1.0), (4, 784, 55, 1.0)])
-def test_fused_site_bwd_kernel_matches_plain(cuda_device, ch, N, Wt,
+@pytest.mark.parametrize("ch,N,H,Wt,table_std", [
+    (4, 1960, 28, 279, 0.01), (8, 196, 28, 55, 0.01), (4, 300, 8, 15, 0.01),
+    (8, 1960, 28, 279, 1.0), (4, 784, 28, 55, 1.0),
+    # the kernel's tile edges: N below one warp's 16 keys, N one key past a
+    # block of 256 or not a multiple of 16, H * W below or not a multiple of
+    # a strip of 32 queries (and H not dividing a thread's 8 rows)
+    (8, 10, 8, 15, 0.01), (4, 10, 8, 15, 1.0), (8, 257, 5, 9, 1.0),
+    (4, 257, 5, 9, 0.01), (8, 37, 6, 11, 0.01), (4, 37, 6, 11, 1.0),
+    (8, 300, 8, 15, 1.0),
+    # tables so wide that the dq buffers of only 4 warps (ch 8, Wt 390) or of
+    # one (ch 4, Wt 399) fit beside them: fewer warps, more key blocks
+    (8, 300, 28, 390, 0.01), (4, 300, 28, 399, 1.0)])
+def test_fused_site_bwd_kernel_matches_plain(cuda_device, ch, N, H, Wt,
                                              table_std):
     """Gradients of the fused training site through the kernels against
     autograd through ``site_plain`` and against ``site_bwd_online``."""
-    H = W = 28 if Wt != 15 else 8
+    W = H
     inputs = _inputs(10, 2, 4, 2, H, W, Wt, N, ch, cuda_device, table_std)
     table, k_pos, q, k, v = inputs
     scale = ch ** -0.5
