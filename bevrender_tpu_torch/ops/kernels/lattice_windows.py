@@ -23,6 +23,12 @@ from bevrender_tpu_torch.ops.kernels._launch import call, check
 launches = 0  # lattice_windows
 launches_bwd = 0  # lattice_windows_bwd
 
+# The backward's bucketing blocks (csrc/lattice_windows.cu): one warp
+# counter a bin for each of 32 warps, at a stride of 33 ints, in at most
+# BUCKET_TABLE_BYTES of shared memory (BUCKET_TABLE_BYTES there)
+BUCKET_WARP_STRIDE = 33
+BUCKET_TABLE_BYTES = 45 * 1024
+
 
 def window_rows(ys, ms, h1: int, Y: int, m_max: int) -> torch.Tensor:
     """Index (B, G, N, 3, h1), int64, of each window row in t3 viewed as
@@ -53,6 +59,78 @@ def lattice_windows_bwd_plain(gout, ys, ms, t3_shape, dtype) -> torch.Tensor:
                       device=gout.device)
     acc.index_put_((rows,), gout.reshape(-1, WH).float(), accumulate=True)
     return acc.view(t3_shape).to(dtype)
+
+
+def window_buckets(ys, ms, t3_shape, h1: int):
+    """The bucketing of ``lattice_windows_bwd_cuda`` in plain PyTorch: the
+    keys, ``(b * G + g) * N + n``, sorted stably by their bin ``(g * (m_max
+    - 2) + ms) * ny + ys`` (ny = Y - h1 + 1 starts a column), so that the
+    keys of one bin keep their order. Returns (keys (B * G * N,) int64 in
+    that order, offsets (G * (m_max - 2) * ny + 1,) int64: the keys of bin
+    i are ``keys[offsets[i]:offsets[i + 1]]``)."""
+    G, Y, m_max, _ = t3_shape
+    ny = Y - h1 + 1
+    g = torch.arange(G, device=ys.device).view(1, G, 1)
+    bins = ((g * (m_max - 2) + ms.long()) * ny + ys.long()).reshape(-1)
+    counts = torch.bincount(bins, minlength=G * (m_max - 2) * ny)
+    offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64,
+                          device=ys.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return torch.sort(bins, stable=True).indices, offsets
+
+
+def lattice_windows_bwd_ordered(gout, ys, ms, t3_shape,
+                                dtype) -> torch.Tensor:
+    """``lattice_windows_bwd_cuda`` step by step in PyTorch, a test oracle
+    that sums in the kernel's order: each row (g, y, m) of the t3 gradient
+    starts at 0.0 and adds, for mm = 0, 1, 2, the cotangent row (mm, y -
+    ys) of every key with ms = m - mm and ys in [y - h1 + 1, y], one at a
+    time in float32, in the order of ``window_buckets``; then it is cast
+    to ``dtype``. Equal to the kernel bit for bit; one loop step a
+    position of the longest row's list."""
+    G, Y, m_max, WH = t3_shape
+    h1 = gout.shape[4]
+    dev = gout.device
+    nm, ny = m_max - 2, Y - h1 + 1
+    keys, offsets = window_buckets(ys, ms, t3_shape, h1)
+    g = torch.arange(G, device=dev).view(G, 1, 1)
+    y = torch.arange(Y, device=dev).view(1, Y, 1)
+    m = torch.arange(m_max, device=dev).view(1, 1, m_max)
+    ylo = (y - h1 + 1).clamp(min=0)
+    yhi = y.clamp(max=ny - 1)
+    first, count = [], []  # per mm, the row's range of sorted keys
+    for mm in range(3):
+        s = m - mm
+        b = (g * nm + s.clamp(0, nm - 1)) * ny
+        lo, hi = offsets[b + ylo], offsets[b + yhi + 1]
+        first.append(lo)
+        count.append(torch.where((s >= 0) & (s < nm), hi - lo, 0))
+    end0, end1 = count[0], count[0] + count[1]
+    total = end1 + count[2]
+    ysk = ys.reshape(-1).long()
+    rows = gout.reshape(-1, WH)
+    acc = torch.zeros((G, Y, m_max, WH), dtype=torch.float32, device=dev)
+    for k in range(int(total.max()) if total.numel() else 0):
+        mm = (k >= end0).long() + (k >= end1).long()
+        pos = torch.where(mm == 0, first[0] + k, torch.where(
+            mm == 1, first[1] + k - end0, first[2] + k - end1))
+        live = k < total
+        key = keys[torch.where(live, pos, 0)]
+        row = torch.where(live, (key * 3 + mm) * h1 + y - ysk[key], 0)
+        # adding 0.0 leaves every sum as it is: none is ever -0.0
+        acc += torch.where(live[..., None], rows[row].float(), 0.0)
+    return acc.to(dtype)
+
+
+def bucket_columns(Y: int, h1: int) -> int:
+    """Columns of starts (ms) that one bucketing block of the backward
+    takes: as many as its count table, BUCKET_WARP_STRIDE ints a bin of
+    ny = Y - h1 + 1 starts a column, fits in BUCKET_TABLE_BYTES."""
+    per_column = (Y - h1 + 1) * BUCKET_WARP_STRIDE * 4
+    if per_column > BUCKET_TABLE_BYTES:
+        raise ValueError(f"lattice_windows_bwd_cuda: {Y - h1 + 1} row starts "
+                         f"a column, over the bucketing table")
+    return BUCKET_TABLE_BYTES // per_column
 
 
 def _check(fn: str, t3_shape, h1: int, ys, ms, dev, **tensors):
@@ -98,9 +176,12 @@ def lattice_windows_cuda(t3, ys, ms, h1: int) -> torch.Tensor:
 def lattice_windows_bwd_cuda(gout, ys, ms, t3_shape, dtype) -> torch.Tensor:
     """gout (B, G, N, 3, h1, WH) bf16, the cotangent of
     ``lattice_windows_cuda``'s output; ys, ms as there -> the gradient of
-    t3 (``t3_shape``) in ``dtype``: bf16, cast from the float32 sums, or
-    float32, the sums themselves. They run through float atomics: their
-    last bits vary from run to run."""
+    t3 (``t3_shape``) in ``dtype``: float32, the sums themselves, or bf16,
+    those sums rounded once. The keys are bucketed by start, then each row
+    of the gradient gathered from its keys' rows in a fixed order, with no
+    float atomic; so every run gives the same bits, those of
+    ``lattice_windows_bwd_ordered``. Two launches (one where a group has at
+    most 256 keys, which each block sorts itself), counted once."""
     global launches_bwd
     G, Y, m_max, WH = t3_shape
     dev = gout.device
@@ -114,10 +195,16 @@ def lattice_windows_bwd_cuda(gout, ys, ms, t3_shape, dtype) -> torch.Tensor:
         raise TypeError(f"lattice_windows_bwd_cuda: dtype {dtype}, expected "
                         f"bfloat16 or float32")
     _check("lattice_windows_bwd_cuda", t3_shape, h1, ys, ms, dev, gout=gout)
-    acc = torch.empty(tuple(t3_shape), dtype=torch.float32, device=dev)
-    cast = dtype == torch.bfloat16
-    out = torch.empty(tuple(t3_shape), dtype=dtype, device=dev) if cast else acc
+    if B * G * N * 3 * h1 >= 2 ** 31:
+        raise ValueError(f"lattice_windows_bwd_cuda: {B * G * N} keys of "
+                         f"{3 * h1} rows, over 32-bit row indices")
+    msb = bucket_columns(Y, h1)
+    keys = torch.empty(B * G * N, dtype=torch.int32, device=dev)
+    offsets = torch.empty(G * (m_max - 2) * (Y - h1 + 1) + 1,
+                          dtype=torch.int32, device=dev)
+    out = torch.empty(tuple(t3_shape), dtype=dtype, device=dev)
     call("lattice_windows", "lattice_windows_bwd_launch",
-         (gout, ys, ms, acc, out, B * G * N, G, N, Y, m_max, h1, WH, int(cast)))
+         (gout, ys, ms, keys, offsets, out, B, G, N, Y, m_max, h1, WH, msb,
+          int(dtype == torch.bfloat16)))
     launches_bwd += 1
     return out

@@ -104,8 +104,11 @@ Phases, each fatal on failure:
     version at every shape the bias sees (the flagship's serving and
     training shapes, the pyramid's SCA 56 and BEV 7), ``lattice_windows_bwd``
     within BWD_SUM_TOL of its plain version at the training shapes and the
-    pyramid's SCA 56; the windowed bias equal to the plain bias and within
-    WINDOWED_TOL of ``lattice_bias.cu`` / ``lattice_bias_wide.cu``; kernel,
+    pyramid's SCA 56, bit-equal there to a second run and to
+    ``lattice_windows_bwd_ordered`` (its order of sums in PyTorch), with
+    the largest bin of its starts; the windowed bias equal to the plain
+    bias and within WINDOWED_TOL of ``lattice_bias.cu`` /
+    ``lattice_bias_wide.cu``; kernel,
     plain, library and bound times; then the pyramid serving with
     ``bias_forward="windows"`` (PYR_WINDOWS_REQUESTS requests): 88
     ``lattice_windows`` per forward, the render equal to its plain-windows
@@ -1529,14 +1532,30 @@ def windows_bounds(keys, G, Y, m_max, WH, h1, backward: bool):
     every window (keys x 3 x h1 x WH bf16) and reads t3 (bf16) and 8 bytes of
     starts a key; the backward reads every window's cotangent (bf16) and the
     starts and writes the t3 gradient (bf16), against one float32 add per
-    cotangent entry. The kernel's float32 accumulator (zeroed, read back for
-    the cast) is its design, not the function's, and is not counted."""
+    cotangent entry. The backward's bucketed keys and bin offsets (4 bytes a
+    key and a bin, written and read again) are its design, not the
+    function's, and are not counted."""
     win = keys * 3 * h1 * WH
     t3 = G * Y * m_max * WH
     nbytes = win * 2 + t3 * 2 + keys * 8
     ops = win if backward else 0
     by = "bytes" if nbytes / HBM_BPS >= ops / F32_FLOPS else "operations"
     return max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3, by
+
+
+def window_starts(ys, ms, t3_shape, h1) -> dict:
+    """How one call's window starts fall: the keys, the largest bin (keys
+    sharing one start (g, ms, ys)) and the share of keys whose ms is
+    clipped to the first or last start (``lattice_geometry``'s clamp)."""
+    import torch
+
+    G, Y, m_max, _ = t3_shape
+    g = torch.arange(G, device=ys.device).view(1, G, 1)
+    bins = ((g * (m_max - 2) + ms.long()) * (Y - h1 + 1) + ys.long())
+    clipped = int(((ms == 0) | (ms == m_max - 3)).sum())
+    return dict(keys=bins.numel(),
+                largest_bin=int(torch.bincount(bins.reshape(-1)).max()),
+                clipped_share=clipped / bins.numel())
 
 
 # Every shape the bias sees in phases 3, 6, 10 (and so 23-25): (name, H,
@@ -1561,9 +1580,11 @@ def check_windows(da, kernels) -> tuple:
     every shape of WINDOW_SITES; ``lattice_windows_bwd`` against
     ``lattice_windows_bwd_plain`` at the training shapes and the pyramid's
     SCA 56, its float32 sums within BWD_SUM_TOL of the largest entry and its
-    bf16 result within one bf16 ulp; kernel, plain, library
-    (``index_select`` / ``index_add_`` of t3's rows) and bound times, the
-    kernels and the library calls by ``queued_ms``. Then
+    bf16 result within one bf16 ulp, and, in both types, bit-equal to a
+    second run and to ``lattice_windows_bwd_ordered``; kernel, plain,
+    library (``index_select`` / ``index_add_`` of t3's rows) and bound
+    times, the kernels and the library calls by ``queued_ms``, and how the
+    starts fall (``window_starts``). Then
     the windowed bias at the serving and pyramid shapes and two table
     scales: equal to ``lattice_bias_plain`` in bf16, and within WINDOWED_TOL
     of the bias kernel of the site's route; both biases' times. Returns the
@@ -1621,7 +1642,21 @@ def check_windows(da, kernels) -> tuple:
                 out.float().abs(), refb.abs()) * BIAS_ULP).all())
             ok = e_rel <= BWD_SUM_TOL and ulp and bool(
                 torch.isfinite(acc).all()) and float(ref.abs().max()) > 0
-            del acc, ref, refb, out
+            del ref, refb
+            # the same bits on a second run, and those of the ordered mirror
+            repeat = torch.equal(acc, lw.lattice_windows_bwd_cuda(
+                gout, ys, ms, t3.shape, torch.float32)) and torch.equal(
+                out, lw.lattice_windows_bwd_cuda(gout, ys, ms, t3.shape,
+                                                 torch.bfloat16))
+            t0 = time.perf_counter()
+            mirror = lw.lattice_windows_bwd_ordered(gout, ys, ms, t3.shape,
+                                                    torch.float32)
+            ordered = torch.equal(acc, mirror) and torch.equal(
+                out, mirror.to(torch.bfloat16))
+            mirror_s = time.perf_counter() - t0
+            ok = ok and repeat and ordered
+            del acc, out, mirror
+            starts = window_starts(ys, ms, t3.shape, h1)
             launch = lambda: lw.lattice_windows_bwd_cuda(  # noqa: E731
                 gout, ys, ms, t3.shape, torch.bfloat16)
             ms_b = queued_ms(launch, 10)
@@ -1636,15 +1671,21 @@ def check_windows(da, kernels) -> tuple:
                                plain_ms=plain_b, library_ms=lib_b,
                                bound_ms=bound_b, bound_by=by_b,
                                per_step=per_bwd, max_abs_err=e_abs,
-                               rel_err=e_rel))
+                               rel_err=e_rel, repeat_equal=repeat,
+                               ordered_equal=ordered, **starts))
             worst_b = max(worst_b, e_abs)
             print(f"lattice_windows_bwd {name}: float32 sums rel err "
                   f"{e_rel:.3g} (abs {e_abs:.3g}), bf16 result "
-                  f"{'within' if ulp else 'BEYOND'} one ulp "
+                  f"{'within' if ulp else 'BEYOND'} one ulp; two runs "
+                  f"{'bit-equal' if repeat else 'DIFFER'}; "
+                  f"{'equal to' if ordered else 'DIFFERS FROM'} "
+                  f"lattice_windows_bwd_ordered ({mirror_s:.1f} s) "
                   f"({'ok' if ok else 'FAIL'}); kernel {ms_b:.4f} ms plain "
                   f"{plain_b:.4f} ms index_add_ "
                   f"{lib_b:.4f} ms bound {bound_b:.4f} ms ({by_b}) "
-                  f"x{per_bwd}/step", flush=True)
+                  f"x{per_bwd}/step; largest bin {starts['largest_bin']} of "
+                  f"{starts['keys']} keys, clipped ms "
+                  f"{starts['clipped_share']:.4f}", flush=True)
             if not ok:
                 bad.append(f"lattice_windows_bwd {name}")
         del t3, rows, flat, table, k_pos

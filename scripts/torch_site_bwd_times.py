@@ -1,20 +1,30 @@
-"""Time the port's fused site backward kernel (csrc/fused_site_bwd.cu)
-through its wrapper at the four shapes a flagship training step gives it
-(``chip_smoke.TRAIN_SITE_SITES``), on one CUDA card.
+"""Time a backward kernel of the port through its wrapper on one CUDA card:
+the fused site backward (csrc/fused_site_bwd.cu, ``--kernel site_bwd``, the
+default) at the four shapes a flagship training step gives it
+(``chip_smoke.TRAIN_SITE_SITES``), or the window scatter-add backward
+(csrc/lattice_windows.cu, ``--kernel windows_bwd``) at the shapes
+``chip_smoke``'s phase 25 times it: every training shape of the windowed
+bias and the pyramid's SCA 56 (rows of ``chip_smoke.WINDOW_SITES``), with
+``index_add_`` of the same cotangent rows into float32 beside it.
 
-    python3 scripts/torch_site_bwd_times.py [--root DIR] [--sass]
+    python3 scripts/torch_site_bwd_times.py [--kernel K] [--root DIR] [--sass]
 
 ``--root`` names the checkout whose ``bevrender_tpu_torch`` is built and
 timed (default: this one): for example an older commit unpacked with
 ``git archive`` into a git-ignored directory, or a copy of the tree with
 the kernel's source edited. To compare two builds, run the script once for
 each back to back on one card, in the order A, B, B, A. The inputs are
-``chip_smoke.site_inputs`` with fixed seeds, the same for every root; each
-time is the least of three ``chip_smoke.queued_ms`` readings of five
-wrapper calls (the zero-fills of its outputs included). ``--sass`` also
-prints the build's ``ptxas`` register report and, in the SASS of its
-``ch = 8`` kernel, the count of each shared-memory atomic, shuffle and mma
-opcode. The last line is one JSON object with the card and the times.
+chip_smoke's with fixed seeds (``site_inputs``; for the windows those of
+its phase 25), the same for every root; each time is the least of three
+``chip_smoke.queued_ms`` readings of five wrapper calls (the zero-fills
+and scratch of its outputs included). ``--sass`` also prints the build's
+``ptxas`` register report and opcode counts from its SASS: for the site
+backward, each shared-memory atomic, shuffle and mma opcode of its ``ch =
+8`` kernel; for the windows backward, each atomic and reduction opcode of
+every backward kernel, and how many of them act on floats. The windows
+also print the largest bin of their starts (keys sharing one (g, ms, ys))
+and the share of keys whose ms is clipped to the table's first or last
+start. The last line is one JSON object with the card and the times.
 """
 
 from __future__ import annotations
@@ -33,57 +43,52 @@ REPO = Path(__file__).resolve().parents[1]
 SASS_OP = r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
 
 
-def sass_counts(lib: Path) -> dict:
-    """Opcode counts of interest in the ch = 8 instance of the kernel."""
+def sass_functions(lib: Path) -> dict:
+    """{mangled kernel name: Counter of its SASS opcodes} of a library."""
     from bevrender_tpu_torch.ops.kernels.build import _nvcc
 
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                          capture_output=True, text=True, check=True).stdout
-    funcs = re.split(r"\n\s*Function : ", out)
-    body = next(f for f in funcs if "site_bwd_kernel" in f.split("\n")[0]
-                and "ILi8E" in f.split("\n")[0])
-    ops = collections.Counter(m.group(1) for m in
-                              map(lambda ln: re.match(SASS_OP, ln),
-                                  body.splitlines()) if m)
+    funcs = {}
+    for f in re.split(r"\n\s*Function : ", out)[1:]:
+        name, _, rest = f.partition("\n")
+        funcs[name.strip()] = collections.Counter(
+            m.group(1) for m in map(lambda ln: re.match(SASS_OP, ln),
+                                    rest.splitlines()) if m)
+    return funcs
+
+
+def sass_counts(lib: Path) -> dict:
+    """Opcode counts of interest in the ch = 8 instance of the site
+    backward kernel."""
+    ops = next(c for n, c in sass_functions(lib).items()
+               if "site_bwd_kernel" in n and "ILi8E" in n)
     keep = ("ATOMS", "ATOM.", "RED", "SHFL", "HMMA", "MOVM")
     return {k: v for k, v in sorted(ops.items()) if k.startswith(keep)}
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", type=Path, default=REPO)
-    ap.add_argument("--sass", action="store_true")
-    args = ap.parse_args()
-    root = args.root.resolve()
-    sys.path.insert(0, str(root))
+def windows_sass(lib: Path) -> dict:
+    """Atomic and reduction opcodes of every windows backward kernel (a
+    name with "bwd"), and the number of them that act on floats (an F32
+    type, or a compare-and-swap, which is how sm_90a adds a float into
+    shared memory)."""
+    res = {}
+    for name, ops in sass_functions(lib).items():
+        if "bwd" not in name:
+            continue
+        atom = {k: v for k, v in sorted(ops.items())
+                if k.startswith(("ATOM", "RED"))}
+        res[name] = dict(ops=atom, float_atomics=sum(
+            v for k, v in atom.items() if "F32" in k or "CAS" in k))
+    return res
+
+
+def site_bwd_times(cs, card: str, result: dict) -> None:
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
     from bevrender_tpu_torch.ops import deform_attn as da
     from bevrender_tpu_torch.ops import kernels
-    from bevrender_tpu_torch.ops.kernels import build
-
-    if not Path(kernels.__file__).resolve().is_relative_to(root):
-        raise SystemExit(f"bevrender_tpu_torch not taken from {root}")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(f"card: {card}; root: {root}", flush=True)
-    proc, lib, tmp = build._start("fused_site_bwd")
-    log = build._finish("fused_site_bwd", proc, lib, tmp)
-    result = {"card": card, "root": str(root), "ms": {}}
-    if args.sass:
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-                print(f"ptxas: {ln.strip()}", flush=True)
-        result["sass_ch8"] = sass_counts(lib)
-        print(f"sass (ch 8): {result['sass_ch8']}", flush=True)
 
     bf = torch.bfloat16
     for i, (name, B, G, ch, N, Wt, per_step) in enumerate(
@@ -111,6 +116,100 @@ def main() -> None:
               flush=True)
         del table, k_pos, q, k, v, kargs, dout, lse, dsum, out
         torch.cuda.empty_cache()
+
+
+def windows_bwd_times(cs, card: str, result: dict) -> None:
+    import torch
+
+    from bevrender_tpu_torch.ops import deform_attn as da
+    from bevrender_tpu_torch.ops.kernels import lattice_windows as lw
+
+    result["starts"], result["library_ms"] = {}, {}
+    for i, (name, Hs, B, G, N, Wt, _, _, per_bwd) in enumerate(
+            cs.WINDOW_SITES):
+        if not (per_bwd or name.startswith("pyramid_sca56")):
+            continue  # phase 25 times #15 at these shapes only
+        table, k_pos, _ = cs.bias_inputs(130 + i, B, G, N, Wt, Hs,
+                                         cs.SITE_TABLE_STDS[0])
+        ys, ms, _, _ = da.lattice_geometry(table.shape, k_pos, Hs, Hs)
+        ys, ms = ys.contiguous(), ms.contiguous()
+        t3 = da.lattice_t3(table, Hs, torch.bfloat16)
+        h1 = Hs + 1
+        gen = torch.Generator(device="cuda").manual_seed(150 + i)
+        gout = torch.randn((B, G, N, 3, h1, t3.shape[3]), generator=gen,
+                           device="cuda").bfloat16()
+
+        def bwd(gout=gout, ys=ys, ms=ms, shape=t3.shape):
+            return lw.lattice_windows_bwd_cuda(gout, ys, ms, shape,
+                                               torch.bfloat16)
+
+        t = min(cs.queued_ms(bwd, 5) for _ in range(3))
+        G, Y, m_max, WH = t3.shape
+        rows = lw.window_rows(ys, ms, h1, Y, m_max).reshape(-1)
+        gf = gout.reshape(-1, WH).float()
+        buf = torch.zeros(G * Y * m_max, WH, device="cuda")
+        lib = min(cs.queued_ms(lambda: buf.index_add_(0, rows, gf), 5)
+                  for _ in range(3))
+        starts = cs.window_starts(ys, ms, t3.shape, h1)
+        result["ms"][name] = t
+        result["library_ms"][name] = lib
+        result["starts"][name] = starts
+        print(f"{name} (x{per_bwd} a step): {t:.4f} ms, index_add_ "
+              f"{lib:.4f} ms; largest bin "
+              f"{starts['largest_bin']} keys, clipped ms "
+              f"{starts['clipped_share']:.4f} of {starts['keys']} [{card}]",
+              flush=True)
+        del table, k_pos, ys, ms, t3, gout, rows, gf, buf
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=("site_bwd", "windows_bwd"),
+                    default="site_bwd")
+    ap.add_argument("--root", type=Path, default=REPO)
+    ap.add_argument("--sass", action="store_true")
+    args = ap.parse_args()
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.ops.kernels import build
+
+    if not Path(kernels.__file__).resolve().is_relative_to(root):
+        raise SystemExit(f"bevrender_tpu_torch not taken from {root}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}; root: {root}; kernel: {args.kernel}", flush=True)
+    source = ("fused_site_bwd" if args.kernel == "site_bwd"
+              else "lattice_windows")
+    proc, lib, tmp = build._start(source)
+    log = build._finish(source, proc, lib, tmp)
+    result = {"card": card, "root": str(root), "kernel": args.kernel,
+              "ms": {}}
+    if args.sass:
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                print(f"ptxas: {ln.strip()}", flush=True)
+        if args.kernel == "site_bwd":
+            result["sass_ch8"] = sass_counts(lib)
+            print(f"sass (ch 8): {result['sass_ch8']}", flush=True)
+        else:
+            result["sass"] = windows_sass(lib)
+            for name, rec in result["sass"].items():
+                print(f"sass {name}: {rec}", flush=True)
+    if args.kernel == "site_bwd":
+        site_bwd_times(cs, card, result)
+    else:
+        windows_bwd_times(cs, card, result)
     print(json.dumps(result), flush=True)
 
 

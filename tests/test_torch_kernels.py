@@ -638,6 +638,40 @@ def test_window_kernels_match_plain(cuda_device, B, G, Hpg, H, Wt, N):
                 .all())
 
 
+# and #15's gather beyond them: rows of 112 (the pyramid's SCA 56, 16 lanes
+# a row) and of 33 values (2-byte vectors, more than one warp's width), on
+# both of its paths (groups of more than 256 keys bucketed first, B * N =
+# 300; smaller ones sorted in each block, B * N = 100), and the training
+# TSA G=1 (32 keys)
+WINDOW_BWD_SHAPES = WINDOW_SHAPES + [(2, 1, 2, 56, 559, 300),
+                                     (1, 1, 1, 33, 65, 300),
+                                     (1, 1, 1, 33, 65, 100),
+                                     (2, 1, 2, 28, 55, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,Hpg,H,Wt,N", WINDOW_BWD_SHAPES)
+def test_window_bwd_kernel_equals_ordered_mirror(cuda_device, B, G, Hpg, H,
+                                                 Wt, N):
+    """``lattice_windows_bwd`` sums every row of the t3 gradient in a fixed
+    order, with no float atomic: it equals ``lattice_windows_bwd_ordered``,
+    which repeats that order in PyTorch, bit for bit in float32 and in
+    bf16, and two calls give the same bits."""
+    _, _, t3, ys, ms = _windows_inputs(28, B, G, Hpg, H, Wt, N, cuda_device)
+    lw = kernels.lattice_windows
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    gout = torch.randn((B, G, N, 3, H + 1, H * Hpg), generator=gen,
+                       device="cuda").bfloat16()
+    for dtype in (torch.float32, torch.bfloat16):
+        first = lw.lattice_windows_bwd_cuda(gout, ys, ms, t3.shape, dtype)
+        again = lw.lattice_windows_bwd_cuda(gout, ys, ms, t3.shape, dtype)
+        ref = lw.lattice_windows_bwd_ordered(gout, ys, ms, t3.shape, dtype)
+        torch.cuda.synchronize()
+        assert first.dtype == dtype and float(ref.abs().max()) > 0
+        assert torch.equal(first, again)
+        assert torch.equal(first, ref)
+
+
 @pytest.mark.cuda
 def test_windowed_bias_runs_on_the_window_kernels(cuda_device, monkeypatch):
     """``lattice_bias_windowed`` on CUDA tensors launches one window kernel

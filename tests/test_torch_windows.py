@@ -89,11 +89,11 @@ def _jax_t3(table, W, dtype):
                                                     W * Hpg)
 
 
-def _windows_case(seed, H, dtype):
+def _windows_case(seed, H, dtype, Hpg=2):
     """The port's t3 of a real table in ``dtype`` (checked against the JAX
     package's construction) and the clipped starts of real key positions
     (checked against the JAX package's geometry)."""
-    table, k_pos = _site_inputs(seed, H)
+    table, k_pos = _site_inputs(seed, H, Hpg=Hpg)
     tdt, jdt = BF16[dtype]
     t3 = tda.lattice_t3(_t(table), H, tdt)
     ref = _jax_t3(np.asarray(jnp.asarray(table).astype(jdt)), H, jdt)
@@ -153,6 +153,81 @@ def test_windows_bwd_plain_matches_pallas_vjp(H, dtype):
         np.testing.assert_array_less(
             np.abs(got - ref), np.maximum(np.abs(got), np.abs(ref)) * 2.0 ** -7
             + 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hpg", [(8, 2), (7, 1)])
+def test_windows_bwd_ordered_matches_plain_and_pallas_vjp(H, Hpg, dtype):
+    """``lattice_windows_bwd_ordered`` (kernel #15's summation order,
+    step by step) computes the scatter-add of ``lattice_windows_bwd_plain``
+    and of ``jax.vjp`` of the Pallas function in interpret mode, on a bf16
+    cotangent (the kernel's input) at B = G = 2, with starts clipped at both
+    ends of both axes, bins of several keys and empty bins, rows of 16 and
+    of 7 (odd) values. In float32 each entry is within the bound on two
+    orders of one float32 sum, 2 (n - 1) 2^-24 of its sum of |terms| for n
+    terms; in bf16 within one bf16 ulp of each entry (a last-bit difference
+    of the float32 sum can flip its rounding)."""
+    t3, ys, ms, t3j = _windows_case(50 + H, H, dtype, Hpg)
+    tdt, jdt = BF16[dtype]
+    G, Y, m_max, WH = t3.shape
+    assert WH == H * Hpg
+    _, offsets = tlw.window_buckets(ys, ms, t3.shape, H + 1)
+    counts = offsets[1:] - offsets[:-1]
+    assert int(counts.max()) >= 2 and int(counts.min()) == 0
+    rng = np.random.default_rng(60 + H)
+    gout = _t(rng.standard_normal((2, 2, 50, 3, H + 1, WH))).bfloat16()
+    got = tlw.lattice_windows_bwd_ordered(gout, ys, ms, t3.shape, tdt)
+    plain = tlw.lattice_windows_bwd_plain(gout, ys, ms, t3.shape, tdt)
+    _, vjp = jax.vjp(lambda t: lattice_windows(
+        t, jnp.asarray(ys.numpy()), jnp.asarray(ms.numpy()), H + 1, True), t3j)
+    (ref,) = vjp(jnp.asarray(gout.float().numpy()).astype(jdt))
+    assert got.dtype == tdt and got.shape == t3.shape
+    ref = np.asarray(ref.astype(jnp.float32))
+    got, plain = got.float().numpy(), plain.float().numpy()
+    assert np.abs(ref).max() > 0
+    if dtype == "float32":
+        gabs = gout.float().abs()
+        abs_sum = tlw.lattice_windows_bwd_plain(gabs, ys, ms, t3.shape,
+                                                torch.float32).numpy()
+        n = tlw.lattice_windows_bwd_plain(torch.ones_like(gabs), ys, ms,
+                                          t3.shape, torch.float32).numpy()
+        bound = 2 * np.maximum(n - 1, 0) * 2.0 ** -24 * abs_sum
+        for want in (plain, ref):
+            assert (np.abs(got - want) <= bound).all()
+    else:
+        for want in (plain, ref):
+            np.testing.assert_array_less(
+                np.abs(got - want),
+                np.maximum(np.abs(got), np.abs(want)) * 2.0 ** -7 + 1e-30)
+
+
+@pytest.mark.parametrize("B,G,H,N", [(2, 2, 8, 50), (3, 1, 7, 80)])
+def test_window_buckets_are_a_stable_sort_by_start(B, G, H, N):
+    """The bucketing of kernel #15 (``window_buckets``) is a permutation of
+    the keys in which each bin (g, ms, ys) is one contiguous range, the
+    bins in order, and the keys of a bin in key order; every key lands
+    where a counting sort puts it (the bin's start plus the number of
+    earlier keys in that bin), which is what the kernel's placement
+    computes."""
+    table, k_pos = _site_inputs(80 + H, H, B=B, G=G, N=N)
+    ys, ms, _, _ = tda.lattice_geometry(table.shape, _t(k_pos), H, H)
+    t3 = tda.lattice_t3(_t(table), H, torch.bfloat16)
+    G, Y, m_max, _ = t3.shape
+    ny, nbins = Y - H, G * (m_max - 2) * (Y - H)
+    keys, offsets = tlw.window_buckets(ys, ms, t3.shape, H + 1)
+    assert sorted(keys.tolist()) == list(range(B * G * N))
+    assert offsets.shape == (nbins + 1,)
+    assert int(offsets[0]) == 0 and int(offsets[-1]) == B * G * N
+    ysf, msf = ys.reshape(-1).tolist(), ms.reshape(-1).tolist()
+    bin_of = [((k // N) % G * (m_max - 2) + msf[k]) * ny + ysf[k]
+              for k in range(B * G * N)]
+    seen = [0] * nbins
+    for key in range(B * G * N):
+        b = bin_of[key]
+        assert int(keys[int(offsets[b]) + seen[b]]) == key
+        seen[b] += 1
+    assert seen == (offsets[1:] - offsets[:-1]).tolist()
+    assert max(seen) >= 2 and min(seen) == 0
 
 
 @pytest.mark.parametrize("H", [8, 7])
