@@ -65,7 +65,12 @@ from bevrender_tpu_torch.ops.kernels import fused_site_wide as _wide_site_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias as _bias_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias_bwd as _bias_bwd_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_windows as _win_kernel
-from bevrender_tpu_torch.ops.kernels._launch import PAD, SMEM_PER_BLOCK
+from bevrender_tpu_torch.ops.kernels._launch import (
+    PAD,
+    SMEM_PER_BLOCK,
+    padded_width,
+    window_width,
+)
 
 # float32 constants of the site kernels, which keep their scores in base 2
 LOG2E = float(np.float32(1.4426950408889634))
@@ -80,15 +85,8 @@ def static_comb(table_shape, W: int):
     u_shift = Ax * (-1.0 + 2.0 * np.arange(W) / (W - 1)) + Ax
     u0 = np.floor(u_shift).astype(np.int32)
     g = (u_shift - u0).astype(np.float32)
-    m_max = int(np.ceil((Wt - 1) / 2.0)) + 3 + PAD
+    m_max = window_width(Wt)
     return u0, g, m_max
-
-
-def padded_width(Wt: int, W: int) -> int:
-    """Columns of the zero-padded table that the window reads come from:
-    PAD on the left, max(PAD, m_max) on the right."""
-    _, _, m_max = static_comb((0, 0, 0, Wt), W)
-    return Wt + PAD + max(PAD, m_max)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,7 +129,7 @@ def lattice_t3(table: torch.Tensor, W: int,
     u0, _ = _comb_tensors(Wt, W, table.device)
     _, _, m_max = static_comb(table.shape, W)
     tp = torch.nn.functional.pad(
-        table.to(compute_dtype), (PAD, padded_width(Wt, W) - Wt - PAD, PAD, PAD)
+        table.to(compute_dtype), (PAD, padded_width(Wt) - Wt - PAD, PAD, PAD)
     )  # (G, Hpg, Yp, Xp)
     cols = u0.long() + torch.arange(m_max, device=table.device)[:, None]
     t3 = tp[:, :, :, cols]  # (G, Hpg, Yp, m_max, W)
@@ -315,7 +313,7 @@ def _geometry_args(table, k_pos, H: int, W: int):
     ys, ms, wy, f = lattice_geometry(table.shape, k_pos, H, W)
     u0, g = _comb_tensors(table.shape[3], W, table.device)
     return (ys.contiguous(), ms.contiguous(), wy.contiguous(), f.contiguous(),
-            u0, g, padded_width(table.shape[3], W))
+            u0, g, padded_width(table.shape[3]))
 
 
 def _kernel_args(table, k_pos, H: int, W: int):
@@ -337,7 +335,7 @@ def bias_route(table_shape, H: int, W: int) -> str:
     forward); its TSA at BEV 56 (84 KB forward, 126 KB backward) and every
     flagship site are whole."""
     _, Hpg, Ht, Wt = table_shape
-    padded = (Ht + 2 * PAD) * padded_width(Wt, W)
+    padded = (Ht + 2 * PAD) * padded_width(Wt)
     fits = max(Hpg * padded * 2, padded * 6) <= SMEM_PER_BLOCK
     return "whole" if fits else "wide"
 
@@ -352,7 +350,7 @@ def site_route(table_shape, H: int, W: int, ch: int) -> str:
     the largest table, the pyramid's SCA at BEV 56, needs 202 KB; a narrow
     head at BEV 64 with depth 5 (127 x 639) would need 262 KB."""
     _, _, Ht, Wt = table_shape
-    need = ((Ht + 2 * PAD) * padded_width(Wt, W) * 2
+    need = ((Ht + 2 * PAD) * padded_width(Wt) * 2
             + _fused_site_kernel.KEY_TILE * (2 * ch + 3) * 4)
     return "whole" if need <= SMEM_PER_BLOCK else "wide"
 
@@ -367,7 +365,7 @@ def _site_bwd_fits(table_shape, W: int, ch: int) -> bool:
     more warps, each with its own dq buffer, only as far as shared memory
     has room (``fused_site_bwd.tiling``)."""
     _, _, Ht, Wt = table_shape
-    need = _site_bwd_kernel.smem_bytes(Ht, padded_width(Wt, W), ch)
+    need = _site_bwd_kernel.smem_bytes(Ht, padded_width(Wt), ch)
     return need <= SMEM_PER_BLOCK
 
 
@@ -466,7 +464,7 @@ def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
         if not training:
             if route == "whole":
                 rows_fold = _fold_kernel.rows_fit(
-                    Hpg, Ht, padded_width(Wt, W), W, ch)
+                    Hpg, Ht, padded_width(Wt), W, ch)
                 return ("fused_site_fold_rows"
                         if options.site_fold_rows and rows_fold
                         else "fused_site",)

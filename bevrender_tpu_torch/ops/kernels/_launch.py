@@ -49,6 +49,19 @@ def check_geometry(fn: str, table, ys, ms, wy, f, u0, g, H: int, W: int,
         raise ValueError(f"{fn} takes CUDA tensors")
 
 
+def window_width(Wt: int) -> int:
+    """m_max of the lattice lookup (``ops.deform_attn.static_comb``): the
+    columns of the padded table that one query column's window spans."""
+    return -(-(Wt - 1) // 2) + 3 + PAD
+
+
+def padded_width(Wt: int) -> int:
+    """Row pitch of the zero-padded table that the window reads come from
+    and the whole-table kernels stage: PAD columns on the left, max(PAD,
+    m_max) on the right."""
+    return Wt + PAD + max(PAD, window_width(Wt))
+
+
 def window_columns(Wt: int) -> tuple:
     """(CW, Xs) of a key's window in the prefetch kernels: its queries read
     the columns ms .. ms + max(u0) + 2 of the padded table, CW is the width
@@ -56,10 +69,9 @@ def window_columns(Wt: int) -> tuple:
     row pitch (a multiple of 8) of the pitched zero-padded table
     (csrc/lattice_ring.cuh) that every such chunk lies in."""
     u_max = (Wt - 1) // 2  # u0 of the last query column
-    m_max = -(-(Wt - 1) // 2) + 3 + PAD  # as ops.deform_attn.static_comb
+    m_max = window_width(Wt)
     CW = -(-(u_max + 3 + 7) // 8) * 8
-    Xp = Wt + PAD + max(PAD, m_max)
-    return CW, -(-max(Xp, m_max - 3 + CW) // 8) * 8
+    return CW, -(-max(padded_width(Wt), m_max - 3 + CW) // 8) * 8
 
 
 _fns: dict = {}

@@ -26,6 +26,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// One copy of BYTES (4, 8 or 16) from device memory into shared memory that
+// completes asynchronously (cached in L1 and L2); both addresses aligned to
+// BYTES.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "4, 8 or 16 bytes");
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
 // Close this thread's copies issued since the last commit into one group.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -1,9 +1,10 @@
 // Shared pieces of the fused-site forward kernels (fused_site.cu,
 // fused_site_wide.cu, fused_site_wide_prefetch.cu, and the folded
-// fused_site_fold_rows.cu and fused_site_fold_heads.cu, whose threads carry
-// every head of their query): one thread per query, the keys in tiles of KT
-// staged in shared memory, an online softmax in base 2. The kernels differ
-// only in where a pair's bias comes from.
+// fused_site_fold_rows.cu and fused_site_fold_heads.cu, some of whose
+// threads carry every head of their query): one thread per query, the keys
+// in tiles of KT staged in shared memory, an online softmax in base 2. The
+// kernels differ only in where a pair's bias comes from and how the tile is
+// staged.
 //
 // Every float32 step is written with an explicit rounding (fmaf for q . k
 // and for scale * qk + bias, then one rounded multiply by log2 e; the
@@ -12,7 +13,8 @@
 // three kernels give the same output and logsumexp bit for bit. p = exp2(s
 // - running max) is rounded to bf16 before it multiplies V, as the Pallas
 // kernels round it; l sums the unrounded p. The folded kernels run the same
-// steps per head (`scores_heads`, `update`), so they equal the others too.
+// steps per head (`scores_heads`, `update`, `update_rows`), so they equal
+// the others too.
 #pragma once
 
 #include "lattice_common.cuh"
@@ -56,11 +58,12 @@ __device__ __forceinline__ float score(const float (&qf)[CH], const float* kj,
   return __fmul_rn(__fmaf_rn(scale, qk, bias), LOG2E);
 }
 
-// Fold the base-2 scores s[0 .. nk) of one tile of keys (their values sv
-// as `stage_kv` left them) into the state.
-template <int CH>
-__device__ __forceinline__ void update(Online<CH>& st, const float (&s)[KT],
-                                       const float* sv, int nk) {
+// Fold the base-2 scores s[0 .. nk) of one tile of keys into the state:
+// `vrow(j, vj)` writes the value row of the tile's key j into vj[CH].
+template <int CH, class VRow>
+__device__ __forceinline__ void update_rows(Online<CH>& st,
+                                            const float (&s)[KT], int nk,
+                                            VRow vrow) {
   float tmax = -1e30f;
 #pragma unroll
   for (int j = 0; j < KT; ++j)
@@ -76,12 +79,23 @@ __device__ __forceinline__ void update(Online<CH>& st, const float (&s)[KT],
       const float p = exp2f(__fsub_rn(s[j], mnew));
       st.l = __fadd_rn(st.l, p);
       const float pb = __bfloat162float(__float2bfloat16_rn(p));
+      float vj[CH];
+      vrow(j, vj);
 #pragma unroll
-      for (int c = 0; c < CH; ++c)
-        st.o[c] = __fmaf_rn(pb, sv[j * CH + c], st.o[c]);
+      for (int c = 0; c < CH; ++c) st.o[c] = __fmaf_rn(pb, vj[c], st.o[c]);
     }
   }
   st.m = mnew;
+}
+
+// `update_rows` with the values sv as `stage_kv` left them.
+template <int CH>
+__device__ __forceinline__ void update(Online<CH>& st, const float (&s)[KT],
+                                       const float* sv, int nk) {
+  update_rows(st, s, nk, [&](int j, float (&vj)[CH]) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) vj[c] = sv[j * CH + c];
+  });
 }
 
 // One tile of nk keys (sk, sv as `stage_kv` left them) for the query qf:

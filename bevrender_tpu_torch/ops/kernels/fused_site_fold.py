@@ -17,10 +17,15 @@ plain versions are ``ops.deform_attn.site_plain`` and ``site_plain_lse``.
 A site folds where Hpg * W <= FOLD_WIDTH (the JAX package's condition: one
 query row of every head in one 128-lane block) and the kernels have an
 instance for Hpg (``folds``); its shared memory must fit as well
-(``rows_fit``, ``heads_fit``). The wrappers refuse any other site.
+(``rows_fit``, ``heads_fit``). The wrappers refuse any other site. The
+head-folded kernels take one of two paths, by the shapes alone
+(``heads_plan``): every head's whole padded table in shared memory where
+they fit one block, the window ring where they do not.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,16 +33,21 @@ from bevrender_tpu_torch.ops.kernels._launch import (
     PAD,
     SMEM_PER_BLOCK,
     call,
+    padded_width,
     window_columns,
 )
+from bevrender_tpu_torch.ops.kernels.build import load_library
 from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
 
 # kernel launches since the last reset (ops.kernels.reset_counts)
 launches_rows = 0  # fused_site_fold_rows
 launches_heads = 0  # fused_site_fold_heads
 launches_heads_lse = 0  # fused_site_fold_heads_lse
-THREADS = 128  # queries per block, THREADS in both sources
+THREADS = 128  # queries per block, THREADS in both sources (the ring path's)
 KEY_HALF = KEY_TILE // 2  # keys per ring slot, KH in fused_site_fold_heads.cu
+# threads of a whole-table block of fused_site_fold_heads at most (Hpg x its
+# strip of queries; MAX_THREADS there)
+MAX_THREADS = 256
 # heads per group the kernels have instances for (every supported model has
 # two)
 HEADS = (1, 2)
@@ -90,6 +100,53 @@ def fold_ring(Hpg: int, Wt: int, H: int, W: int, ch: int) -> tuple:
     return R, CW, Xs, smem
 
 
+def whole_smem(Hpg: int, Ht: int, Xp: int, ch: int) -> int:
+    """Shared memory of ``fused_site_fold_heads``'s whole-table path: two
+    stages of every head's K and V rows of a key tile in bf16 with four
+    words of geometry a key, and the Hpg zero-padded tables ((Ht + 2 PAD) x
+    Xp bf16 each), as the kernel lays them out."""
+    stage = 2 * Hpg * KEY_TILE * ch * 2 + 4 * KEY_TILE * 4
+    return 2 * stage + Hpg * (Ht + 2 * PAD) * Xp * 2
+
+
+def strip(Hpg: int, M: int) -> int:
+    """Queries per head of a whole-table block: the fewest strips of at
+    most MAX_THREADS / Hpg queries that cover the M queries, as even as
+    steps that keep Hpg x the strip a multiple of 32 allow (112 for M = 784
+    and two heads: 7 strips, no idle thread)."""
+    step = 32 // Hpg
+    per = -(-M // -(-M // (MAX_THREADS // Hpg)))
+    return -(-per // step) * step
+
+
+def heads_plan(Hpg: int, Wt: int, H: int, W: int, ch: int) -> tuple:
+    """(path, queries per head of a block, threads of a block, shared-memory
+    bytes) of ``fused_site_fold_heads`` at a site that folds
+    (``heads_fit``): "whole" where every head's padded table fits one block
+    with the key stages (``whole_smem``), "ring" (``fold_ring``) where not.
+    A route of the shapes, never of a failure: every site of the supported
+    models takes "whole"."""
+    smem = whole_smem(Hpg, 2 * H - 1, padded_width(Wt), ch)
+    if smem <= SMEM_PER_BLOCK:
+        S = strip(Hpg, H * W)
+        return "whole", S, Hpg * S, smem
+    return "ring", THREADS, THREADS, _ring(Hpg, Wt, H, W, ch)[3]
+
+
+def heads_blocks_per_sm(Hpg: int, Wt: int, H: int, W: int, ch: int) -> int:
+    """Blocks of ``fused_site_fold_heads`` that one SM of the card holds at
+    once at this site, on the path ``heads_plan`` takes
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    path, _, threads, smem = heads_plan(Hpg, Wt, H, W, ch)
+    fn = load_library("fused_site_fold_heads").fused_site_fold_heads_occupancy
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    n = fn(int(path == "whole"), ch, Hpg, threads, smem)
+    if n <= 0:
+        raise RuntimeError(f"fused_site_fold_heads_occupancy: CUDA error {-n}")
+    return n
+
+
 def _check_fold(name: str, Hpg: int, W: int) -> None:
     if not folds(Hpg, W):
         raise ValueError(
@@ -124,28 +181,42 @@ def _launch_heads(table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
     B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
                                                q, k, v, H, W)
     _check_fold("fused_site_fold_heads", Hpg, W)
-    R, CW, Xs, _ = fold_ring(Hpg, Wt, H, W, ch)
+    R, CW, Xs, _ = fold_ring(Hpg, Wt, H, W, ch)  # refuses what does not fit
+    path, S, _, _ = heads_plan(Hpg, Wt, H, W, ch)
     dev = table.device
-    pitched = torch.empty((G * Hpg * (Ht + 2 * PAD) * Xs,),
-                          dtype=torch.bfloat16, device=dev)
     out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32, device=dev)
     lse = (torch.empty((B, G, Hpg, H * W), dtype=torch.float32, device=dev)
            if with_lse else None)
-    call("fused_site_fold_heads",
-         "fused_site_fold_heads_lse_launch" if with_lse
-         else "fused_site_fold_heads_launch",
-         (table, pitched, ys, ms, wy, f, u0, g, q, k, v, out)
-         + ((lse,) if with_lse else ())
-         + (B, G, Hpg, Ht, Wt, Xs, N, H, W, R, CW, ch, float(scale)))
+    fn = "fused_site_fold_heads" + ("_ring" if path == "ring" else "") + (
+        "_lse_launch" if with_lse else "_launch")
+    if path == "whole":
+        # the kernel copies a key's K and V row as one 2 ch-byte vector
+        for name, x in (("k", k), ("v", v)):
+            if x.data_ptr() % (2 * ch):
+                raise ValueError(
+                    f"fused_site_fold_heads: {name} must start on a "
+                    f"{2 * ch}-byte boundary")
+        call("fused_site_fold_heads", fn,
+             (table, ys, ms, wy, f, u0, g, q, k, v, out)
+             + ((lse,) if with_lse else ())
+             + (B, G, Hpg, Ht, Wt, padded_width(Wt), N, H, W, S, ch,
+                float(scale)))
+    else:
+        pitched = torch.empty((G * Hpg * (Ht + 2 * PAD) * Xs,),
+                              dtype=torch.bfloat16, device=dev)
+        call("fused_site_fold_heads", fn,
+             (table, pitched, ys, ms, wy, f, u0, g, q, k, v, out)
+             + ((lse,) if with_lse else ())
+             + (B, G, Hpg, Ht, Wt, Xs, N, H, W, R, CW, ch, float(scale)))
     return out, lse
 
 
 def fused_site_fold_heads_cuda(table, ys, ms, wy, f, u0, g, q, k, v, H: int,
                                W: int, scale: float) -> torch.Tensor:
     """Arguments as ``fused_site_wide_prefetch_cuda`` -> (B, G, Hpg, H*W,
-    ch) float32. The launch first copies the table into scratch as a
-    pitched zero-padded table (G * Hpg * (Ht + 2 PAD) * Xs bf16), which its
-    time includes."""
+    ch) float32. On the ring path (``heads_plan``) the launch first copies
+    the table into scratch as a pitched zero-padded table (G * Hpg * (Ht +
+    2 PAD) * Xs bf16), which its time includes."""
     global launches_heads
     out, _ = _launch_heads(table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
                            False)

@@ -88,10 +88,12 @@ Phases, each fatal on failure:
     ``site_fold_heads`` on "auto": phase 7's counts with 12
     ``fused_site_fold_heads_lse`` in place of the 12 ``fused_site_lse`` per
     step; step 1's loss printed beside phase 7's;
-22. each folded kernel alone at every shape phases 19-21 give it, at two
-    table scales, against its plain version and, with tolerance 0, against
-    its per-head sibling; times, bounds, plain and library times, and the
-    sibling's time in the same call;
+22. each folded kernel alone at every shape phases 19-21 give it, and the
+    head-folded kernels also at a site of their ring path
+    (FOLD_RING_SITE), at two table scales, against its plain version and,
+    with tolerance 0, against its per-head sibling; times, bounds, plain
+    and library times, the sibling's time in the same call, and the
+    head-folded kernels' path and blocks per SM;
 23. the windowed bias (``bias_forward="windows"``): the flagship serving as
     phase 3 (WINDOWS_REQUESTS requests), exactly 24 ``fused_site`` and 64
     ``lattice_windows`` per forward, the render equal (max abs 0) to the
@@ -490,15 +492,17 @@ SITE_SITES = [
 HPG, H, W = 2, 28, 28
 
 
-def site_inputs(seed, B, G, ch, N, Wt, table_std=0.01):
+def site_inputs(seed, B, G, ch, N, Wt, table_std=0.01, side=H):
+    """A site's random table, key positions, q, k and v on the card, at BEV
+    side x side (H x W unless given)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    table = torch.randn(G, HPG, 2 * H - 1, Wt, generator=g,
+    table = torch.randn(G, HPG, 2 * side - 1, Wt, generator=g,
                         device=dev) * table_std
     k_pos = torch.rand(B, G, N, 2, generator=g, device=dev) * 2.4 - 1.2
-    q = torch.randn(B, G, HPG, H * W, ch, generator=g, device=dev) * 0.5
+    q = torch.randn(B, G, HPG, side * side, ch, generator=g, device=dev) * 0.5
     k = torch.randn(B, G, HPG, N, ch, generator=g, device=dev) * 0.5
     v = torch.randn(B, G, HPG, N, ch, generator=g, device=dev) * 0.5
     return table, k_pos, q, k, v
@@ -535,16 +539,18 @@ def check_bias(da, kernel_mod) -> dict:
     return dict(rows=rows, worst=worst)
 
 
-def site_bound(B, G, ch, N, Wt, extra_bytes=0, lse=False):
-    """(bound ms, what bounds it) of a fused site forward: bytes (q, k, v,
-    the table, the geometry, the output, the logsumexp, and ``extra_bytes``)
-    against 4 ch bf16 FLOP per (query, key) pair at the tensor-core rate
-    plus 18 float32 operations (bias lerps, score, running max, exp, sum)."""
-    pairs = B * G * HPG * H * W * N
-    q_el, kv_el = B * G * HPG * H * W * ch, B * G * HPG * N * ch
-    nbytes = ((q_el + 2 * kv_el) * 2 + G * HPG * (2 * H - 1) * Wt * 2
-              + B * G * N * 16 + W * 8 + q_el * 4
-              + (B * G * HPG * H * W * 4 if lse else 0) + extra_bytes)
+def site_bound(B, G, ch, N, Wt, extra_bytes=0, lse=False, side=H):
+    """(bound ms, what bounds it) of a fused site forward at BEV side x
+    side: bytes (q, k, v, the table, the geometry, the output, the
+    logsumexp, and ``extra_bytes``) against 4 ch bf16 FLOP per (query, key)
+    pair at the tensor-core rate plus 18 float32 operations (bias lerps,
+    score, running max, exp, sum)."""
+    M = side * side
+    pairs = B * G * HPG * M * N
+    q_el, kv_el = B * G * HPG * M * ch, B * G * HPG * N * ch
+    nbytes = ((q_el + 2 * kv_el) * 2 + G * HPG * (2 * side - 1) * Wt * 2
+              + B * G * N * 16 + side * 8 + q_el * 4
+              + (B * G * HPG * M * 4 if lse else 0) + extra_bytes)
     t_ops = pairs * 4 * ch / BF16_FLOPS + pairs * 18 / F32_FLOPS
     by = "bytes" if nbytes / HBM_BPS >= t_ops else "operations"
     return max(nbytes / HBM_BPS, t_ops) * 1e3, by
@@ -1378,6 +1384,13 @@ def check_prefetch_bias(da, kernels) -> tuple:
             dict(rows=rows_w, worst=worst["wide"]))
 
 
+# a site of the head-folded kernels' ring path, (name, B, G, ch, N, Wt,
+# per forward / step, BEV side): two heads' padded tables of BEV 60 at depth
+# 5 (127 x 459 bf16, 233 KB) overflow one block. No supported model has such
+# a site (0 a forward), so phase 22 alone launches the ring.
+FOLD_RING_SITE = ("ring_bev60_g4_ch8_n1960", 2, 4, 8, 1960, 299, 0, 60)
+
+
 def check_fold_sites(da, kernels) -> tuple:
     """Phase 22, the folded fused sites at every shape phases 19-21 give
     them and two table scales: ``fused_site_fold_rows`` and
@@ -1386,11 +1399,15 @@ def check_fold_sites(da, kernels) -> tuple:
     ``fused_site_fold_heads_lse`` at the training sites (TRAIN_SITE_SITES)
     equal to ``fused_site_lse`` in output and logsumexp; every output within
     SITE_P_ROUND of the plain version, the logsumexp within LSE_TOL of the
-    plain one. Times (a head-folded kernel's, as its prefetch sibling's, the
-    sum of its kernel's and its pitched table copy's), bounds, plain and
-    library times, and the sibling's time in the same call. Returns the
-    records of (fused_site_fold_rows, fused_site_fold_heads,
-    fused_site_fold_heads_lse)."""
+    plain one. The head-folded kernels are held so at FOLD_RING_SITE too,
+    which must take their ring path (every serving and training site takes
+    the whole-table path). Times (a head-folded kernel's on its ring path,
+    as its prefetch sibling's, the sum of its kernel's and its pitched
+    table copy's), bounds (with that copy on the ring path only), plain and
+    library times, and the sibling's time in the same call; a head-folded
+    line also names its path (``fused_site_fold.heads_plan``) and the
+    blocks one SM holds. Returns the records of (fused_site_fold_rows,
+    fused_site_fold_heads, fused_site_fold_heads_lse)."""
     import torch
 
     fold, wide = kernels.fused_site_fold, kernels.fused_site_wide
@@ -1398,8 +1415,9 @@ def check_fold_sites(da, kernels) -> tuple:
     recs = {n: dict(rows=[], worst=0.0) for n in ("rows", "heads", "lse")}
     bad = []
 
-    def run(tag, name, B, G, ch, N, Wt, per, std, seed):
-        table, k_pos, q, k, v = site_inputs(seed, B, G, ch, N, Wt, std)
+    def run(tag, name, B, G, ch, N, Wt, per, std, seed, side=H):
+        H = W = side  # noqa: N806
+        table, k_pos, q, k, v = site_inputs(seed, B, G, ch, N, Wt, std, side)
         scale = ch ** -0.5
         kargs = da._kernel_args(table, k_pos, H, W) + tuple(
             x.to(bf).contiguous() for x in (q, k, v))
@@ -1442,45 +1460,50 @@ def check_fold_sites(da, kernels) -> tuple:
         ok = ok and same and bool((d_out <= SITE_P_ROUND * wabs + 1e-5).all())
         sib = dict(rows="fused_site", heads="fused_site_wide_prefetch",
                    lse="fused_site_lse")[tag]
+        plan = {}
+        if tag != "rows":
+            plan = dict(path=fold.heads_plan(HPG, Wt, H, W, ch)[0],
+                        blocks_per_sm=fold.heads_blocks_per_sm(HPG, Wt, H, W,
+                                                               ch))
+            ok = ok and plan["path"] == ("ring" if name == FOLD_RING_SITE[0]
+                                         else "whole")
         print(f"fold {tag} {name} table std {std}: "
               f"{'equals' if same else 'DIFFERS FROM'} {sib}; max abs err vs "
               f"plain {err:.3g}{' (lse)' if tag == 'lse' else ''}, out "
-              f"{float(d_out.max()):.3g} ({'ok' if ok else 'FAIL'})",
-              flush=True)
+              f"{float(d_out.max()):.3g} ({'ok' if ok else 'FAIL'})"
+              + "".join(f"; {k} {v}" for k, v in plan.items()), flush=True)
         if not ok:
             bad.append(f"{tag} {name} std {std}")
         rec = recs[tag]
         rec["worst"] = max(rec["worst"], err)
         if std != SITE_TABLE_STDS[0]:
             return
-        if tag == "rows":
-            ms = queued_ms(launch, 20)
-            ms_sib = queued_ms(sibling, 20)
-        elif tag == "heads":
-            ms = queued_ms(launch, 20)
-            ms_sib = queued_ms(sibling, 20)
-        else:
-            ms = queued_ms(launch, 20)
-            ms_sib = queued_ms(sibling, 20)
-        extra = 0 if tag == "rows" else pitched_bytes(G, 2 * H - 1, Wt)
-        bound, by = site_bound(B, G, ch, N, Wt, extra, lse=tag == "lse")
+        ms = queued_ms(launch, 20)
+        ms_sib = queued_ms(sibling, 20)
+        extra = (pitched_bytes(G, 2 * H - 1, Wt)
+                 if plan.get("path") == "ring" else 0)
+        bound, by = site_bound(B, G, ch, N, Wt, extra, lse=tag == "lse",
+                               side=side)
         plain_ms = queued_ms(plain, 5)
         lib = sdpa_ms(q, k, v, bias, scale, 20)
         rec["rows"].append({
             "site": name, "ms": ms, "sibling_ms": ms_sib, "plain_ms": plain_ms,
             "library_ms": lib, "bound_ms": bound, "bound_by": by,
             ("per_step" if tag == "lse" else "per_forward"): per,
-            "max_abs_err": err})
+            "max_abs_err": err, **plan})
         print(f"fold {tag} {name}: kernel {ms:.4f} ms, {sib} {ms_sib:.4f} ms; "
               f"plain {plain_ms:.4f} ms sdpa+mask {lib:.4f} ms; bound "
               f"{bound:.4f} ms ({by}) x{per}/"
-              f"{'step' if tag == 'lse' else 'forward'}", flush=True)
+              f"{'step' if tag == 'lse' else 'forward'}"
+              + "".join(f"; {k} {v}" for k, v in plan.items()), flush=True)
 
-    for tag, sites in (("rows", SITE_SITES), ("heads", SITE_SITES),
-                       ("lse", TRAIN_SITE_SITES)):
+    ring = [FOLD_RING_SITE[:-1]]
+    for tag, sites in (("rows", SITE_SITES), ("heads", SITE_SITES + ring),
+                       ("lse", TRAIN_SITE_SITES + ring)):
         for i, (name, B, G, ch, N, Wt, per) in enumerate(sites):
+            side = FOLD_RING_SITE[-1] if name == FOLD_RING_SITE[0] else H
             for std in SITE_TABLE_STDS:
-                run(tag, name, B, G, ch, N, Wt, per, std, 110 + i)
+                run(tag, name, B, G, ch, N, Wt, per, std, 110 + i, side)
             torch.cuda.empty_cache()
     if bad:
         fail(f"folded fused sites beyond tolerance or unequal at {bad}")

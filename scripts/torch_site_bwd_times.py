@@ -1,11 +1,24 @@
-"""Time a backward kernel of the port through its wrapper on one CUDA card:
-the fused site backward (csrc/fused_site_bwd.cu, ``--kernel site_bwd``, the
+"""Time a kernel of the port through its wrapper on one CUDA card: the
+fused site backward (csrc/fused_site_bwd.cu, ``--kernel site_bwd``, the
 default) at the four shapes a flagship training step gives it
-(``chip_smoke.TRAIN_SITE_SITES``), or the window scatter-add backward
+(``chip_smoke.TRAIN_SITE_SITES``); the window scatter-add backward
 (csrc/lattice_windows.cu, ``--kernel windows_bwd``) at the shapes
 ``chip_smoke``'s phase 25 times it: every training shape of the windowed
 bias and the pyramid's SCA 56 (rows of ``chip_smoke.WINDOW_SITES``), with
-``index_add_`` of the same cotangent rows into float32 beside it.
+``index_add_`` of the same cotangent rows into float32 beside it; or the
+head-folded fused site (csrc/fused_site_fold_heads.cu, ``--kernel
+fold_heads``): ``fused_site_fold_heads`` at phase 22's serving shapes
+(``chip_smoke.SITE_SITES``) beside ``fused_site_wide_prefetch`` and
+``fused_site``, its logsumexp instance at the training shapes
+(``TRAIN_SITE_SITES``) beside ``fused_site_lse``, both with PyTorch's
+attention (the bias as a mask, ``chip_smoke.sdpa_ms``) beside them, and the
+logsumexp instance at the SCA G=4 ch 8 shape for B*V = 2, 4, ... 12 to show
+how its time steps with the grid. Each fold line names the path the
+wrapper takes (``fused_site_fold.heads_plan``; a checkout without it has
+the ring only), the grid's blocks, the blocks one SM holds (the library's
+``fused_site_fold_heads_occupancy``, from
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; "-" where the library
+does not export it) and the waves they make.
 
     python3 scripts/torch_site_bwd_times.py [--kernel K] [--root DIR] [--sass]
 
@@ -21,7 +34,9 @@ and scratch of its outputs included). ``--sass`` also prints the build's
 ``ptxas`` register report and opcode counts from its SASS: for the site
 backward, each shared-memory atomic, shuffle and mma opcode of its ``ch =
 8`` kernel; for the windows backward, each atomic and reduction opcode of
-every backward kernel, and how many of them act on floats. The windows
+every backward kernel, and how many of them act on floats; for the folded
+site, each kernel's registers (``cuobjdump -res-usage``) and its atomic,
+mma, asynchronous-copy and barrier opcodes. The windows
 also print the largest bin of their starts (keys sharing one (g, ms, ys))
 and the share of keys whose ms is clipped to the table's first or last
 start. The last line is one JSON object with the card and the times.
@@ -82,6 +97,28 @@ def windows_sass(lib: Path) -> dict:
         res[name] = dict(ops=atom, float_atomics=sum(
             v for k, v in atom.items() if "F32" in k or "CAS" in k))
     return res
+
+
+def registers(lib: Path) -> dict:
+    """{mangled kernel name: registers a thread} of a library, from
+    ``cuobjdump -res-usage`` (the build's ptxas report is empty when the
+    library was already built)."""
+    from bevrender_tpu_torch.ops.kernels.build import _nvcc
+
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-res-usage", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"Function (\S+):\s*\n\s*REG:(\d+)", out)}
+
+
+def fold_sass(lib: Path) -> dict:
+    """Atomic, mma, asynchronous-copy and barrier opcodes of every kernel
+    of the folded site's library."""
+    keep = ("ATOM", "RED", "HMMA", "LDGSTS", "LDGDEPBAR", "DEPBAR", "BAR")
+    return {name: {k: v for k, v in sorted(ops.items())
+                   if k.startswith(keep)}
+            for name, ops in sass_functions(lib).items()}
 
 
 def site_bwd_times(cs, card: str, result: dict) -> None:
@@ -163,9 +200,85 @@ def windows_bwd_times(cs, card: str, result: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def fold_plan(cs, fold, lib, n_sm, B, G, ch, Wt) -> dict:
+    """Path, grid blocks, blocks an SM holds and waves of a folded site at
+    chip_smoke's H, W and heads per group."""
+    H, W, Hpg = cs.H, cs.W, cs.HPG
+    if hasattr(fold, "heads_plan"):
+        path, queries, threads, smem = fold.heads_plan(Hpg, Wt, H, W, ch)
+    else:  # a checkout before the whole-table path: the ring only
+        path, queries, threads = "ring", fold.THREADS, fold.THREADS
+        smem = fold.fold_ring(Hpg, Wt, H, W, ch)[3]
+    blocks = -(-(H * W) // queries) * B * G
+    try:
+        occupancy = lib.fused_site_fold_heads_occupancy
+    except AttributeError:
+        return dict(path=path, blocks=blocks, per_sm=None, waves=None)
+    per_sm = occupancy(int(path == "whole"), ch, Hpg, threads, smem)
+    if per_sm <= 0:
+        raise SystemExit(f"occupancy query failed: {per_sm}")
+    return dict(path=path, blocks=blocks, per_sm=per_sm,
+                waves=-(-blocks // (per_sm * n_sm)))
+
+
+def fold_heads_times(cs, card: str, result: dict) -> None:
+    import torch
+
+    from bevrender_tpu_torch.ops import deform_attn as da
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.ops.kernels import build
+
+    fold, bf = kernels.fused_site_fold, torch.bfloat16
+    lib = build.load_library("fused_site_fold_heads")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    H, W = cs.H, cs.W
+    best = lambda fn: min(cs.queued_ms(fn, 5) for _ in range(3))  # noqa: E731
+    _, B4, G4, ch4, N4, Wt4, _ = cs.TRAIN_SITE_SITES[2]
+    runs = ([("heads", *site, 110 + i) for i, site in enumerate(cs.SITE_SITES)]
+            + [("lse", *site, 110 + i)
+               for i, site in enumerate(cs.TRAIN_SITE_SITES)]
+            + [("lse", f"sweep_bv{b}_g{G4}_ch{ch4}", b, G4, ch4, N4, Wt4, 0,
+                112) for b in range(2, 13, 2)])
+    for tag, name, B, G, ch, N, Wt, per, seed in runs:
+        table, k_pos, q, k, v = cs.site_inputs(seed, B, G, ch, N, Wt)
+        scale = ch ** -0.5
+        kargs = da._kernel_args(table, k_pos, H, W) + tuple(
+            x.to(bf).contiguous() for x in (q, k, v))
+        geo, qkv = kargs[:7], kargs[8:]
+        if tag == "heads":
+            fn = lambda: fold.fused_site_fold_heads_cuda(  # noqa: E731
+                *geo, *qkv, H, W, scale)
+            sibs = {"fused_site_wide_prefetch": lambda: (
+                kernels.fused_site_wide.fused_site_wide_prefetch_cuda(
+                    *geo, *qkv, H, W, scale)),
+                    "fused_site": lambda: kernels.fused_site.fused_site_cuda(
+                        *kargs, H, W, scale)}
+        else:
+            fn = lambda: fold.fused_site_fold_heads_lse_cuda(  # noqa: E731
+                *geo, *qkv, H, W, scale)
+            sibs = {"fused_site_lse": lambda: (
+                kernels.fused_site.fused_site_lse_cuda(*kargs, H, W, scale))}
+        rec = dict(fold_plan(cs, fold, lib, n_sm, B, G, ch, Wt), ms=best(fn))
+        rec.update({f"{n}_ms": best(f) for n, f in sibs.items()})
+        if not name.startswith("sweep"):
+            bias = da.lattice_bias_plain(table.bfloat16().float(), k_pos, H,
+                                         W, torch.float32)
+            rec["sdpa_ms"] = min(cs.sdpa_ms(q, k, v, bias, scale, 5)
+                                 for _ in range(3))
+            del bias
+        result["ms"][f"{tag} {name}"] = rec
+        print(f"{tag} {name} (x{per}): "
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                          else f"{k} {v if v is not None else '-'}"
+                          for k, v in rec.items()) + f" [{card}]", flush=True)
+        del table, k_pos, q, k, v, kargs, geo, qkv
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("site_bwd", "windows_bwd"),
+    ap.add_argument("--kernel",
+                    choices=("site_bwd", "windows_bwd", "fold_heads"),
                     default="site_bwd")
     ap.add_argument("--root", type=Path, default=REPO)
     ap.add_argument("--sass", action="store_true")
@@ -189,8 +302,8 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}; root: {root}; kernel: {args.kernel}", flush=True)
-    source = ("fused_site_bwd" if args.kernel == "site_bwd"
-              else "lattice_windows")
+    source = dict(site_bwd="fused_site_bwd", windows_bwd="lattice_windows",
+                  fold_heads="fused_site_fold_heads")[args.kernel]
     proc, lib, tmp = build._start(source)
     log = build._finish(source, proc, lib, tmp)
     result = {"card": card, "root": str(root), "kernel": args.kernel,
@@ -202,14 +315,19 @@ def main() -> None:
         if args.kernel == "site_bwd":
             result["sass_ch8"] = sass_counts(lib)
             print(f"sass (ch 8): {result['sass_ch8']}", flush=True)
+        elif args.kernel == "fold_heads":
+            result["registers"] = registers(lib)
+            result["sass"] = fold_sass(lib)
+            for name, ops in result["sass"].items():
+                print(f"sass {name}: registers "
+                      f"{result['registers'].get(name, '-')}, {ops}",
+                      flush=True)
         else:
             result["sass"] = windows_sass(lib)
             for name, rec in result["sass"].items():
                 print(f"sass {name}: {rec}", flush=True)
-    if args.kernel == "site_bwd":
-        site_bwd_times(cs, card, result)
-    else:
-        windows_bwd_times(cs, card, result)
+    {"site_bwd": site_bwd_times, "windows_bwd": windows_bwd_times,
+     "fold_heads": fold_heads_times}[args.kernel](cs, card, result)
     print(json.dumps(result), flush=True)
 
 

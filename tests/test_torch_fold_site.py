@@ -46,10 +46,12 @@ def _load(name: str, path: Path):
 
 
 chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
-# the launch counts of a whole flagship or pyramid pass, summed over
-# site_kernels at every site, as the wide route's tests sum them
-_launches = _load("test_torch_wide_site",
-                  ROOT / "tests" / "test_torch_wide_site.py")._launches
+# the sites of one encoder pass and the launch counts of a whole flagship or
+# pyramid pass, summed over site_kernels at every site, as the wide route's
+# tests sum them
+_wide_site = _load("test_torch_wide_site",
+                   ROOT / "tests" / "test_torch_wide_site.py")
+_site_calls, _launches = _wide_site._site_calls, _wide_site._launches
 
 # site output against a Pallas site kernel: p rounded to bf16 before
 # normalising in one and after in the other (chip_smoke.SITE_P_ROUND)
@@ -240,6 +242,113 @@ def test_site_fold_heads_needs_site_prefetch():
     cfg = _tiny(site_fold_heads=True)
     with pytest.raises(ValueError, match="site_prefetch"):
         RegistrationPipeline(cfg, device="cpu", seed=1)
+
+
+# ---- the head-folded kernel's two paths --------------------------------------
+
+def _ring_fit_before(Hpg, Wt, H, W, ch) -> bool:
+    """``heads_fit`` as it stood before the whole-table path: the heads
+    fold, and the ring (two slots of 16 keys x Hpg heads x R rows x CW
+    columns in bf16) with every head's K and V tile in float32 and three
+    words of geometry a key fits one block."""
+    u_max = (Wt - 1) // 2
+    CW = -(-(u_max + 3 + 7) // 8) * 8
+    R = min(-(-127 // W), H - 1) + 2
+    smem = 2 * 16 * Hpg * R * CW * 2 + 2 * Hpg * 32 * ch * 4 + 32 * 12
+    return Hpg in (1, 2) and Hpg * W <= 128 and smem <= 232448
+
+
+# (Hpg, H = W, table width, ch): BEV 7 to 64 at depths 1 to 8
+PATH_GRID = [(Hpg, H, Wt, ch) for Hpg in (1, 2)
+             for H in (7, 10, 14, 28, 32, 56, 60, 64)
+             for Wt in (13, 27, 39, 55, 111, 139, 279, 299, 559, 639, 1023)
+             for ch in (4, 8)]
+
+
+def test_heads_fit_is_the_ring_formula():
+    """Which sites fold is unchanged by the whole-table path: ``heads_fit``
+    still admits exactly the sites whose ring fits one block."""
+    fits = [kernels.fused_site_fold.heads_fit(Hpg, Wt, H, H, ch)
+            for Hpg, H, Wt, ch in PATH_GRID]
+    assert fits == [_ring_fit_before(Hpg, Wt, H, H, ch)
+                    for Hpg, H, Wt, ch in PATH_GRID]
+    assert 0 < sum(fits) < len(fits)
+
+
+def test_every_site_bwd_site_that_folds_takes_the_whole_table_path():
+    """A site whose table and float32 gradient fit ``fused_site_bwd.cu``
+    (``_site_bwd_fits``, 6 B an entry) and that folds takes the whole-table
+    path: two heads' bf16 tables (4 B an entry) and the key stages fit. The
+    grid also holds folded sites on the ring path, all outside
+    ``_site_bwd_fits``."""
+    fold = kernels.fused_site_fold
+    paths = {"whole": 0, "ring": 0}
+    for Hpg, H, Wt, ch in PATH_GRID:
+        if not fold.heads_fit(Hpg, Wt, H, H, ch):
+            continue
+        path = fold.heads_plan(Hpg, Wt, H, H, ch)[0]
+        paths[path] += 1
+        if tda._site_bwd_fits((1, Hpg, 2 * H - 1, Wt), H, ch):
+            assert path == "whole", (Hpg, H, Wt, ch)
+    assert paths["whole"] > 0 and paths["ring"] > 0
+
+
+@pytest.mark.parametrize("Hpg,H,Wt,ch,path", [
+    (2, 28, 279, 8, "whole"), (2, 28, 55, 4, "whole"), (1, 28, 279, 4, "whole"),
+    (2, 60, 299, 4, "ring"), (2, 64, 279, 8, "ring")])
+def test_heads_plan_follows_the_shapes(Hpg, H, Wt, ch, path):
+    """The whole-table path where every head's padded table and the key
+    stages fit one block (``whole_smem``), the ring where they do not; a
+    whole-table block holds Hpg x its strip of queries, at most 256
+    threads, a multiple of 32."""
+    fold = kernels.fused_site_fold
+    got, S, threads, smem = fold.heads_plan(Hpg, Wt, H, H, ch)
+    whole = fold.whole_smem(Hpg, 2 * H - 1, tda.padded_width(Wt), ch)
+    assert got == path and (whole <= fold.SMEM_PER_BLOCK) == (path == "whole")
+    if path == "whole":
+        assert smem == whole and threads == Hpg * S <= 256
+        assert threads % 32 == 0 and S * -(-(H * H) // S) >= H * H
+    else:
+        assert (S, threads, smem) == (128, 128,
+                                      fold.fold_ring(Hpg, Wt, H, H, ch)[3])
+
+
+@pytest.mark.parametrize("sites", ["SITE_SITES", "TRAIN_SITE_SITES",
+                                   "FOLD_RING_SITE"])
+def test_chip_smoke_fold_sites_take_the_paths_it_expects(sites):
+    """chip_smoke's phase 22 holds the head-folded kernels at its serving
+    and training sites on the whole-table path and at FOLD_RING_SITE on the
+    ring path, and fails a site that takes the other one."""
+    if sites == "FOLD_RING_SITE":
+        *site, side = chip_smoke.FOLD_RING_SITE
+        rows, want = [(site, side)], "ring"
+    else:
+        rows = [(site, chip_smoke.H) for site in getattr(chip_smoke, sites)]
+        want = "whole"
+    for (_, _, _, ch, _, Wt, _), side in rows:
+        assert kernels.fused_site_fold.heads_fit(chip_smoke.HPG, Wt, side,
+                                                 side, ch)
+        assert kernels.fused_site_fold.heads_plan(
+            chip_smoke.HPG, Wt, side, side, ch)[0] == want
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_flagship_fused_sites_take_the_whole_table_path(training):
+    """Every flagship site that takes a head-folded kernel, serving (B=4 on
+    "wide" with the prefetch and fold fields) or training (B=2 under
+    ``fused_bwd`` with them), takes its whole-table path."""
+    opts = tda.SiteOptions(fused_bwd=training,
+                           lattice_route="auto" if training else "wide",
+                           **FOLD_HEADS)
+    B = chip_smoke.TRAIN_B if training else chip_smoke.SERVE_B
+    folded = 0
+    for q, t, H, W, _ in _site_calls(FLAGSHIP, B):
+        name = tda.site_kernels(q, t, H, W, opts, training=training)[0]
+        if name.startswith("fused_site_fold_heads"):
+            folded += 1
+            assert kernels.fused_site_fold.heads_plan(
+                t[1], t[3], H, W, q[-1])[0] == "whole", (q, t)
+    assert folded == 6  # stages 2, 3 and 4, a TSA and an SCA site each
 
 
 # ---- the config fields, end to end on the CPU -------------------------------

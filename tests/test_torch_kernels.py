@@ -458,6 +458,59 @@ def test_fold_site_kernels_equal_their_siblings(cuda_device, ch, N, Wt,
         assert bool(((out - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
 
 
+# (Hpg, H = W, table width, N, ch, path): the head-folded kernels' two
+# paths at ragged shapes. Two heads of BEV 60 at depth 5 (127 x 459 padded,
+# 233 KB) overflow one block and take the ring, 3600 queries in strips of
+# 128 (16 left over); BEV 10 leaves 12 of 112 queries idle in the whole-table
+# strip; one head per group takes strips of 224; N is no multiple of 32.
+FOLD_PATHS = [
+    (2, 60, 299, 70, 4, "ring"), (2, 60, 299, 45, 8, "ring"),
+    (2, 10, 39, 45, 8, "whole"), (2, 10, 39, 70, 4, "whole"),
+    (1, 28, 279, 100, 8, "whole"), (2, 28, 279, 1959, 8, "whole")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hpg,H,Wt,N,ch,path", FOLD_PATHS)
+def test_fold_heads_paths_equal_their_siblings(cuda_device, Hpg, H, Wt, N,
+                                               ch, path):
+    """Both paths of ``fused_site_fold_heads`` equal
+    ``fused_site_wide_prefetch`` bit for bit and its logsumexp instance
+    equals ``fused_site_lse`` in output and logsumexp, at the path
+    ``heads_plan`` names; within the fused site's tolerance of the plain
+    version. At the flagship's SCA two blocks of the whole-table path fit
+    an SM."""
+    fold = kernels.fused_site_fold
+    assert fold.heads_plan(Hpg, Wt, H, H, ch)[0] == path
+    table, k_pos, q, k, v = _inputs(25, 2, 1, Hpg, H, H, Wt, N, ch,
+                                    cuda_device, 1.0)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, H)
+    geo, qkv = kargs[:7], kargs[8:]
+    before = kernels.counts()
+    with torch.no_grad():
+        pre = kernels.fused_site_wide.fused_site_wide_prefetch_cuda(
+            *geo, *qkv, H, H, scale)
+        whole_o, whole_lse = kernels.fused_site.fused_site_lse_cuda(
+            *kargs, H, H, scale)
+        heads = fold.fused_site_fold_heads_cuda(*geo, *qkv, H, H, scale)
+        heads_o, heads_lse = fold.fused_site_fold_heads_lse_cuda(
+            *geo, *qkv, H, H, scale)
+        bias = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, H,
+                                      torch.float32)
+        ref = tda.site_consumer(q, k, v, bias, scale)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"fused_site_lse": 1, "fused_site_wide_prefetch": 1,
+            "fused_site_fold_heads": 1, "fused_site_fold_heads_lse": 1}
+    assert torch.equal(heads, pre) and torch.equal(heads_o, whole_o)
+    assert torch.equal(heads_lse, whole_lse)
+    assert bool(((heads - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
+    if (Hpg, H, Wt) == (2, 28, 279):
+        assert fold.heads_blocks_per_sm(Hpg, Wt, H, H, ch) >= 2
+
+
 @pytest.mark.cuda
 def test_fold_options_reach_the_fold_kernels(cuda_device):
     """A flagship SCA site through ``streamed_deform_attention`` takes the
@@ -521,6 +574,29 @@ def test_fold_wrappers_refuse_sites_that_do_not_fold(cuda_device):
                                                 0.5)
 
 
+@pytest.mark.cuda
+def test_fold_heads_refuses_misaligned_k_and_v(cuda_device):
+    """The whole-table path copies each key's K and V row as one 2 ch-byte
+    vector: a k or v that does not start on such a boundary is refused
+    before launching, not copied."""
+    fold = kernels.fused_site_fold
+    table, k_pos, q, k, v = _inputs(26, 1, 1, 2, 10, 10, 39, 40, 4,
+                                    cuda_device)
+    kargs = _site_kargs(table, k_pos, q, k, v, 10, 10)
+    geo, (q, k, v) = kargs[:7], kargs[8:]
+    assert fold.heads_plan(2, 39, 10, 10, 4)[0] == "whole"
+    for i in (0, 1):
+        x = (k, v)[i]
+        off = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=x.device)[1:].view(x.shape)
+        off.copy_(x)
+        qkv = (q, off, v) if i == 0 else (q, k, off)
+        before = kernels.counts()
+        with pytest.raises(ValueError, match="8-byte boundary"):
+            fold.fused_site_fold_heads_cuda(*geo, *qkv, 10, 10, 0.5)
+        assert kernels.counts() == before
+
+
 def test_fold_wrappers_refuse_cpu_tensors_and_other_heads():
     """Checked before anything touches the card: CPU tensors. A site folds
     where the kernels have an instance for its head count and Hpg * W <=
@@ -543,19 +619,26 @@ def test_fold_sizes_follow_the_shapes():
     """At the flagship's SCA (55 x 279, W = 28, two heads) the row-folded
     site stages two padded tables of 63 x 429 and the head-folded ring is
     two slots of 16 keys x 2 heads x 7 rows x 152 columns, the per-head
-    prefetch ring's 136 KB; a shape whose ring overflows shared memory is
-    refused with the numbers (two heads of BEV 64 at depth 8)."""
+    prefetch ring's 136 KB, though the head-folded site takes its
+    whole-table path (113 KB); a shape whose ring overflows shared memory
+    is refused with the numbers (two heads of BEV 64 at depth 8)."""
     fold = kernels.fused_site_fold
-    Xp = tda.padded_width(279, 28)
+    Xp = tda.padded_width(279)
     assert fold.rows_smem(2, 55, Xp, 8) == (2 * 63 * Xp * 2
                                             + 2 * 2 * 32 * 8 * 4 + 32 * 12)
     assert fold.rows_fit(2, 55, Xp, 28, 8)
-    assert not fold.rows_fit(2, 127, tda.padded_width(639, 64), 64, 4)
+    assert not fold.rows_fit(2, 127, tda.padded_width(639), 64, 4)
     R, CW, _, smem = fold.fold_ring(2, 279, 28, 28, 8)
     assert (R, CW) == (7, 152)
     assert smem == 2 * 16 * 2 * 7 * 152 * 2 + 2 * 2 * 32 * 8 * 4 + 32 * 12
     assert fold.heads_fit(2, 279, 28, 28, 8)
     assert not fold.heads_fit(2, 1023, 64, 64, 4)
+    # the whole-table path there: two stages of both heads' K and V tiles in
+    # bf16 with four words of geometry a key, the two padded tables, and 7
+    # strips of 112 queries a head
+    assert fold.heads_plan(2, 279, 28, 28, 8) == (
+        "whole", 112, 224, 2 * (2 * 2 * 32 * 8 * 2 + 32 * 16)
+        + 2 * 63 * Xp * 2)
     with pytest.raises(ValueError, match="shared memory"):
         fold.fold_ring(2, 1023, 64, 64, 4)
 

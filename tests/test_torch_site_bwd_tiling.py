@@ -31,7 +31,7 @@ CARD_SHAPES = [(2, 4, ch, N, H, Wt) for ch, N, H, Wt in [
 
 
 def _tiling(B, G, ch, N, H, Wt):
-    Ht, Xp, M = 2 * H - 1, tda.padded_width(Wt, H), H * H
+    Ht, Xp, M = 2 * H - 1, tda.padded_width(Wt), H * H
     return fsb.tiling(B, G, HPG, Ht, Xp, N, M, ch), Ht, Xp, M
 
 
@@ -75,7 +75,7 @@ def test_wide_tables_launch_fewer_warps(ch):
     for H in (8, 28):
         Ht, M = 2 * H - 1, H * H
         for Wt in range(3, 1200):
-            Xp = tda.padded_width(Wt, H)
+            Xp = tda.padded_width(Wt)
             if not tda._site_bwd_fits((1, 2, Ht, Wt), H, ch):
                 with pytest.raises(ValueError):
                     fsb.tiling(2, 4, HPG, Ht, Xp, N, M, ch)
@@ -91,7 +91,7 @@ def _old_fits(table_shape, W, ch):
     bf16 with its float32 gradient and a tile of 32 queries (q, dO, dq,
     lse, D, geometry)."""
     _, _, Ht, Wt = table_shape
-    need = (Ht + 2 * PAD) * tda.padded_width(Wt, W) * 6 + 32 * (3 * ch + 4) * 4
+    need = (Ht + 2 * PAD) * tda.padded_width(Wt) * 6 + 32 * (3 * ch + 4) * 4
     return need <= SMEM_PER_BLOCK
 
 
@@ -103,7 +103,7 @@ def test_site_bwd_fits_follows_the_kernel_and_keeps_every_site(ch):
     for H in (7, 14, 28, 56, 64):
         for Wt in list(range(3, 1200, 7)) + list(range(560, 700)):
             t = (1, 2, 2 * H - 1, Wt)
-            Xp = tda.padded_width(Wt, H)
+            Xp = tda.padded_width(Wt)
             got = tda._site_bwd_fits(t, H, ch)
             assert got == (fsb.smem_bytes(2 * H - 1, Xp, ch) <= SMEM_PER_BLOCK)
             if _old_fits(t, H, ch):
