@@ -53,8 +53,9 @@ class ModelConfig:
     # site takes the wide ones, which read the table through L1
     # (BEVRENDER_SHIFT_REPLICA=0).
     lattice_route: str = "auto"
-    # a fused site on the wide route stages its key windows in shared memory
-    # by asynchronous copies (BEVRENDER_SITE_DMA=1)
+    # a fused site on the wide route takes the prefetch kernel, which stages
+    # its key tiles in shared memory by asynchronous copies
+    # (BEVRENDER_SITE_DMA=1)
     site_prefetch: bool = False
     # the bias forward of every site that takes the bias: "kernel", the bias
     # kernels of the site's route; "prefetch", on the wide route their

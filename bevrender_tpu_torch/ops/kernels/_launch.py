@@ -92,6 +92,19 @@ def _fn(lib_name: str, fn_name: str, args):
     return fn
 
 
+def blocks_per_sm(lib_name: str, fn_name: str, *args: int) -> int:
+    """Blocks one SM of the card holds at once, from a library's occupancy
+    query ``fn_name(*args)`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    in C; a negative CUDA error code where it fails, which raises)."""
+    fn = getattr(load_library(lib_name), fn_name)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    n = fn(*args)
+    if n <= 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {-n}")
+    return n
+
+
 def call(lib_name: str, fn_name: str, args) -> None:
     """Call ``fn_name`` of the kernel library on PyTorch's current stream.
     Tensors pass as pointers, Python floats as C floats and ints as C ints;

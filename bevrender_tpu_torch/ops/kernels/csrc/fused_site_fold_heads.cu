@@ -19,23 +19,17 @@
 // Two paths, chosen by the wrapper (ops/kernels/fused_site_fold.py
 // ::heads_plan) from the shapes alone:
 //
-// - Whole tables (fused_site_fold_heads_kernel), wherever both heads'
-//   zero-padded tables fit one block: every site of the supported models.
-//   A block owns one (b, g) cell and a strip of S queries, one thread per
-//   (head, query): HPG x S threads, head h in threads h S .. h S + S - 1. It
-//   stages the HPG padded tables once ((Ht + 2 PAD) x Xp bf16 each, as
-//   fused_site.cu stages one; 2 x 63 x 429 x 2 B = 108 KB at the flagship's
-//   SCA), so a pair's bias is four reads of shared memory with no per-key
-//   copy. Only the key tile moves: every head's K and V rows in bf16 and
-//   the tile's geometry (ys, ms, wy, f) for all heads, in two stages filled
-//   by cp.async while the block scores the other, so each tile of KT keys
-//   costs one __syncthreads. Per thread the work is fused_site.cu's:
-//   score every key of the tile (site_common.cuh::score) and fold the tile
-//   into the one state (update_rows), so the output equals fused_site.cu's
-//   and fused_site_wide_prefetch.cu's bit for bit and the logsumexp equals
-//   fused_site.cu's lse instance. Two blocks of up to 256 threads fit an SM
-//   at the flagship's SCA (113 KB each) where one 128-thread block with the
-//   ring (below) did.
+// - Whole tables (site_whole.cuh::fused_site_whole_kernel with HB = HPG
+//   heads a block), wherever both heads' zero-padded tables fit one block:
+//   every site of the supported models. A block owns one (b, g) cell and a
+//   strip of S queries, one thread per (head, query): HPG x S threads. It
+//   stages the HPG padded tables once (2 x 63 x 429 x 2 B = 108 KB at the
+//   flagship's SCA); only the key tile moves, in two cp.async stages with
+//   one __syncthreads a tile. Per thread the work is fused_site.cu's, so
+//   the output equals fused_site.cu's and fused_site_wide_prefetch.cu's bit
+//   for bit and the logsumexp equals fused_site.cu's lse instance. Two
+//   blocks of up to 256 threads fit an SM at the flagship's SCA (113 KB
+//   each) where one 128-thread block with the ring (below) did.
 // - The window ring (fused_site_fold_heads_ring_kernel), for a folded site
 //   whose tables do not fit: a block owns one (b, g) cell, all HPG heads
 //   and THREADS consecutive queries (query rows iy0 .. iy1), one thread per
@@ -73,8 +67,7 @@
 // two); the wrapper takes a site only where HPG x W <= 128, the JAX
 // package's condition for its fold.
 
-#include "lattice_ring.cuh"
-#include "site_common.cuh"
+#include "site_whole.cuh"
 
 namespace {
 
@@ -82,145 +75,6 @@ using site::KT;
 constexpr int KH = KT / 2;        // keys per ring slot
 constexpr int THREADS = 128;      // queries of a ring block
 constexpr int MAX_THREADS = 256;  // HPG x S of a whole-table block
-
-// One stage of the whole-table path's key pipeline: every head's K rows,
-// then V rows, of a key tile in bf16, (HPG, KT, CH) each, then the tile's
-// ys, ms, wy and f (KT words each).
-template <int CH, int HPG>
-struct Stage {
-  static constexpr int KV = HPG * KT * CH;         // bf16 entries of K or V
-  static constexpr int BYTES = 2 * KV * 2 + 4 * KT * 4;  // a multiple of 16
-};
-
-// CH consecutive bf16 in shared memory (2 CH-byte aligned) as floats.
-template <int CH>
-__device__ __forceinline__ void load_row(float (&x)[CH],
-                                         const __nv_bfloat16* p) {
-  unsigned w[CH / 2];
-  if constexpr (CH == 8) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
-  } else {
-    static_assert(CH == 4, "head widths 4 and 8");
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    w[0] = u.x, w[1] = u.y;
-  }
-#pragma unroll
-  for (int i = 0; i < CH / 2; ++i) {  // the lower address is the lower half
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-template <int CH, int HPG>
-__global__ void __launch_bounds__(MAX_THREADS, 2) fused_site_fold_heads_kernel(
-    const __nv_bfloat16* __restrict__ table,  // (G, HPG, Ht, Wt)
-    const int* __restrict__ ys, const int* __restrict__ ms,  // (B, G, N)
-    const float* __restrict__ wy, const float* __restrict__ fx,  // (B, G, N)
-    const int* __restrict__ u0, const float* __restrict__ gcomb,  // (W,)
-    const __nv_bfloat16* __restrict__ q,  // (B, G, HPG, M, CH)
-    const __nv_bfloat16* __restrict__ k,  // (B, G, HPG, N, CH)
-    const __nv_bfloat16* __restrict__ v,  // (B, G, HPG, N, CH)
-    float* __restrict__ out,              // (B, G, HPG, M, CH)
-    float* __restrict__ lse,              // (B, G, HPG, M) or null
-    int G, int Ht, int Wt, int Xp, int N, int H, int W, int S,
-    float scale) {
-  using St = Stage<CH, HPG>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // two stages, then the (HPG, Ht + 2 PAD, Xp) padded tables
-  __nv_bfloat16* st =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + 2 * St::BYTES);
-
-  const int bg = blockIdx.y;  // b * G + g
-  const int g = bg % G;
-  const int M = H * W;
-  const int h = threadIdx.x / S;
-  const int m_raw = blockIdx.x * S + threadIdx.x - h * S;
-  const bool active = m_raw < M;
-  const int m = active ? m_raw : M - 1;  // idle lanes still help stage tiles
-  const int iy = m / W;
-  const int ix = m - iy * W;
-  const float gcol = gcomb[ix];
-  // this thread's corner in its head's table
-  const __nv_bfloat16* tq =
-      st + (h * (Ht + 2 * lattice::PAD) + iy) * Xp + u0[ix];
-
-  const __nv_bfloat16* kb = k + (size_t)bg * HPG * N * CH;
-  const __nv_bfloat16* vb = v + (size_t)bg * HPG * N * CH;
-  const size_t geo = (size_t)bg * N;
-
-  // start the copies of the tile from key n0 into stage `buf`; one commit
-  // group a tile, empty past the last key
-  auto issue = [&](int n0, int buf) {
-    if (n0 < N) {
-      __nv_bfloat16* sk =
-          reinterpret_cast<__nv_bfloat16*>(smem_raw + buf * St::BYTES);
-      int* sg = reinterpret_cast<int*>(sk + 2 * St::KV);
-      const int nk = min(KT, N - n0);
-      for (int i = threadIdx.x; i < 2 * HPG * nk; i += blockDim.x) {
-        const int r = i / nk;  // V rows after K rows, head by head
-        const int j = i - r * nk;
-        const int hh = r % HPG;
-        const __nv_bfloat16* src =
-            (r < HPG ? kb : vb) + ((size_t)hh * N + n0 + j) * CH;
-        lattice::cp_async<CH * 2>(
-            sk + (r >= HPG ? St::KV : 0) + (hh * KT + j) * CH, src);
-      }
-      for (int i = threadIdx.x; i < 4 * nk; i += blockDim.x) {
-        const int a = i / nk;
-        const int j = i - a * nk;
-        const void* src = a == 0   ? (const void*)(ys + geo + n0 + j)
-                          : a == 1 ? (const void*)(ms + geo + n0 + j)
-                          : a == 2 ? (const void*)(wy + geo + n0 + j)
-                                   : (const void*)(fx + geo + n0 + j);
-        lattice::cp_async<4>(sg + a * KT + j, src);
-      }
-    }
-    lattice::cp_async_commit();
-  };
-
-  float qf[CH];
-  const __nv_bfloat16* qp = q + (((size_t)bg * HPG + h) * M + m) * CH;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) qf[c] = __bfloat162float(qp[c]);
-
-  issue(0, 0);
-  lattice::stage_padded(st, table + (size_t)g * HPG * Ht * Wt, HPG, Ht, Wt,
-                        Xp);
-  site::Online<CH> state;
-  for (int n0 = 0, t = 0; n0 < N; n0 += KT, ++t) {
-    const int nk = min(KT, N - n0);
-    lattice::cp_async_wait<0>();  // this thread's copies of tile t landed
-    __syncthreads();  // every thread's; tile t-1 consumed; tables staged
-    issue(n0 + KT, (t + 1) & 1);
-    const __nv_bfloat16* sk =
-        reinterpret_cast<const __nv_bfloat16*>(smem_raw + (t & 1) * St::BYTES);
-    const int* sys = reinterpret_cast<const int*>(sk + 2 * St::KV);
-    const int* sms = sys + KT;
-    const float* swy = reinterpret_cast<const float*>(sms + KT);
-    const float* sf = swy + KT;
-    const __nv_bfloat16* skh = sk + h * KT * CH;
-    const __nv_bfloat16* svh = skh + St::KV;
-    float s[KT];
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      if (j < nk) {
-        float kj[CH];
-        load_row<CH>(kj, skh + j * CH);
-        const float b = lattice::bias_at(tq + sys[j] * Xp + sms[j], Xp, gcol,
-                                         swy[j], sf[j]);
-        s[j] = site::score(qf, kj, scale, b);
-      }
-    }
-    site::update_rows(state, s, nk, [&](int j, float (&vj)[CH]) {
-      load_row<CH>(vj, svh + j * CH);
-    });
-  }
-  if (active) {
-    const size_t bhm = ((size_t)bg * HPG + h) * M + m;
-    site::finish(state, out + bhm * CH, lse == nullptr ? nullptr : lse + bhm);
-  }
-}
 
 template <int CH, int HPG>
 __global__ void __launch_bounds__(THREADS) fused_site_fold_heads_ring_kernel(
@@ -335,45 +189,13 @@ __global__ void __launch_bounds__(THREADS) fused_site_fold_heads_ring_kernel(
   }
 }
 
-// Shared memory of each path, as the kernels lay it out
-// (fused_site_fold.py::whole_smem and fold_ring compute the same).
-template <int CH, int HPG>
-size_t whole_smem(int Ht, int Xp) {
-  return (size_t)2 * Stage<CH, HPG>::BYTES +
-         (size_t)HPG * (Ht + 2 * lattice::PAD) * Xp * sizeof(__nv_bfloat16);
-}
-
+// Shared memory of the ring path, as the kernel lays it out
+// (fused_site_fold.py::fold_ring computes the same).
 template <int CH, int HPG>
 size_t ring_smem(int R, int CW) {
   return (size_t)2 * KH * HPG * R * CW * sizeof(__nv_bfloat16) +
          (size_t)2 * HPG * KT * CH * sizeof(float) +
          (size_t)KT * 3 * sizeof(float);
-}
-
-template <int CH, int HPG>
-int launch_whole(const void* table, const void* ys, const void* ms,
-                 const void* wy, const void* fx, const void* u0,
-                 const void* gcomb, const void* q, const void* k,
-                 const void* v, void* out, void* lse, int B, int G, int Ht,
-                 int Wt, int Xp, int N, int H, int W, int S, float scale,
-                 cudaStream_t stream) {
-  const int threads = HPG * S;
-  if (S < 1 || threads > MAX_THREADS || threads % 32 ||
-      (size_t)k % (CH * 2) || (size_t)v % (CH * 2))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = whole_smem<CH, HPG>(Ht, Xp);
-  const int rc =
-      lattice::set_smem((const void*)fused_site_fold_heads_kernel<CH, HPG>,
-                        smem);
-  if (rc) return rc;
-  dim3 grid((H * W + S - 1) / S, B * G);
-  fused_site_fold_heads_kernel<CH, HPG><<<grid, threads, smem, stream>>>(
-      (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
-      (const float*)wy, (const float*)fx, (const int*)u0,
-      (const float*)gcomb, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (float*)out, (float*)lse, G, Ht, Wt, Xp, N, H,
-      W, S, scale);
-  return (int)cudaGetLastError();
 }
 
 template <int CH, int HPG>
@@ -410,11 +232,11 @@ int dispatch_whole(const void* table, const void* ys, const void* ms,
                    const void* v, void* out, void* lse, int B, int G,
                    int Hpg, int Ht, int Wt, int Xp, int N, int H, int W,
                    int S, int ch, float scale, void* stream) {
-#define WHOLE_CASE(C, P)                                                      \
-  if (ch == C && Hpg == P)                                                    \
-    return launch_whole<C, P>(table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, \
-                              lse, B, G, Ht, Wt, Xp, N, H, W, S, scale,       \
-                              (cudaStream_t)stream);
+#define WHOLE_CASE(C, P)                                                   \
+  if (ch == C && Hpg == P)                                                 \
+    return site_whole::launch<C, P, MAX_THREADS, 2>(                       \
+        table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, lse, B, G, Hpg, Ht, \
+        Wt, Xp, N, H, W, S, scale, (cudaStream_t)stream);
   FOLD_INSTANCES(WHOLE_CASE)
 #undef WHOLE_CASE
   return (int)cudaErrorInvalidValue;
@@ -440,7 +262,8 @@ int dispatch_ring(const void* table, void* pitched, const void* ys,
 const void* kernel_of(int whole, int ch, int Hpg) {
 #define KERNEL_CASE(C, P)                                              \
   if (ch == C && Hpg == P)                                             \
-    return whole ? (const void*)fused_site_fold_heads_kernel<C, P>     \
+    return whole ? (const void*)site_whole::fused_site_whole_kernel<  \
+                       C, P, MAX_THREADS, 2>                           \
                  : (const void*)fused_site_fold_heads_ring_kernel<C, P>;
   FOLD_INSTANCES(KERNEL_CASE)
 #undef KERNEL_CASE
@@ -505,10 +328,5 @@ extern "C" int fused_site_fold_heads_occupancy(int whole, int ch, int hpg,
                                                int threads, int smem) {
   const void* f = kernel_of(whole, ch, hpg);
   if (f == nullptr) return -(int)cudaErrorInvalidValue;
-  int rc = lattice::set_smem(f, smem);
-  int blocks = 0;
-  if (!rc)
-    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f,
-                                                            threads, smem);
-  return rc ? -rc : blocks;
+  return site_whole::occupancy(f, threads, smem);
 }

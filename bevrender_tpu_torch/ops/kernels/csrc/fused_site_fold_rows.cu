@@ -163,3 +163,25 @@ extern "C" int fused_site_fold_rows_launch(
 #undef FOLD_CASE
   return (int)cudaErrorInvalidValue;
 }
+
+// Blocks of THREADS threads with `smem` bytes of dynamic shared memory that
+// one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for
+// the instance of (ch, Hpg); a negative CUDA error code where the query
+// fails.
+extern "C" int fused_site_fold_rows_occupancy(int ch, int hpg, int smem) {
+  const void* f = nullptr;
+#define KERNEL_CASE(C, P) \
+  if (ch == C && hpg == P) f = (const void*)fused_site_fold_rows_kernel<C, P>;
+  KERNEL_CASE(4, 1)
+  KERNEL_CASE(4, 2)
+  KERNEL_CASE(8, 1)
+  KERNEL_CASE(8, 2)
+#undef KERNEL_CASE
+  if (f == nullptr) return -(int)cudaErrorInvalidValue;
+  int rc = lattice::set_smem(f, smem);
+  int blocks = 0;
+  if (!rc)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f,
+                                                            THREADS, smem);
+  return rc ? -rc : blocks;
+}

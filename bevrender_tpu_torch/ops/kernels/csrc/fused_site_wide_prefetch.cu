@@ -7,41 +7,61 @@
 // staging with tile t+1's windows drained by pltpu.make_async_copy (double
 // buffered) while tile t computes.
 //
-// Each block takes one (b, g, h) and THREADS consecutive queries, which lie
-// on query rows iy0 .. iy1 (iy1 - iy0 <= ceil((THREADS - 1) / W)). Of a
-// key's window they touch table rows ys + iy0 .. ys + iy1 + 1 and the
-// columns ms .. ms + max(u0) + 2, so a ring stage holds, for each of the KT
-// keys of a tile, R x CW bf16 with R = min(ceil((THREADS - 1) / W), H - 1)
-// + 2 and CW the columns rounded out to whole 16-byte chunks (at the
-// flagship's SCA 7 x 152 x 2 B = 2.1 KB a key, 68 KB a stage). R, CW and the
-// shared memory they need come from the wrapper
-// (ops/kernels/fused_site_wide.py::prefetch_ring), which refuses a shape
-// over SMEM_PER_BLOCK. Copies are 16 bytes from a pitched zero-padded copy
-// of the table that the launch makes first (lattice_ring.cuh): aligned, and
-// with no bounds checks. Per tile t: __syncthreads (tile t-1 consumed, its
-// stage free); issue tile t+1's copies into the other stage and commit;
-// load tile t's K, V and geometry; wait for all but the newest group;
-// __syncthreads; compute tile t from its stage.
+// Two paths, chosen by the wrapper (ops/kernels/fused_site_wide.py
+// ::prefetch_plan) from the shapes alone:
 //
-// The tile order and the online softmax are fused_site_wide.cu's
-// (site_common.cuh), and lattice_common.cuh::bias_at on the staged window
-// reads the same four entries as its bias_at_raw, so the output equals it,
-// and fused_site.cu, bit for bit.
+// - Whole table (site_whole.cuh::fused_site_whole_kernel with HB = 1 head a
+//   block), wherever one head's zero-padded table and two key stages fit
+//   one block: every site of the supported models (63 x 429 x 2 B + 3 KB =
+//   57 KB at the flagship's SCA). A block owns one (b, g, h) and a strip of
+//   S queries, one thread per query; it stages the head's padded table
+//   once from the raw table, and K, V (bf16) and the tile's geometry are
+//   double-buffered by cp.async with one __syncthreads a tile. The TPU
+//   prefetches windows because its VMEM cannot hold a replicated table; an
+//   SM's shared memory holds the whole head table several times over, so
+//   nothing but the key tile needs to move.
+// - The window ring (fused_site_wide_prefetch_kernel), for a site whose one
+//   head's table does not fit (a head of BEV 64 at depth 5: 264,702 bytes
+//   whole, 174,464 ring). Each block takes one (b, g, h) and THREADS
+//   consecutive queries, which lie on query rows iy0 .. iy1 (iy1 - iy0 <=
+//   ceil((THREADS - 1) / W)). Of a key's window they touch table rows ys +
+//   iy0 .. ys + iy1 + 1 and the columns ms .. ms + max(u0) + 2, so a ring
+//   stage holds, for each of the KT keys of a tile, R x CW bf16 with R =
+//   min(ceil((THREADS - 1) / W), H - 1) + 2 and CW the columns rounded out
+//   to whole 16-byte chunks. R, CW and the shared memory they need come
+//   from the wrapper (fused_site_wide.py::prefetch_ring), which refuses a
+//   shape over SMEM_PER_BLOCK. Copies are 16 bytes from a pitched
+//   zero-padded copy of the table that the launch makes first
+//   (lattice_ring.cuh): aligned, and with no bounds checks. Per tile t:
+//   __syncthreads (tile t-1 consumed, its stage free); issue tile t+1's
+//   copies into the other stage and commit; load tile t's K, V and
+//   geometry; wait for all but the newest group; __syncthreads; compute
+//   tile t from its stage.
 //
-// Bound: operations per (query, key) pair, as fused_site_wide.cu; the copies
-// add R x CW / THREADS = 8.3 staged entries per pair at the flagship's SCA
-// against the 4 that the L1 kernel reads, and the 136 KB ring leaves one
-// block of THREADS threads per SM.
+// On both paths the tile order and the online softmax are
+// fused_site_wide.cu's (site_common.cuh), and lattice_common.cuh::bias_at on
+// the staged table or window reads the same four entries as its
+// bias_at_raw, so the output equals it, and fused_site.cu, bit for bit.
+//
+// Bound: operations per (query, key) pair, as fused_site_wide.cu. The ring
+// adds R x CW / THREADS = 8.3 staged entries per pair at the flagship's SCA
+// against the 4 that the bias reads, and its 136 KB there left one block of
+// THREADS threads per SM, so its time counted waves of 132 blocks; the
+// whole-table path stages the table once a block and fits several blocks
+// an SM.
 //
 // Head widths: 4 and 8, as fused_site.cu.
 
-#include "lattice_ring.cuh"
-#include "site_common.cuh"
+#include "site_whole.cuh"
 
 namespace {
 
 using site::KT;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // queries of a ring block
+// queries of a whole-table block at most, and the blocks an SM the compiler
+// is asked to fit (fused_site_wide.py::WHOLE_THREADS)
+constexpr int WHOLE_THREADS = 160;
+constexpr int WHOLE_MIN_BLOCKS = 4;
 
 template <int CH>
 __global__ void __launch_bounds__(THREADS) fused_site_wide_prefetch_kernel(
@@ -148,10 +168,32 @@ int launch(const void* table, void* pitched, const void* ys, const void* ms,
   return (int)cudaGetLastError();
 }
 
+template <int CH>
+const void* whole_kernel() {
+  return (const void*)site_whole::fused_site_whole_kernel<
+      CH, 1, WHOLE_THREADS, WHOLE_MIN_BLOCKS>;
+}
+
 }  // namespace
 
-// `pitched` is scratch of G * Hpg * (Ht + 2 PAD) * Xs bf16 (Xs a multiple
-// of 8) for the pitched copy of the table.
+// The whole-table path: S queries a block (a multiple of 32, at most
+// WHOLE_THREADS), Xp the row pitch of the padded table; k and v on a 2
+// ch-byte boundary.
+extern "C" int fused_site_wide_prefetch_whole_launch(
+    const void* table, const void* ys, const void* ms, const void* wy,
+    const void* fx, const void* u0, const void* gcomb, const void* q,
+    const void* k, const void* v, void* out, int B, int G, int Hpg, int Ht,
+    int Wt, int Xp, int N, int H, int W, int S, int ch, float scale,
+    void* stream) {
+  if (ch != 4 && ch != 8) return (int)cudaErrorInvalidValue;
+  auto fn = ch == 4 ? site_whole::launch<4, 1, WHOLE_THREADS, WHOLE_MIN_BLOCKS>
+                    : site_whole::launch<8, 1, WHOLE_THREADS, WHOLE_MIN_BLOCKS>;
+  return fn(table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, nullptr, B, G, Hpg,
+            Ht, Wt, Xp, N, H, W, S, scale, (cudaStream_t)stream);
+}
+
+// The ring path. `pitched` is scratch of G * Hpg * (Ht + 2 PAD) * Xs bf16
+// (Xs a multiple of 8) for the pitched copy of the table.
 extern "C" int fused_site_wide_prefetch_launch(
     const void* table, void* pitched, const void* ys, const void* ms,
     const void* wy, const void* fx, const void* u0, const void* gcomb,
@@ -163,4 +205,18 @@ extern "C" int fused_site_wide_prefetch_launch(
   auto fn = ch == 4 ? launch<4> : launch<8>;
   return fn(table, pitched, ys, ms, wy, fx, u0, gcomb, q, k, v, out, B, G,
             Hpg, Ht, Wt, Xs, N, H, W, R, CW, scale, (cudaStream_t)stream);
+}
+
+// Blocks of `threads` threads with `smem` bytes of dynamic shared memory that
+// one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for
+// the whole-table kernel (`whole` non-zero) or the ring kernel of head width
+// ch. A negative CUDA error code where the query fails.
+extern "C" int fused_site_wide_prefetch_occupancy(int whole, int ch,
+                                                  int threads, int smem) {
+  if (ch != 4 && ch != 8) return -(int)cudaErrorInvalidValue;
+  const void* f =
+      whole ? (ch == 4 ? whole_kernel<4>() : whole_kernel<8>())
+            : (ch == 4 ? (const void*)fused_site_wide_prefetch_kernel<4>
+                       : (const void*)fused_site_wide_prefetch_kernel<8>);
+  return site_whole::occupancy(f, threads, smem);
 }

@@ -25,18 +25,16 @@ they fit one block, the window ring where they do not.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from bevrender_tpu_torch.ops.kernels._launch import (
     PAD,
     SMEM_PER_BLOCK,
+    blocks_per_sm,
     call,
     padded_width,
     window_columns,
 )
-from bevrender_tpu_torch.ops.kernels.build import load_library
 from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
 
 # kernel launches since the last reset (ops.kernels.reset_counts)
@@ -46,7 +44,7 @@ launches_heads_lse = 0  # fused_site_fold_heads_lse
 THREADS = 128  # queries per block, THREADS in both sources (the ring path's)
 KEY_HALF = KEY_TILE // 2  # keys per ring slot, KH in fused_site_fold_heads.cu
 # threads of a whole-table block of fused_site_fold_heads at most (Hpg x its
-# strip of queries; MAX_THREADS there)
+# strip of queries; MAX_THREADS in csrc/fused_site_fold_heads.cu)
 MAX_THREADS = 256
 # heads per group the kernels have instances for (every supported model has
 # two)
@@ -101,21 +99,22 @@ def fold_ring(Hpg: int, Wt: int, H: int, W: int, ch: int) -> tuple:
 
 
 def whole_smem(Hpg: int, Ht: int, Xp: int, ch: int) -> int:
-    """Shared memory of ``fused_site_fold_heads``'s whole-table path: two
-    stages of every head's K and V rows of a key tile in bf16 with four
-    words of geometry a key, and the Hpg zero-padded tables ((Ht + 2 PAD) x
-    Xp bf16 each), as the kernel lays them out."""
+    """Shared memory of a whole-table block (csrc/site_whole.cuh) of Hpg
+    heads: two stages of every head's K and V rows of a key tile in bf16
+    with four words of geometry a key, and the Hpg zero-padded tables ((Ht
+    + 2 PAD) x Xp bf16 each), as the kernel lays them out."""
     stage = 2 * Hpg * KEY_TILE * ch * 2 + 4 * KEY_TILE * 4
     return 2 * stage + Hpg * (Ht + 2 * PAD) * Xp * 2
 
 
-def strip(Hpg: int, M: int) -> int:
-    """Queries per head of a whole-table block: the fewest strips of at
-    most MAX_THREADS / Hpg queries that cover the M queries, as even as
-    steps that keep Hpg x the strip a multiple of 32 allow (112 for M = 784
-    and two heads: 7 strips, no idle thread)."""
+def strip(Hpg: int, M: int, most: int = MAX_THREADS) -> int:
+    """Queries per head of a whole-table block of at most ``most`` threads:
+    the fewest strips of at most most / Hpg queries that cover the M
+    queries, as even as steps that keep Hpg x the strip a multiple of 32
+    allow (112 for M = 784 and two heads in 256 threads: 7 strips, no idle
+    thread)."""
     step = 32 // Hpg
-    per = -(-M // -(-M // (MAX_THREADS // Hpg)))
+    per = -(-M // -(-M // (most // Hpg)))
     return -(-per // step) * step
 
 
@@ -138,13 +137,18 @@ def heads_blocks_per_sm(Hpg: int, Wt: int, H: int, W: int, ch: int) -> int:
     once at this site, on the path ``heads_plan`` takes
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     path, _, threads, smem = heads_plan(Hpg, Wt, H, W, ch)
-    fn = load_library("fused_site_fold_heads").fused_site_fold_heads_occupancy
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_int
-    n = fn(int(path == "whole"), ch, Hpg, threads, smem)
-    if n <= 0:
-        raise RuntimeError(f"fused_site_fold_heads_occupancy: CUDA error {-n}")
-    return n
+    return blocks_per_sm("fused_site_fold_heads",
+                         "fused_site_fold_heads_occupancy",
+                         int(path == "whole"), ch, Hpg, threads, smem)
+
+
+def check_rows_aligned(name: str, k, v, ch: int) -> None:
+    """A whole-table kernel copies a key's K and V row as one 2 ch-byte
+    vector: refuse a k or v that does not start on such a boundary."""
+    for arg, x in (("k", k), ("v", v)):
+        if x.data_ptr() % (2 * ch):
+            raise ValueError(
+                f"{name}: {arg} must start on a {2 * ch}-byte boundary")
 
 
 def _check_fold(name: str, Hpg: int, W: int) -> None:
@@ -190,12 +194,7 @@ def _launch_heads(table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
     fn = "fused_site_fold_heads" + ("_ring" if path == "ring" else "") + (
         "_lse_launch" if with_lse else "_launch")
     if path == "whole":
-        # the kernel copies a key's K and V row as one 2 ch-byte vector
-        for name, x in (("k", k), ("v", v)):
-            if x.data_ptr() % (2 * ch):
-                raise ValueError(
-                    f"fused_site_fold_heads: {name} must start on a "
-                    f"{2 * ch}-byte boundary")
+        check_rows_aligned("fused_site_fold_heads", k, v, ch)
         call("fused_site_fold_heads", fn,
              (table, ys, ms, wy, f, u0, g, q, k, v, out)
              + ((lse,) if with_lse else ())

@@ -8,9 +8,13 @@ table ``fused_site`` cannot stage in shared memory, or every site under
 - ``fused_site_wide_lse_cuda``, its instance that also returns the
   logsumexp, the counterpart of ``fused_site_call_lse`` there;
 - ``fused_site_wide_prefetch_cuda`` (csrc/fused_site_wide_prefetch.cu), the
-  same site with each key tile's windows prefetched into shared memory by
-  asynchronous copies, the counterpart of bevrender_tpu/ops/pallas/
-  experimental.py::fused_site_call_dma (``ModelConfig.site_prefetch``).
+  counterpart of bevrender_tpu/ops/pallas/experimental.py::
+  fused_site_call_dma (``ModelConfig.site_prefetch``): the same site with
+  the key tiles prefetched into shared memory by asynchronous copies. It
+  takes one of two paths, by the shapes alone (``prefetch_plan``): the
+  head's whole padded table in shared memory (csrc/site_whole.cuh) where it
+  fits one block, each key tile's table windows in a ring where it does
+  not.
 
 They compute the function of ``fused_site`` and equal it bit for bit; the
 plain versions are ``ops.deform_attn.site_plain`` and ``site_plain_lse``.
@@ -23,16 +27,27 @@ import torch
 from bevrender_tpu_torch.ops.kernels._launch import (
     PAD,
     SMEM_PER_BLOCK,
+    blocks_per_sm,
     call,
+    padded_width,
     window_columns,
 )
 from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
+from bevrender_tpu_torch.ops.kernels.fused_site_fold import (
+    check_rows_aligned,
+    strip,
+    whole_smem,
+)
 
 # kernel launches since the last reset (ops.kernels.reset_counts)
 launches = 0  # fused_site_wide
 launches_lse = 0  # fused_site_wide_lse
 launches_prefetch = 0  # fused_site_wide_prefetch
-THREADS = 128  # queries per block, THREADS in csrc/fused_site_wide_prefetch.cu
+# queries of a ring block, THREADS in csrc/fused_site_wide_prefetch.cu
+THREADS = 128
+# queries of a whole-table block at most (WHOLE_THREADS there: with its
+# launch bounds, four such blocks of the flagship's SCA share an SM)
+WHOLE_THREADS = 160
 
 
 def prefetch_ring(Ht: int, Wt: int, H: int, W: int, ch: int) -> tuple:
@@ -49,6 +64,31 @@ def prefetch_ring(Ht: int, Wt: int, H: int, W: int, ch: int) -> tuple:
             f"rows x {CW} columns needs {smem} bytes of shared memory, over "
             f"{SMEM_PER_BLOCK}; take fused_site_wide (site_prefetch=False)")
     return R, CW, Xs, smem
+
+
+def prefetch_plan(Ht: int, Wt: int, H: int, W: int, ch: int) -> tuple:
+    """(path, queries a block, threads a block, shared-memory bytes) of
+    ``fused_site_wide_prefetch``, one head a block: "whole" where the head's
+    zero-padded table fits one block with the two key stages
+    (``fused_site_fold.whole_smem`` at one head), in strips of at most
+    WHOLE_THREADS queries; else "ring" (``prefetch_ring``, which refuses a
+    site that fits neither). A route of the shapes, never of a failure:
+    every site of the supported models takes "whole"."""
+    smem = whole_smem(1, Ht, padded_width(Wt), ch)
+    if smem <= SMEM_PER_BLOCK:
+        S = strip(1, H * W, WHOLE_THREADS)
+        return "whole", S, S, smem
+    return "ring", THREADS, THREADS, prefetch_ring(Ht, Wt, H, W, ch)[3]
+
+
+def prefetch_blocks_per_sm(Ht: int, Wt: int, H: int, W: int, ch: int) -> int:
+    """Blocks of ``fused_site_wide_prefetch`` that one SM of the card holds
+    at once at this site, on the path ``prefetch_plan`` takes
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    path, _, threads, smem = prefetch_plan(Ht, Wt, H, W, ch)
+    return blocks_per_sm("fused_site_wide_prefetch",
+                         "fused_site_wide_prefetch_occupancy",
+                         int(path == "whole"), ch, threads, smem)
 
 
 def _launch(fn_name: str, table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
@@ -90,19 +130,28 @@ def fused_site_wide_lse_cuda(table, ys, ms, wy, f, u0, g, q, k, v, H: int,
 
 def fused_site_wide_prefetch_cuda(table, ys, ms, wy, f, u0, g, q, k, v,
                                   H: int, W: int, scale: float) -> torch.Tensor:
-    """``fused_site_wide_cuda`` through the prefetch kernel. The launch
-    first copies the table into scratch as a pitched zero-padded table
-    (G * Hpg * (Ht + 2 PAD) * Xs bf16), which its time includes."""
+    """``fused_site_wide_cuda`` through the prefetch kernel, on the path
+    ``prefetch_plan`` names. On the ring path the launch first copies the
+    table into scratch as a pitched zero-padded table (G * Hpg * (Ht + 2
+    PAD) * Xs bf16), which its time includes."""
     global launches_prefetch
     B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
                                                q, k, v, H, W)
-    R, CW, Xs, _ = prefetch_ring(Ht, Wt, H, W, ch)
+    path, S, _, _ = prefetch_plan(Ht, Wt, H, W, ch)
     dev = table.device
-    pitched = torch.empty((G * Hpg * (Ht + 2 * PAD) * Xs,),
-                          dtype=torch.bfloat16, device=dev)
     out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32, device=dev)
-    call("fused_site_wide_prefetch", "fused_site_wide_prefetch_launch",
-         (table, pitched, ys, ms, wy, f, u0, g, q, k, v, out, B, G, Hpg, Ht,
-          Wt, Xs, N, H, W, R, CW, ch, float(scale)))
+    if path == "whole":
+        check_rows_aligned("fused_site_wide_prefetch", k, v, ch)
+        call("fused_site_wide_prefetch",
+             "fused_site_wide_prefetch_whole_launch",
+             (table, ys, ms, wy, f, u0, g, q, k, v, out, B, G, Hpg, Ht, Wt,
+              padded_width(Wt), N, H, W, S, ch, float(scale)))
+    else:
+        R, CW, Xs, _ = prefetch_ring(Ht, Wt, H, W, ch)
+        pitched = torch.empty((G * Hpg * (Ht + 2 * PAD) * Xs,),
+                              dtype=torch.bfloat16, device=dev)
+        call("fused_site_wide_prefetch", "fused_site_wide_prefetch_launch",
+             (table, pitched, ys, ms, wy, f, u0, g, q, k, v, out, B, G, Hpg,
+              Ht, Wt, Xs, N, H, W, R, CW, ch, float(scale)))
     launches_prefetch += 1
     return out

@@ -72,10 +72,13 @@ Phases, each fatal on failure:
 17. the pyramid serving as phase 10 with ``bias_forward="prefetch"``: 24
     ``lattice_bias_wide_prefetch`` and 64 ``lattice_bias`` per forward, the
     render equal to phase 10's;
-18. each new kernel alone at every shape phases 14-17 give it, at two
-    table scales, against its plain version and, with tolerance 0, against
-    its bit-equal sibling; ``lattice_bias_wide`` and its backward at the
-    flagship's shapes; times, bounds, plain and library times;
+18. each new kernel alone at every shape phases 14-17 give it, and
+    ``fused_site_wide_prefetch`` also at a site of its ring path
+    (PREFETCH_RING_SITE), at two table scales, against its plain version
+    and, with tolerance 0, against its bit-equal sibling;
+    ``lattice_bias_wide`` and its backward at the flagship's shapes; times,
+    bounds, plain and library times, and the prefetch site's path and
+    blocks per SM;
 19. the folded fused sites: the flagship serving as phase 14
     (WIDE_REQUESTS requests) with ``lattice_route="wide"``,
     ``site_prefetch`` and ``site_fold_heads``: exactly 24
@@ -368,6 +371,25 @@ def queued_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
+# The whole-table paths of fused_site_wide_prefetch and
+# fused_site_fold_heads launch one template (csrc/site_whole.cuh), whose
+# instances the profiler names by their arguments, the launch bounds last:
+# (160, 4) in fused_site_wide_prefetch.cu, (256, 2) in
+# fused_site_fold_heads.cu. Every other kernel is named "<counter>_kernel".
+WHOLE_INSTANCES = {"fused_site_wide_prefetch": ", 160, 4>",
+                   "fused_site_fold_heads": ", 256, 2>"}
+
+
+def seen_launches(avgs, name: str) -> int:
+    """Launches of the kernel counted as ``name`` among the profiler's
+    averages ``avgs``."""
+    tail = WHOLE_INSTANCES.get(name)
+    return sum(e.count for e in avgs
+               if f"{name}_kernel" in e.key
+               or (tail is not None and "fused_site_whole_kernel<" in e.key
+                   and tail in e.key))
+
+
 def expected(**nonzero) -> dict:
     """Launch counts with every kernel not named at 0."""
     from bevrender_tpu_torch.ops import kernels
@@ -452,8 +474,7 @@ def serving_phase(card: str, tag: str, cfg, B: int, requests: int,
     profiled.sort(key=lambda r: r[0])
     busy, avgs = profiled[1]
     idle = max(0.0, 1 - busy / ms)
-    seen = {n: sum(e.count for e in avgs if f"{n}_kernel" in e.key)
-            for n in per_forward}
+    seen = {n: seen_launches(avgs, n) for n in per_forward}
     print(f"{tag}: device time of one request (profiler, median of 3: "
           f"{[round(r[0], 3) for r in profiled]}): busy {busy:.3f} ms of "
           f"{ms:.3f} ms/request, idle share {idle:.3f}; kernel launches "
@@ -1131,39 +1152,60 @@ def pitched_bytes(G, Ht, Wt) -> int:
     return 2 * G * HPG * (Ht + 2 * PAD) * window_columns(Wt)[1] * 2
 
 
+# a site of fused_site_wide_prefetch's ring path, (name, B, G, ch, N, Wt, per
+# forward, BEV side): one head's padded table of BEV 64 at depth 5 (135 x 969
+# bf16, 264,702 bytes with the key stages) overflows one block, the ring
+# (4 rows x 336 columns a key, 174,464 bytes) does not. No supported model
+# has such a site (0 a forward), so phase 18 alone launches the ring.
+PREFETCH_RING_SITE = ("ring_bev64_g4_ch8_n1960", 2, 4, 8, 1960, 639, 0, 64)
+
+
 def check_wide_site(da, kernels) -> tuple:
     """Phase 18, the fused sites of the wide route at every serving shape of
-    phases 14-15 (SITE_SITES) and two table scales: ``fused_site_wide``
-    equal to ``fused_site`` bit for bit and ``fused_site_wide_prefetch``
-    equal to it, both within the fused site's tolerances of the plain
-    version and of the online mirror. Times (the prefetch variant's as
-    the sum of its kernel's and its pitched table copy's), bounds, plain
-    and library times, and
-    ``fused_site``'s time at the same shapes for comparison. Returns
-    (fused_site_wide record, fused_site_wide_prefetch record)."""
+    phases 14-15 (SITE_SITES) and at PREFETCH_RING_SITE, two table scales
+    each: ``fused_site_wide`` equal to ``fused_site`` bit for bit (where
+    ``fused_site`` takes the table: not at the ring site) and
+    ``fused_site_wide_prefetch`` equal to ``fused_site_wide``, both within
+    the fused site's tolerances of the plain version and of the online
+    mirror. Each prefetch line names the path ``prefetch_plan`` takes and
+    the blocks one SM holds there; the phase fails unless every SITE_SITES
+    shape takes "whole" and the ring site "ring". Times (the prefetch
+    variant's on its ring path as the sum of its kernel's and its pitched
+    table copy's, with that copy in its bound), bounds, plain and library
+    times, and ``fused_site``'s time at the same shapes for comparison.
+    Returns (fused_site_wide record, fused_site_wide_prefetch record)."""
     import torch
 
     wide = kernels.fused_site_wide
     rows_w, rows_p, bad = [], [], []
     worst = dict(wide=0.0, wide_online=0.0, prefetch=0.0, prefetch_online=0.0)
-    for i, (name, B, G, ch, N, Wt, per_fwd) in enumerate(SITE_SITES):
+    sites = [(*site, H) for site in SITE_SITES] + [PREFETCH_RING_SITE]
+    for i, (name, B, G, ch, N, Wt, per_fwd, side) in enumerate(sites):
+        ring = name == PREFETCH_RING_SITE[0]
+        Ht = 2 * side - 1
+        plan = dict(path=wide.prefetch_plan(Ht, Wt, side, side, ch)[0],
+                    blocks_per_sm=wide.prefetch_blocks_per_sm(
+                        Ht, Wt, side, side, ch))
         for std in SITE_TABLE_STDS:
-            table, k_pos, q, k, v = site_inputs(80 + i, B, G, ch, N, Wt, std)
+            table, k_pos, q, k, v = site_inputs(80 + i, B, G, ch, N, Wt, std,
+                                                side)
             scale = ch ** -0.5
             bf = torch.bfloat16
-            kargs = da._kernel_args(table, k_pos, H, W) + tuple(
+            kargs = da._kernel_args(table, k_pos, side, side) + tuple(
                 x.to(bf).contiguous() for x in (q, k, v))
             geo, qkv = kargs[:7], kargs[8:]
-            whole = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
-            out_w = wide.fused_site_wide_cuda(*geo, *qkv, H, W, scale)
-            out_p = wide.fused_site_wide_prefetch_cuda(*geo, *qkv, H, W, scale)
+            out_w = wide.fused_site_wide_cuda(*geo, *qkv, side, side, scale)
+            out_p = wide.fused_site_wide_prefetch_cuda(*geo, *qkv, side, side,
+                                                       scale)
+            whole = None if ring else kernels.fused_site.fused_site_cuda(
+                *kargs, side, side, scale)
             tb = table.bfloat16().float()
-            bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+            bias = da.lattice_bias_plain(tb, k_pos, side, side, torch.float32)
             ref = da.site_consumer(q, k, v, bias, scale)
             wabs = da.site_consumer(q, k, v.abs(), bias, scale)
             online = da.site_consumer_online(q, k, v, bias, scale)
             torch.cuda.synchronize()
-            same_w = torch.equal(out_w, whole)
+            same_w = ring or torch.equal(out_w, whole)
             same_p = torch.equal(out_p, out_w)
             errs = {}
             for tag, out in (("wide", out_w), ("prefetch", out_p)):
@@ -1172,12 +1214,16 @@ def check_wide_site(da, kernels) -> tuple:
                              bool((d_plain <= SITE_P_ROUND * wabs + 1e-5).all())
                              and bool((d_online <= ONLINE_TOL * wabs
                                        + 1e-7).all()))
-            ok = same_w and same_p and errs["wide"][2] and errs["prefetch"][2]
+            ok = (same_w and same_p and errs["wide"][2] and errs["prefetch"][2]
+                  and plan["path"] == ("ring" if ring else "whole"))
             print(f"fused_site_wide {name} table std {std}: "
-                  f"{'equals' if same_w else 'DIFFERS FROM'} fused_site; "
-                  f"prefetch {'equals' if same_p else 'DIFFERS FROM'} "
+                  + ("" if ring else
+                     f"{'equals' if same_w else 'DIFFERS FROM'} fused_site; ")
+                  + f"prefetch {'equals' if same_p else 'DIFFERS FROM'} "
                   f"fused_site_wide; max abs err vs plain {errs['wide'][0]:.3g}"
-                  f", vs site_consumer_online {errs['wide'][1]:.3g} "
+                  f" / {errs['prefetch'][0]:.3g}, vs site_consumer_online "
+                  f"{errs['wide'][1]:.3g} / {errs['prefetch'][1]:.3g}; prefetch "
+                  f"path {plan['path']}, blocks_per_sm {plan['blocks_per_sm']} "
                   f"({'ok' if ok else 'FAIL'})", flush=True)
             if not ok:
                 bad.append(f"{name} std {std}")
@@ -1187,20 +1233,24 @@ def check_wide_site(da, kernels) -> tuple:
                                              errs[tag][1])
             if std != SITE_TABLE_STDS[0]:
                 continue
-            ms_whole = queued_ms(lambda: kernels.fused_site.fused_site_cuda(
-                *kargs, H, W, scale), 20)
+            ms_whole = None if ring else queued_ms(
+                lambda: kernels.fused_site.fused_site_cuda(
+                    *kargs, side, side, scale), 20)
             ms_w = queued_ms(lambda: wide.fused_site_wide_cuda(
-                *geo, *qkv, H, W, scale), 20)
+                *geo, *qkv, side, side, scale), 20)
             launch_p = lambda: wide.fused_site_wide_prefetch_cuda(  # noqa: E731
-                *geo, *qkv, H, W, scale)
+                *geo, *qkv, side, side, scale)
             ms_p_kernel = device_ms(launch_p, 20,
-                                    "fused_site_wide_prefetch_kernel")
+                                    "fused_site_wide_prefetch_kernel" if ring
+                                    else "fused_site_whole_kernel")
             ms_p = queued_ms(launch_p, 20)
-            plain = queued_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
-                                                    scale, torch.float32), 5)
+            plain = queued_ms(lambda: da.site_plain(
+                q, k, v, k_pos, tb, side, side, scale, torch.float32), 5)
             lib = sdpa_ms(q, k, v, bias, scale, 20)
-            b_w = site_bound(B, G, ch, N, Wt)
-            b_p = site_bound(B, G, ch, N, Wt, pitched_bytes(G, 2 * H - 1, Wt))
+            b_w = site_bound(B, G, ch, N, Wt, side=side)
+            b_p = site_bound(B, G, ch, N, Wt,
+                             pitched_bytes(G, Ht, Wt) if ring else 0,
+                             side=side)
             common = dict(site=name, plain_ms=plain, library_ms=lib,
                           per_forward=per_fwd, fused_site_ms=ms_whole)
             rows_w.append(dict(common, ms=ms_w, bound_ms=b_w[0],
@@ -1209,12 +1259,16 @@ def check_wide_site(da, kernels) -> tuple:
             rows_p.append(dict(common, ms=ms_p, kernel_only_ms=ms_p_kernel,
                                bound_ms=b_p[0], bound_by=b_p[1],
                                max_abs_err=errs["prefetch"][0],
-                               max_abs_err_online=errs["prefetch"][1]))
+                               max_abs_err_online=errs["prefetch"][1],
+                               **plan))
             print(f"fused_site_wide {name}: kernel {ms_w:.4f} ms, prefetch "
                   f"{ms_p:.4f} ms (kernel alone {ms_p_kernel:.4f}), "
-                  f"fused_site {ms_whole:.4f} ms; plain {plain:.4f} ms "
-                  f"sdpa+mask {lib:.4f} ms; bound {b_w[0]:.4f} / "
-                  f"{b_p[0]:.4f} ms ({b_w[1]}) x{per_fwd}/forward", flush=True)
+                  + ("" if ring else f"fused_site {ms_whole:.4f} ms; ")
+                  + f"plain {plain:.4f} ms sdpa+mask {lib:.4f} ms; bound "
+                  f"{b_w[0]:.4f} / {b_p[0]:.4f} ms ({b_w[1]}) "
+                  f"x{per_fwd}/forward; prefetch path {plan['path']}, "
+                  f"blocks_per_sm {plan['blocks_per_sm']}", flush=True)
+            del bias, ref, wabs, online
         torch.cuda.empty_cache()
     if bad:
         fail(f"fused_site_wide / fused_site_wide_prefetch at {bad}")
@@ -1401,9 +1455,8 @@ def check_fold_sites(da, kernels) -> tuple:
     SITE_P_ROUND of the plain version, the logsumexp within LSE_TOL of the
     plain one. The head-folded kernels are held so at FOLD_RING_SITE too,
     which must take their ring path (every serving and training site takes
-    the whole-table path). Times (a head-folded kernel's on its ring path,
-    as its prefetch sibling's, the sum of its kernel's and its pitched
-    table copy's), bounds (with that copy on the ring path only), plain and
+    the whole-table path). Times (a head-folded kernel's on its ring path
+    the sum of its kernel's and its pitched table copy's), bounds (with that copy on the ring path only), plain and
     library times, and the sibling's time in the same call; a head-folded
     line also names its path (``fused_site_fold.heads_plan``) and the
     blocks one SM holds. Returns the records of (fused_site_fold_rows,
@@ -1883,7 +1936,7 @@ def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
             idle = max(0.0, 1 - busy / ms)
             # fused_site_kernel is both instances, with and without lse, and
             # so is fused_site_wide_kernel
-            seen_k = {n: sum(e.count for e in avgs if f"{n}_kernel" in e.key)
+            seen_k = {n: seen_launches(avgs, n)
                       for n in ("fused_site", "lattice_bias",
                                 "lattice_bias_bwd", "fused_site_bwd",
                                 "lattice_bias_wide", "lattice_bias_wide_bwd",

@@ -18,7 +18,16 @@ wrapper takes (``fused_site_fold.heads_plan``; a checkout without it has
 the ring only), the grid's blocks, the blocks one SM holds (the library's
 ``fused_site_fold_heads_occupancy``, from
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; "-" where the library
-does not export it) and the waves they make.
+does not export it) and the waves they make. ``--kernel prefetch`` times
+the window-prefetch fused site (csrc/fused_site_wide_prefetch.cu) at phase
+18's shapes (``chip_smoke.SITE_SITES`` and, where chip_smoke has it,
+``PREFETCH_RING_SITE``) beside ``fused_site_wide``, ``fused_site`` and
+SDPA with the mask, then at the SCA G=4 ch 8 shape for B*V = 2, 4, ... 12;
+each line names the path (``fused_site_wide.prefetch_plan``; the ring only
+in a checkout without it), queries a block, shared memory, grid blocks,
+blocks an SM (the library's ``fused_site_wide_prefetch_occupancy``) and
+waves, and at the serving shapes the blocks an SM of the row-folded site
+(``fused_site_fold_rows_occupancy``).
 
     python3 scripts/torch_site_bwd_times.py [--kernel K] [--root DIR] [--sass]
 
@@ -35,8 +44,8 @@ and scratch of its outputs included). ``--sass`` also prints the build's
 backward, each shared-memory atomic, shuffle and mma opcode of its ``ch =
 8`` kernel; for the windows backward, each atomic and reduction opcode of
 every backward kernel, and how many of them act on floats; for the folded
-site, each kernel's registers (``cuobjdump -res-usage``) and its atomic,
-mma, asynchronous-copy and barrier opcodes. The windows
+and the prefetch site, each kernel's registers (``cuobjdump -res-usage``)
+and its atomic, mma, asynchronous-copy and barrier opcodes. The windows
 also print the largest bin of their starts (keys sharing one (g, ms, ys))
 and the share of keys whose ms is clipped to the table's first or last
 start. The last line is one JSON object with the card and the times.
@@ -114,7 +123,7 @@ def registers(lib: Path) -> dict:
 
 def fold_sass(lib: Path) -> dict:
     """Atomic, mma, asynchronous-copy and barrier opcodes of every kernel
-    of the folded site's library."""
+    of a fused site's library."""
     keep = ("ATOM", "RED", "HMMA", "LDGSTS", "LDGDEPBAR", "DEPBAR", "BAR")
     return {name: {k: v for k, v in sorted(ops.items())
                    if k.startswith(keep)}
@@ -275,10 +284,92 @@ def fold_heads_times(cs, card: str, result: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def prefetch_plan(cs, wide, lib, n_sm, B, G, ch, Wt, side) -> dict:
+    """Path, queries a block, grid blocks, blocks an SM holds and waves of
+    ``fused_site_wide_prefetch`` at a site of BEV side x side with
+    chip_smoke's heads per group (one head a block on either path)."""
+    Ht = 2 * side - 1
+    if hasattr(wide, "prefetch_plan"):
+        path, queries, threads, smem = wide.prefetch_plan(Ht, Wt, side, side,
+                                                          ch)
+    else:  # a checkout before the whole-table path: the ring only
+        path, queries, threads = "ring", wide.THREADS, wide.THREADS
+        smem = wide.prefetch_ring(Ht, Wt, side, side, ch)[3]
+    blocks = -(-(side * side) // queries) * B * G * cs.HPG
+    rec = dict(path=path, strip=queries, smem=smem, blocks=blocks,
+               per_sm=None, waves=None)
+    if hasattr(lib, "fused_site_wide_prefetch_occupancy"):
+        rec["per_sm"] = lib.fused_site_wide_prefetch_occupancy(
+            int(path == "whole"), ch, threads, smem)
+        if rec["per_sm"] <= 0:
+            raise SystemExit(f"occupancy query failed: {rec['per_sm']}")
+        rec["waves"] = -(-blocks // (rec["per_sm"] * n_sm))
+    return rec
+
+
+def prefetch_times(cs, card: str, result: dict) -> None:
+    """#10 at phase 18's shapes (SITE_SITES and PREFETCH_RING_SITE, where
+    chip_smoke has it) beside ``fused_site_wide``, ``fused_site`` (where its
+    table fits) and SDPA with the mask, then at the SCA G=4 ch 8 shape for
+    B*V = 2, 4, ... 12; and #13's blocks an SM at the serving shapes."""
+    import torch
+
+    from bevrender_tpu_torch.ops import deform_attn as da
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.ops.kernels import build
+
+    wide, fold, bf = kernels.fused_site_wide, kernels.fused_site_fold, (
+        torch.bfloat16)
+    lib = build.load_library("fused_site_wide_prefetch")
+    rows_lib = build.load_library("fused_site_fold_rows")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    best = lambda fn: min(cs.queued_ms(fn, 5) for _ in range(3))  # noqa: E731
+    _, B4, G4, ch4, N4, Wt4, _ = cs.SITE_SITES[2]
+    ring = getattr(cs, "PREFETCH_RING_SITE", None)
+    runs = ([(*site, cs.H, 80 + i) for i, site in enumerate(cs.SITE_SITES)]
+            + ([(*ring[:-1], ring[-1], 84)] if ring else [])
+            + [(f"sweep_bv{b}_g{G4}_ch{ch4}", b, G4, ch4, N4, Wt4, 0, cs.H,
+                82) for b in range(2, 13, 2)])
+    for name, B, G, ch, N, Wt, per, side, seed in runs:
+        table, k_pos, q, k, v = cs.site_inputs(seed, B, G, ch, N, Wt,
+                                               side=side)
+        scale = ch ** -0.5
+        kargs = da._kernel_args(table, k_pos, side, side) + tuple(
+            x.to(bf).contiguous() for x in (q, k, v))
+        geo, qkv = kargs[:7], kargs[8:]
+        rec = prefetch_plan(cs, wide, lib, n_sm, B, G, ch, Wt, side)
+        rec["ms"] = best(lambda: wide.fused_site_wide_prefetch_cuda(
+            *geo, *qkv, side, side, scale))
+        if not name.startswith("sweep"):
+            rec["fused_site_wide_ms"] = best(lambda: wide.fused_site_wide_cuda(
+                *geo, *qkv, side, side, scale))
+            if da.site_route(table.shape, side, side, ch) == "whole":
+                rec["fused_site_ms"] = best(
+                    lambda: kernels.fused_site.fused_site_cuda(
+                        *kargs, side, side, scale))
+            bias = da.lattice_bias_plain(table.bfloat16().float(), k_pos,
+                                         side, side, torch.float32)
+            rec["sdpa_ms"] = min(cs.sdpa_ms(q, k, v, bias, scale, 5)
+                                 for _ in range(3))
+            del bias
+        if side == cs.H and hasattr(rows_lib, "fused_site_fold_rows_occupancy"):
+            Xp = da.padded_width(Wt)
+            rec["fold_rows_per_sm"] = rows_lib.fused_site_fold_rows_occupancy(
+                ch, cs.HPG, fold.rows_smem(cs.HPG, 2 * side - 1, Xp, ch))
+        result["ms"][name] = rec
+        print(f"prefetch {name} (x{per}): "
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                          else f"{k} {v if v is not None else '-'}"
+                          for k, v in rec.items()) + f" [{card}]", flush=True)
+        del table, k_pos, q, k, v, kargs, geo, qkv
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel",
-                    choices=("site_bwd", "windows_bwd", "fold_heads"),
+                    choices=("site_bwd", "windows_bwd", "fold_heads",
+                             "prefetch"),
                     default="site_bwd")
     ap.add_argument("--root", type=Path, default=REPO)
     ap.add_argument("--sass", action="store_true")
@@ -303,7 +394,8 @@ def main() -> None:
                           text=True).stdout.strip()
     print(f"card: {card}; root: {root}; kernel: {args.kernel}", flush=True)
     source = dict(site_bwd="fused_site_bwd", windows_bwd="lattice_windows",
-                  fold_heads="fused_site_fold_heads")[args.kernel]
+                  fold_heads="fused_site_fold_heads",
+                  prefetch="fused_site_wide_prefetch")[args.kernel]
     proc, lib, tmp = build._start(source)
     log = build._finish(source, proc, lib, tmp)
     result = {"card": card, "root": str(root), "kernel": args.kernel,
@@ -315,7 +407,7 @@ def main() -> None:
         if args.kernel == "site_bwd":
             result["sass_ch8"] = sass_counts(lib)
             print(f"sass (ch 8): {result['sass_ch8']}", flush=True)
-        elif args.kernel == "fold_heads":
+        elif args.kernel in ("fold_heads", "prefetch"):
             result["registers"] = registers(lib)
             result["sass"] = fold_sass(lib)
             for name, ops in result["sass"].items():
@@ -327,7 +419,8 @@ def main() -> None:
             for name, rec in result["sass"].items():
                 print(f"sass {name}: {rec}", flush=True)
     {"site_bwd": site_bwd_times, "windows_bwd": windows_bwd_times,
-     "fold_heads": fold_heads_times}[args.kernel](cs, card, result)
+     "fold_heads": fold_heads_times,
+     "prefetch": prefetch_times}[args.kernel](cs, card, result)
     print(json.dumps(result), flush=True)
 
 

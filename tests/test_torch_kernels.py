@@ -511,6 +511,52 @@ def test_fold_heads_paths_equal_their_siblings(cuda_device, Hpg, H, Wt, N,
         assert fold.heads_blocks_per_sm(Hpg, Wt, H, H, ch) >= 2
 
 
+# (Hpg, H, W, table width, N, ch, path): the window-prefetch site's two
+# paths at ragged shapes. One head of BEV 64 at depth 5 (135 x 969 padded,
+# 264,702 bytes with the key stages) overflows a block and takes the ring;
+# the others take the whole-table path: one head per group at the
+# flagship's SCA width (784 queries in 5 strips of 160, 16 idle), a
+# non-square 12 x 20 (240 queries: 2 strips of 128, 16 idle), BEV 10 (100
+# queries in one strip of 128), and N no multiple of 32 everywhere.
+PREFETCH_PATHS = [
+    (1, 28, 28, 279, 100, 8, "whole"), (2, 28, 28, 279, 1959, 4, "whole"),
+    (2, 12, 20, 119, 70, 8, "whole"), (2, 10, 10, 39, 45, 4, "whole"),
+    (2, 64, 64, 639, 300, 8, "ring"), (1, 64, 64, 639, 45, 4, "ring")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hpg,H,W,Wt,N,ch,path", PREFETCH_PATHS)
+def test_prefetch_paths_equal_fused_site_wide(cuda_device, Hpg, H, W, Wt, N,
+                                              ch, path):
+    """Both paths of ``fused_site_wide_prefetch`` equal ``fused_site_wide``
+    bit for bit at the path ``prefetch_plan`` names, within the fused
+    site's tolerance of the plain version. At the flagship's SCA width
+    three or more whole-table blocks fit an SM (one ring block did)."""
+    wide = kernels.fused_site_wide
+    assert wide.prefetch_plan(2 * H - 1, Wt, H, W, ch)[0] == path
+    table, k_pos, q, k, v = _inputs(27, 2, 2, Hpg, H, W, Wt, N, ch,
+                                    cuda_device, 1.0)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, W)
+    geo, qkv = kargs[:7], kargs[8:]
+    before = kernels.counts()
+    with torch.no_grad():
+        out = wide.fused_site_wide_cuda(*geo, *qkv, H, W, scale)
+        pre = wide.fused_site_wide_prefetch_cuda(*geo, *qkv, H, W, scale)
+        bias = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, W,
+                                      torch.float32)
+        ref = tda.site_consumer(q, k, v, bias, scale)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"fused_site_wide": 1, "fused_site_wide_prefetch": 1}
+    assert torch.equal(pre, out)
+    assert bool(((pre - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
+    if (H, Wt) == (28, 279):
+        assert wide.prefetch_blocks_per_sm(2 * H - 1, Wt, H, W, ch) >= 3
+
+
 @pytest.mark.cuda
 def test_fold_options_reach_the_fold_kernels(cuda_device):
     """A flagship SCA site through ``streamed_deform_attention`` takes the

@@ -441,3 +441,118 @@ def test_prefetch_rings_are_sized_from_the_shapes():
         fused_site_wide.prefetch_ring(399, 1999, 200, 200, 4)
     with pytest.raises(ValueError, match="shared memory"):
         lattice_bias.bias_ring(1999, 200, 200)
+
+
+# ---- the prefetch site's two paths ------------------------------------------
+
+# (Ht, Wt, H = W, ch, path, shared-memory bytes): the flagship's TSA (55 x 55)
+# and SCA (55 x 279) at ch 4 and 8; FOLD_RING_SITE's table (BEV 60,
+# 119 x 299), too large for two heads a block but whole at one;
+# BEV 64 at depth 5 (127 x 639), whose one head overflows a block (135 x 969
+# padded) while its window ring (4 rows x 336 columns a key) fits.
+PREFETCH_PLANS = [
+    (55, 55, 28, 4, "whole", 2 * (2 * 32 * 4 * 2 + 512) + 63 * 93 * 2),
+    (55, 55, 28, 8, "whole", 2 * (2 * 32 * 8 * 2 + 512) + 63 * 93 * 2),
+    (55, 279, 28, 4, "whole", 2 * (2 * 32 * 4 * 2 + 512) + 63 * 429 * 2),
+    (55, 279, 28, 8, "whole", 57126),
+    (119, 299, 60, 8, "whole", 119658),
+    (127, 639, 64, 4, "ring", 2 * 32 * 4 * 336 * 2 + 32 * 11 * 4),
+    (127, 639, 64, 8, "ring", 174464)]
+
+
+@pytest.mark.parametrize("Ht,Wt,H,ch,path,smem", PREFETCH_PLANS)
+def test_prefetch_plan_follows_the_shapes(Ht, Wt, H, ch, path, smem):
+    """``fused_site_wide_prefetch`` takes its whole-table path wherever one
+    head's padded table and two key stages (K and V rows in bf16, four
+    words of geometry a key) fit one block, in strips of at most
+    WHOLE_THREADS queries (one head a block), and its window ring where
+    not; the shared memory is each kernel's layout."""
+    got, S, threads, need = fused_site_wide.prefetch_plan(Ht, Wt, H, H, ch)
+    assert (got, need) == (path, smem)
+    assert threads == S and S % 32 == 0 and S <= 256
+    whole = (2 * (2 * 32 * ch * 2 + 4 * 32 * 4)
+             + (Ht + 2 * 4) * tda.padded_width(Wt) * 2)
+    assert whole == kernels.fused_site_fold.whole_smem(1, Ht,
+                                                      tda.padded_width(Wt), ch)
+    if path == "whole":
+        assert need == whole <= fused_site_wide.SMEM_PER_BLOCK
+        assert S == kernels.fused_site_fold.strip(
+            1, H * H, fused_site_wide.WHOLE_THREADS)
+        assert S <= fused_site_wide.WHOLE_THREADS
+    else:
+        assert whole > fused_site_wide.SMEM_PER_BLOCK
+        assert (S, need) == (128, fused_site_wide.prefetch_ring(
+            Ht, Wt, H, H, ch)[3])
+
+
+def test_flagship_prefetch_sites_take_the_whole_path():
+    """Every site that the flagship's wide + prefetch request (phase 15)
+    sends to ``fused_site_wide_prefetch`` takes its whole-table path, in 5
+    strips of 160 of the 784 queries."""
+    opts = tda.SiteOptions(lattice_route="wide", site_prefetch=True,
+                           bias_forward="prefetch")
+    launches = 0
+    for q, t, H, W, n in _site_calls(FLAGSHIP, chip_smoke.SERVE_B):
+        if tda.site_kernels(q, t, H, W, opts,
+                            training=False) == ("fused_site_wide_prefetch",):
+            launches += 2 * n  # the history and the final pass
+            assert fused_site_wide.prefetch_plan(t[2], t[3], H, W, q[-1])[
+                :2] == ("whole", 160)
+    assert launches == chip_smoke.WIDE_PREFETCH_PER_FORWARD[
+        "fused_site_wide_prefetch"]
+
+
+@pytest.mark.parametrize("site", chip_smoke.SITE_SITES
+                         + [chip_smoke.PREFETCH_RING_SITE[:-1]],
+                         ids=lambda s: s[0])
+def test_chip_smoke_prefetch_sites_take_the_paths_it_expects(site):
+    """chip_smoke's phase 18 fails unless every serving shape takes the
+    whole-table path and PREFETCH_RING_SITE the ring; the ring site's table
+    is also too large for ``fused_site``, which the phase so leaves out
+    there."""
+    name, B, G, ch, N, Wt, _ = site
+    ring = name == chip_smoke.PREFETCH_RING_SITE[0]
+    side = chip_smoke.PREFETCH_RING_SITE[-1] if ring else chip_smoke.H
+    Ht = 2 * side - 1
+    path = fused_site_wide.prefetch_plan(Ht, Wt, side, side, ch)[0]
+    assert path == ("ring" if ring else "whole")
+    table_shape = (G, chip_smoke.HPG, Ht, Wt)
+    assert tda.site_route(table_shape, side, side, ch) == (
+        "wide" if ring else "whole")
+
+
+def test_prefetch_plan_refuses_a_site_that_fits_neither_path():
+    """A head of BEV 200 at depth 5 (399 x 1999) overflows a block whole
+    and in the ring: refused with the ring's numbers, never sent to another
+    kernel."""
+    assert kernels.fused_site_fold.whole_smem(
+        1, 399, tda.padded_width(1999), 4) > fused_site_wide.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match=r"2 x 32 keys x 3 rows x 1016 "
+                       r"columns needs 391552 bytes of shared memory, over "
+                       r"232448"):
+        fused_site_wide.prefetch_plan(399, 1999, 200, 200, 4)
+
+
+def test_chip_smoke_reads_whole_table_launches_by_launch_bounds():
+    """The whole-table paths of ``fused_site_wide_prefetch`` and
+    ``fused_site_fold_heads`` launch one template (csrc/site_whole.cuh):
+    chip_smoke tells their launches apart in the profiler's names by the
+    launch bounds each source gives its instances, which these are."""
+    csrc = ROOT / "bevrender_tpu_torch" / "ops" / "kernels" / "csrc"
+    pre = (csrc / "fused_site_wide_prefetch.cu").read_text()
+    assert fused_site_wide.WHOLE_THREADS == 160
+    assert "constexpr int WHOLE_THREADS = 160;" in pre
+    assert "constexpr int WHOLE_MIN_BLOCKS = 4;" in pre
+    fold = (csrc / "fused_site_fold_heads.cu").read_text()
+    assert "constexpr int MAX_THREADS = 256;" in fold
+    assert "site_whole::launch<C, P, MAX_THREADS, 2>" in fold
+    Event = collections.namedtuple("Event", "key count")
+    avgs = [
+        Event("void site_whole::fused_site_whole_kernel<8, 1, 160, 4>(", 16),
+        Event("void site_whole::fused_site_whole_kernel<4, 2, 256, 2>(", 8),
+        Event("void (anonymous namespace)::fused_site_wide_prefetch_kernel<8>(",
+              2),
+        Event("void (anonymous namespace)::lattice_bias_wide_kernel<8>(", 64)]
+    assert chip_smoke.seen_launches(avgs, "fused_site_wide_prefetch") == 18
+    assert chip_smoke.seen_launches(avgs, "fused_site_fold_heads") == 8
+    assert chip_smoke.seen_launches(avgs, "lattice_bias_wide") == 64
