@@ -56,60 +56,6 @@ __device__ __forceinline__ float bias_at(const __nv_bfloat16* p0, int Xp,
   return bias_col(p0, Xp, column(g, f), wy);
 }
 
-// The four table entries that one (key, query) pair reads, as floats, and its
-// column fraction: what the backward kernels keep between the bias and its
-// cotangent. `window_bias(load_window(p0, ...), wy)` is `bias_at(p0, ...)`.
-struct Window {
-  float t00, t01, t10, t11, wx;
-  int cross;  // 1 where the column fraction crossed into the next cell
-};
-
-__device__ __forceinline__ Window load_window(const __nv_bfloat16* p0, int Xp,
-                                              float g, float f) {
-  Window w;
-  const Column col = column(g, f);
-  w.wx = col.wx;
-  w.cross = col.cross;
-  const __nv_bfloat16* p = p0 + w.cross;
-  w.t00 = __bfloat162float(p[0]);
-  w.t01 = __bfloat162float(p[1]);
-  w.t10 = __bfloat162float(p[Xp]);
-  w.t11 = __bfloat162float(p[Xp + 1]);
-  return w;
-}
-
-__device__ __forceinline__ float window_bias(const Window& w, float wy) {
-  return lerp_rn(lerp_rn(w.t00, w.t01, w.wx), lerp_rn(w.t10, w.t11, w.wx), wy);
-}
-
-// Cotangent tail of one pair: spread `go` (the cotangent of the bias) over
-// the four entries with the forward's weights into the float32 gradient
-// table in shared memory (`g0` is that table at the offset `p0` had in the
-// bf16 one), and add the pair's share of the cotangents of wy and of f
-// (d wx / d f = 1; floor carries no gradient).
-__device__ __forceinline__ void window_tail(const Window& w, float* g0, int Xp,
-                                            float wy, float go, float& dwy,
-                                            float& df) {
-  const float x0 = lerp_rn(w.t00, w.t01, w.wx);
-  const float x1 = lerp_rn(w.t10, w.t11, w.wx);
-  dwy = fmaf(go, x1 - x0, dwy);
-  const float d0 = go * (1.0f - wy);
-  const float d1 = go * wy;
-  df += d0 * (w.t01 - w.t00) + d1 * (w.t11 - w.t10);
-  float* gp = g0 + w.cross;
-  const float ux = 1.0f - w.wx;
-  atomicAdd(gp, d0 * ux);
-  atomicAdd(gp + 1, d0 * w.wx);
-  atomicAdd(gp + Xp, d1 * ux);
-  atomicAdd(gp + Xp + 1, d1 * w.wx);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // Add the (Ht, Wt) interior of a padded float32 gradient table in shared
 // memory into the table gradient in device memory, with the whole block.
 // Gradient that landed in the padding is dropped: the padding is constant.
@@ -148,23 +94,11 @@ __device__ __forceinline__ void stage_padded(__nv_bfloat16* dst,
   }
 }
 
-// Entry (r, c) of the zero-padded table (padded coordinates: PAD rows above,
-// PAD columns on the left), read from the raw (Ht, Wt) table in device
-// memory: the bounds checks stand in for the padding.
-__device__ __forceinline__ float padded_at(const __nv_bfloat16* __restrict__ t,
-                                           int Ht, int Wt, int r, int c) {
-  r -= PAD;
-  c -= PAD;
-  if ((unsigned)r >= (unsigned)Ht || (unsigned)c >= (unsigned)Wt) return 0.0f;
-  return __bfloat162float(__ldg(t + (size_t)r * Wt + c));
-}
-
 // `bias_at` for the raw table in device memory: (r, c) is the padded-table
 // position that `p0` would point at (row ys + iy, column u0[ix] + ms). Each
 // of the four entries is read with __ldg where it lies in the raw table and
 // is 0 where it lies in the padding (one bounds check per row and per
-// column, as `padded_at` would make per entry). Same arithmetic, same
-// result.
+// column). Same arithmetic, same result.
 __device__ __forceinline__ float bias_at_raw(const __nv_bfloat16* __restrict__ t,
                                              int Ht, int Wt, int r, int c,
                                              float g, float wy, float f) {

@@ -36,6 +36,10 @@ Phases, each fatal on failure:
    against ``site_bwd_online`` (its own roundings in PyTorch), at every
    shape a training step gives them and at two table scales; the bias
    forward kernel against its plain version at those training shapes too;
+   the bias backward's plan and blocks per SM at each shape, two runs of it
+   equal bit for bit, its dtable equal to ``lattice_bias_bwd_ordered``
+   (its order of sums in PyTorch), ``grid_sampler_2d_backward``'s time
+   beside it, and its time summed over a step's launches;
 9. the small model's parameter gradients through the kernels against
    plain PyTorch that rounds as the kernels do, under both routes; then
    one K-fold epoch of ``Trainer.train`` on that model on the card, with
@@ -55,7 +59,9 @@ Phases, each fatal on failure:
     (forward, and backward through autograd) at two table scales: the
     whole-table kernels at all eight shapes (M = 196 and 49 at BEV 14 and
     7), the wide ones at BEV 56; times, bounds, the plain version's peak
-    memory;
+    memory, ``grid_sample``'s forward and backward times; the backward's
+    plan, blocks per SM, two runs equal bit for bit and dtable equal to
+    ``lattice_bias_bwd_ordered``;
 13. a small BEV 56 -> 28 -> 56 model whose SCA at 56 takes the wide kernels
     through the normal dispatch: its parameter gradients through the
     kernels against plain PyTorch with the kernels' roundings, as phase 9;
@@ -263,6 +269,11 @@ RENDER_TOL = 1e-4  # small-model render (values in [0, 1]): kernels vs site_cons
 # bias backward vs autograd through the plain bias (float32 lerps on the
 # bf16 table): the same float32 arithmetic, summed in another order
 BWD_SUM_TOL = 2e-5
+# grid_sample (the bias kernels' library yardstick) against the plain bias,
+# as a share of its largest entry: the same bilinear read of the bf16 table,
+# from coordinates normalised and unnormalised again in float32 (a column
+# moves by ~1e-5) and lerped in grid_sample's own order
+GRID_SAMPLE_TOL = 1e-3
 # logsumexp vs the plain version's (sums in another order) and vs the
 # online mirror's (log2f against torch.log2)
 LSE_TOL = 1e-5
@@ -538,7 +549,8 @@ def check_bias(da, kernel_mod) -> dict:
         args = da._kernel_args(table, k_pos, H, W)
         out = kernel_mod.lattice_bias_cuda(*args, H, W)
         tb = table.bfloat16().float()
-        ref = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32).bfloat16()
+        ref32 = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+        ref = ref32.bfloat16()
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
         if not bool((err <= ref.float().abs() * BIAS_ULP).all()):
@@ -549,13 +561,14 @@ def check_bias(da, kernel_mod) -> dict:
         ev = events_ms(launch, 20)
         plain = queued_ms(lambda: da.lattice_bias_plain(tb, k_pos, H, W,
                                                         torch.float32), 5)
+        lib = library_bias_ms(da, table, k_pos, None, H, ref32)["fwd_ms"]
         bound, by = bias_bounds(B, G, N, Wt, H, backward=False)
         rows.append(dict(site=name, ms=ms, events_ms=ev, plain_ms=plain,
-                         bound_ms=bound, bound_by=by, per_forward=per_fwd,
-                         max_abs_err=float(err.max())))
+                         library_ms=lib, bound_ms=bound, bound_by=by,
+                         per_forward=per_fwd, max_abs_err=float(err.max())))
         print(f"lattice_bias {name}: max_abs_err {float(err.max()):.3g} "
               f"kernel {ms:.4f} ms (events {ev:.4f}) plain {plain:.4f} ms "
-              f"bound {bound:.4f} ms "
+              f"grid_sample {lib:.4f} ms bound {bound:.4f} ms "
               f"({by}) x{per_fwd}/forward", flush=True)
     return dict(rows=rows, worst=worst)
 
@@ -746,11 +759,14 @@ def rel_err(a, b) -> float:
 def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
     """lattice_bias_bwd against autograd through the plain bias at every
     shape of a training step, at the init's table scale and at std 1.0; the
-    forward kernel's output at those shapes against the plain bias too.
+    forward kernel's output at those shapes against the plain bias too; two
+    runs of the backward equal bit for bit at both scales and, at the
+    init's, its dtable equal to ``lattice_bias_bwd_ordered`` under its plan.
     With ``wide``, the wide kernels (``lattice_route="wide"``) at the same
     shapes, the forward also against the whole-table one bit for bit; their
     launches per step are those of phase 16 (``fused_bwd``: the narrow
-    sites take the fused site instead)."""
+    sites take the fused site instead). Times at the init's scale, with
+    ``grid_sampler_2d_backward``'s as the library time."""
     import torch
 
     fwd_kernel = "lattice_bias_wide" if wide else None
@@ -761,6 +777,7 @@ def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
     for i, (name, B, G, ch, N, Wt, per_step) in enumerate(TRAIN_BIAS_SITES):
         if wide and ch <= 8:
             per_step = 0
+        plan = bwd_plan(kernel_mod, wide, B, G, N, Wt, H)
         for std in SITE_TABLE_STDS:
             table, k_pos, *_ = site_inputs(40 + i, B, G, ch, N, Wt, std)
             gen = torch.Generator(device="cuda").manual_seed(50 + i)
@@ -786,38 +803,54 @@ def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
                         fwd, da.lattice_bias(table, k_pos, H, W))
                 e_f = float(e_f.max())
                 del rb
+            args = da._kernel_args(table, k_pos, H, W)
+            timed = std == SITE_TABLE_STDS[0]
+            with torch.no_grad():
+                same, mirror = check_bwd_order(
+                    kernel_mod, bwd_call, args, gout, H, plan if timed else None,
+                    (dt, *bwd_call(*args, gout, H, W)[1:]))
             torch.cuda.synchronize()
             e_t, e_p = rel_err(dt, rdt), rel_err(dp, rdp)
-            ok = ok_f and e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL and bool(
-                torch.isfinite(dt).all() and torch.isfinite(dp).all())
+            ok = (ok_f and e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL and same
+                  and mirror is not False and bool(
+                      torch.isfinite(dt).all() and torch.isfinite(dp).all()))
             print(f"{tag} {name} table std {std}: forward max "
                   f"abs err {e_f:.3g} ({'within' if ok_f else 'BEYOND'} 1 "
                   f"bf16 ulp{', equal to lattice_bias' if wide else ''}); "
                   f"dtable rel err {e_t:.3g}, dk_pos rel err "
-                  f"{e_p:.3g} ({'ok' if ok else 'FAIL'})", flush=True)
+                  f"{e_p:.3g}; two runs {'equal' if same else 'DIFFER'}"
+                  + ("" if mirror is None else
+                     f", dtable {'equals' if mirror else 'DIFFERS FROM'} "
+                     f"lattice_bias_bwd_ordered")
+                  + f" ({'ok' if ok else 'FAIL'})", flush=True)
             worst_fwd = max(worst_fwd, e_f)
             del fwd
             if not ok:
                 bad.append(f"{name} std {std}")
-            if std == SITE_TABLE_STDS[0]:
+            if timed:
                 err = float((dt - rdt).abs().max())
                 worst = max(worst, err)
-                args = da._kernel_args(table, k_pos, H, W)
                 launch = lambda: bwd_call(*args, gout, H, W)  # noqa: E731
                 ms = queued_ms(launch, 10)
                 ev = events_ms(launch, 10)
                 gf = gout.float()
                 plain = queued_ms(lambda: torch.autograd.grad(
                     ref, (t2, p2), gf, retain_graph=True), 3)
+                lib = library_bias_ms(da, table, k_pos, gout, H,
+                                      ref.detach())["bwd_ms"]
                 bound, by = bias_bounds(B, G, N, Wt, H, backward=True)
                 rows.append(dict(site=name, ms=ms, events_ms=ev,
-                                 plain_ms=plain, bound_ms=bound, bound_by=by,
+                                 plain_ms=plain, library_ms=lib,
+                                 bound_ms=bound, bound_by=by,
                                  per_step=per_step, max_abs_err=err,
-                                 rel_err_dtable=e_t, rel_err_dkpos=e_p))
+                                 rel_err_dtable=e_t, rel_err_dkpos=e_p,
+                                 plan=plan))
                 print(f"{tag} {name}: kernel {ms:.4f} ms (events "
-                      f"{ev:.4f}) plain {plain:.4f} ms bound {bound:.4f} ms "
-                      f"({by}) x{per_step}/step", flush=True)
-            del ref, rdt, rdp, dt, dp
+                      f"{ev:.4f}) plain {plain:.4f} ms "
+                      f"grid_sampler_2d_backward {lib:.4f} ms bound "
+                      f"{bound:.4f} ms ({by}) x{per_step}/step; "
+                      f"{plan_text(plan)}", flush=True)
+            del ref, rdt, rdp, dt, dp, args
         torch.cuda.empty_cache()
     if bad:
         fail(f"{tag} beyond tolerance at {bad}")
@@ -882,12 +915,116 @@ def bias_bounds(B, G, N, Wt, H, backward: bool, extra_bytes: int = 0):
     return max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3, by
 
 
+def grid_sample_args(da, table, k_pos, gout, H):
+    """The bias and its backward as one PyTorch call computes them, up to
+    rounding: ``grid_sample`` (bilinear, zero padding, align_corners) of
+    the raw bf16 table, as float32, at (ys + iy + wy - PAD, ms + u0[ix] +
+    g[ix] + f - PAD), the clipped starts plus the fractions as the kernels
+    read them. Returns (input (G, Hpg, Ht, Wt), grid (G, B N H, W, 2), the
+    cotangent ``gout`` as (G, Hpg, B N H, W)), all float32 and contiguous,
+    so that one call serves every head and the permutes stay outside it;
+    the cotangent None where ``gout`` is None."""
+    import torch
+
+    G, Hpg, Ht, Wt = table.shape
+    B, _, N = k_pos.shape[:3]
+    ys, ms, wy, f = da.lattice_geometry(table.shape, k_pos, H, H)
+    u0, g = da._comb_tensors(Wt, H, table.device)
+    iy = torch.arange(H, device=table.device, dtype=torch.float32)
+    y = (ys.float() + wy - da.PAD)[..., None] + iy  # (B, G, N, H)
+    x = (ms.float() + f - da.PAD)[..., None] + (u0.float() + g)  # (B, G, N, W)
+    gy = (y * (2.0 / (Ht - 1)) - 1.0)[..., None].expand(B, G, N, H, H)
+    gx = (x * (2.0 / (Wt - 1)) - 1.0)[..., None, :].expand(B, G, N, H, H)
+    grid = torch.stack((gx, gy), -1).permute(1, 0, 2, 3, 4, 5).reshape(
+        G, B * N * H, H, 2).contiguous()
+    go = None if gout is None else gout.view(B, G, Hpg, N, H, H).permute(
+        1, 2, 0, 3, 4, 5).reshape(G, Hpg, B * N * H, H).float().contiguous()
+    return table.bfloat16().float().contiguous(), grid, go
+
+
+def library_bias_ms(da, table, k_pos, gout, H, ref=None) -> dict:
+    """Times of the one PyTorch call that computes the bias
+    (``F.grid_sample``) and, given ``gout``, of the one that computes its
+    backward (``grid_sampler_2d_backward``, the input's and the grid's
+    gradients) at these inputs (``grid_sample_args``); with ``ref``, the
+    plain bias, the phase fails unless grid_sample's output is within
+    GRID_SAMPLE_TOL of it. Used only as a yardstick."""
+    import torch
+
+    inp, grid, go = grid_sample_args(da, table, k_pos, gout, H)
+
+    def fwd():
+        return torch.nn.functional.grid_sample(
+            inp, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+
+    res = dict(fwd_ms=queued_ms(fwd, 5))
+    if ref is not None:
+        B, G, Hpg, N, _ = ref.shape
+        got = fwd().view(G, Hpg, B, N, H * H).permute(2, 0, 1, 3, 4)
+        err = rel_err(got, ref.float())
+        if not err <= GRID_SAMPLE_TOL:
+            fail(f"grid_sample differs from the plain bias by {err:.3g} of "
+                 f"its largest entry: the yardstick's grid is wrong")
+        res["fwd_rel_err"] = err
+    if gout is not None:
+        res["bwd_ms"] = queued_ms(
+            lambda: torch.ops.aten.grid_sampler_2d_backward(
+                go, inp, grid, 0, 0, True, [True, True]), 5)
+    return res
+
+
+def bwd_plan(bwd_mod, wide: bool, B, G, N, Wt, H) -> dict:
+    """The bias backward's plan at a shape (``lattice_bias_bwd.plan``) and
+    the blocks one SM holds of it (the library's ``<kernel>_occupancy``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import torch
+
+    from bevrender_tpu_torch.ops.kernels._launch import blocks_per_sm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = bwd_mod.plan(B, G, HPG, 2 * H - 1, Wt, N, H, H, sms)
+    name = "lattice_bias_wide_bwd" if wide else "lattice_bias_bwd"
+    return dict(p._asdict(), blocks=B * G * HPG * p.bands * p.runs,
+                blocks_per_sm=blocks_per_sm(name, f"{name}_occupancy", H,
+                                            p.smem))
+
+
+def plan_text(plan: dict) -> str:
+    return (f"plan {plan['rows']} rows x {plan['bands']} bands, "
+            f"{plan['runs']} runs of {plan['keys']} keys, {plan['smem']} B, "
+            f"{plan['blocks']} blocks, {plan['blocks_per_sm']} an SM")
+
+
+def check_bwd_order(bwd_mod, bwd_call, args, gout, H, plan, first):
+    """A second run of the bias backward ``bwd_call`` equal to the ``first``
+    (dtable, dwy, df) bit for bit and, with ``plan``, dtable equal to
+    ``lattice_bias_bwd_ordered`` under that plan. Returns (same as the
+    second run, equal to the mirror or None)."""
+    import torch
+
+    again = bwd_call(*args, gout, H, H)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    del again
+    if plan is None:
+        return same, None
+    p = bwd_mod.Plan(*(plan[k] for k in bwd_mod.Plan._fields))
+    ref = bwd_mod.lattice_bias_bwd_ordered(*args, gout, H, H, p)
+    mirror = torch.equal(first[0], ref[0])
+    del ref
+    torch.cuda.empty_cache()
+    return same, mirror
+
+
 def check_pyramid_bias(da, kernels) -> dict:
     """The bias kernels at every pyramid shape, forward against the plain
     version (one bf16 ulp) and backward against autograd through it
     (BWD_SUM_TOL of the largest entry), at two table scales: the whole-table
-    kernels at every shape, the wide ones at BEV 56. Times at table std
-    0.01; the plain version's peak memory at SCA 56."""
+    kernels at every shape, the wide ones at BEV 56. Two runs of the
+    backward equal bit for bit, and at table std 0.01 its dtable equal to
+    ``lattice_bias_bwd_ordered`` under its plan. Times at table std 0.01,
+    with ``grid_sample``'s forward and backward as the library times; the
+    plain version's peak memory at SCA 56."""
     import torch
 
     fwd = kernels.lattice_bias
@@ -900,6 +1037,7 @@ def check_pyramid_bias(da, kernels) -> dict:
         routes = ["whole"] + (["wide"] if name in PYR_WIDE_SITES else [])
         if da.bias_route((G, HPG, 2 * H - 1, Wt), H, H) == "wide":
             routes = ["wide"]
+        plans = {r: bwd_plan(bwd, r == "wide", B, G, N, Wt, H) for r in routes}
         for std in SITE_TABLE_STDS:
             table, k_pos, gout = bias_inputs(70 + i, B, G, N, Wt, H, std)
             args = da._kernel_args(table, k_pos, H, H)
@@ -912,6 +1050,9 @@ def check_pyramid_bias(da, kernels) -> dict:
                                            retain_graph=True)
             plain_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
             rb = ref.detach().bfloat16().float()
+            timed = std == SITE_TABLE_STDS[0]
+            lib = (library_bias_ms(da, table, k_pos, gout, H, ref.detach())
+                   if timed else None)
             for route in routes:
                 wide = route == "wide"
                 kf, kb = (("lattice_bias_wide", "lattice_bias_wide_bwd")
@@ -930,6 +1071,10 @@ def check_pyramid_bias(da, kernels) -> dict:
                 with torch.no_grad():
                     out = f_launch()
                     dt, dwy, df = b_launch()
+                    same, mirror = check_bwd_order(
+                        bwd, (bwd.lattice_bias_wide_bwd_cuda if wide
+                              else bwd.lattice_bias_bwd_cuda), args, gout, H,
+                        plans[route] if timed else None, (dt, dwy, df))
                 # dk_pos from the kernels' dwy, df through the geometry, as
                 # _LatticeBiasFn hands them to autograd
                 p3 = k_pos.clone().requires_grad_()
@@ -940,16 +1085,21 @@ def check_pyramid_bias(da, kernels) -> dict:
                 ok_f = bool((e_f <= rb.abs() * BIAS_ULP).all())
                 e_t, e_p = rel_err(dt, rdt), rel_err(dp, rdp)
                 ok = (ok_f and e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL
+                      and same and mirror is not False
                       and bool(torch.isfinite(dt).all()))
                 print(f"pyramid bias {route} {name} table std {std}: forward "
                       f"max abs err {float(e_f.max()):.3g} "
                       f"({'within' if ok_f else 'BEYOND'} 1 bf16 ulp); "
-                      f"dtable rel err {e_t:.3g}, dk_pos rel err {e_p:.3g} "
-                      f"({'ok' if ok else 'FAIL'}); plain version's peak "
+                      f"dtable rel err {e_t:.3g}, dk_pos rel err {e_p:.3g}; "
+                      f"two runs {'equal' if same else 'DIFFER'}"
+                      + ("" if mirror is None else
+                         f", dtable {'equals' if mirror else 'DIFFERS FROM'} "
+                         f"lattice_bias_bwd_ordered")
+                      + f" ({'ok' if ok else 'FAIL'}); plain version's peak "
                       f"{plain_gib:.3f} GiB", flush=True)
                 if not ok:
                     bad.append(f"{route} {name} std {std}")
-                if std != SITE_TABLE_STDS[0]:
+                if not timed:
                     continue
                 worst[kf] = max(worst[kf], float(e_f.max()))
                 worst[kb] = max(worst[kb], float((dt - rdt).abs().max()))
@@ -968,15 +1118,18 @@ def check_pyramid_bias(da, kernels) -> dict:
                         (kf, ms_f, plain_f, float(e_f.max()),
                          dict(per_forward=per, per_step=per * 3 // 2)),
                         (kb, ms_b, plain_b, float((dt - rdt).abs().max()),
-                         dict(per_step=per // 2))):
+                         dict(per_step=per // 2, plan=plans[route]))):
                     bound, by = bias_bounds(B, G, N, Wt, H, kname == kb)
+                    lib_ms = lib["bwd_ms" if kname == kb else "fwd_ms"]
                     out_rows[kname].append(dict(
                         site=name, ms=ms, plain_ms=plain, bound_ms=bound,
-                        bound_by=by, library_ms=None, max_abs_err=err,
+                        bound_by=by, library_ms=lib_ms, max_abs_err=err,
                         plain_peak_gib=plain_gib, **launches))
                     print(f"pyramid {kname} {name}: kernel {ms:.4f} ms plain "
-                          f"{plain:.4f} ms bound {bound:.4f} ms ({by}); "
-                          f"launches {launches}", flush=True)
+                          f"{plain:.4f} ms grid_sample {lib_ms:.4f} ms bound "
+                          f"{bound:.4f} ms ({by}); launches {launches}"
+                          + (f"; {plan_text(plans[route])}" if kname == kb
+                             else ""), flush=True)
                 del out, dt, dwy, df, dp
             del ref, rdt, rdp, rb, t2, p2, table, k_pos, gout, args
             torch.cuda.empty_cache()
@@ -1383,8 +1536,9 @@ def check_prefetch_bias(da, kernels) -> tuple:
             whole = da.bias_route(table.shape, Hs, Hs) == "whole"
             same_whole = (not whole or torch.equal(
                 fwd.lattice_bias_cuda(*args, Hs, Hs), out_w))
-            rb = da.lattice_bias_plain(table.bfloat16().float(), k_pos, Hs, Hs,
-                                       torch.float32).bfloat16().float()
+            r32 = da.lattice_bias_plain(table.bfloat16().float(), k_pos, Hs,
+                                        Hs, torch.float32)
+            rb = r32.bfloat16().float()
             torch.cuda.synchronize()
             same = torch.equal(out_p, out_w)
             err = (out_p.float() - rb).abs()
@@ -1403,7 +1557,10 @@ def check_prefetch_bias(da, kernels) -> tuple:
             worst["wide"] = max(worst["wide"], err)
             del out_w, out_p, rb
             if std != SITE_TABLE_STDS[0]:
+                del r32
                 continue
+            lib = library_bias_ms(da, table, k_pos, None, Hs, r32)["fwd_ms"]
+            del r32
             launch_p = lambda: fwd.lattice_bias_wide_prefetch_cuda(  # noqa: E731
                 *args[:7], Hs, Hs)
             ms_p_kernel = device_ms(launch_p, 10,
@@ -1418,7 +1575,7 @@ def check_prefetch_bias(da, kernels) -> tuple:
             extra = pitched_bytes(G, 2 * Hs - 1, Wt)
             b_p = bias_bounds(B, G, N, Wt, Hs, backward=False,
                               extra_bytes=extra)
-            common = dict(site=name, plain_ms=plain, library_ms=None,
+            common = dict(site=name, plain_ms=plain, library_ms=lib,
                           per_forward=per_fwd, max_abs_err=err)
             rows_p.append(dict(common, ms=ms_p, kernel_only_ms=ms_p_kernel,
                                wide_ms=ms_w, bound_ms=b_p[0],
@@ -1428,7 +1585,8 @@ def check_prefetch_bias(da, kernels) -> tuple:
                                    bound_by=b_w[1]))
             print(f"lattice_bias_wide_prefetch {name}: {ms_p:.4f} ms (kernel "
                   f"alone {ms_p_kernel:.4f}), lattice_bias_wide {ms_w:.4f} "
-                  f"ms, plain {plain:.4f} ms; bound {b_p[0]:.4f} / "
+                  f"ms, plain {plain:.4f} ms, grid_sample {lib:.4f} ms; bound "
+                  f"{b_p[0]:.4f} / "
                   f"{b_w[0]:.4f} ms ({b_p[1]}) x{per_fwd}/forward",
                   flush=True)
         torch.cuda.empty_cache()
@@ -2197,6 +2355,12 @@ def main() -> None:
 
     bias_bwd = check_bias_bwd(da, kernels.lattice_bias_bwd)
     bias["worst"] = max(bias["worst"], bias_bwd["worst_fwd"])
+    bias_bwd["per_step_ms"] = sum(r["ms"] * r["per_step"]
+                                  for r in bias_bwd["rows"])
+    print(f"lattice_bias_bwd over a default-route flagship step: "
+          f"{bias_bwd['per_step_ms']:.4f} ms (each shape's time x its "
+          f"launches, {sum(r['per_step'] for r in bias_bwd['rows'])} "
+          f"launches) [{card}]", flush=True)
     site_lse, site_bwd = check_site_train(da, kernels)
     grads_default = small_model_grads(da, kernels, fused_bwd=False)
     grads_fused = small_model_grads(da, kernels, fused_bwd=True)
@@ -2224,6 +2388,11 @@ def main() -> None:
           f"{pyr_none['step_ms']:.3f} ms/step (peak "
           f"{pyr_none['peak_gib']:.3f} GiB) [{card}]", flush=True)
     pyr_bias = check_pyramid_bias(da, kernels)
+    for k in ("lattice_bias_bwd", "lattice_bias_wide_bwd"):
+        pyr_bias[k]["per_step_ms"] = sum(r["ms"] * r["per_step"]
+                                         for r in pyr_bias[k]["rows"])
+        print(f"{k} over a pyramid step: {pyr_bias[k]['per_step_ms']:.4f} "
+              f"ms (each shape's time x its launches) [{card}]", flush=True)
     grads_wide = small_model_grads(da, kernels, fused_bwd=False, wide=True)
 
     stamp("phases 14-18")
@@ -2377,6 +2546,8 @@ def main() -> None:
               train_default["counts"]["lattice_bias_bwd"],
               launches_train_fused_bwd=train_fused["counts"]["lattice_bias_bwd"],
               launches_pyramid_train=pyr_train["counts"]["lattice_bias_bwd"],
+              per_step_ms=bias_bwd["per_step_ms"],
+              per_step_ms_pyramid=pyr_bias["lattice_bias_bwd"]["per_step_ms"],
               per_shape_pyramid=pyr_bias["lattice_bias_bwd"]["rows"]),
         entry("fused_site_lse", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site.cu",
@@ -2403,6 +2574,8 @@ def main() -> None:
               pyr_train["counts"]["lattice_bias_wide_bwd"],
               launches_flagship_wide_train=wide_train["counts"][
                   "lattice_bias_wide_bwd"],
+              per_step_ms_pyramid=pyr_bias["lattice_bias_wide_bwd"][
+                  "per_step_ms"],
               per_shape_flagship=bias_wide_bwd_flagship["rows"]),
         entry("fused_site_wide", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site_wide.cu",

@@ -130,6 +130,35 @@ def fold_sass(lib: Path) -> dict:
             for name, ops in sass_functions(lib).items()}
 
 
+def sass_loops(lib: Path) -> dict:
+    """Per kernel of a library: its SASS instruction count, the length in
+    instructions of each loop (a branch back to an earlier address, over 20
+    instructions, inner loops first) and its local-memory loads and stores
+    (spills)."""
+    from bevrender_tpu_torch.ops.kernels.build import _nvcc
+
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    res = {}
+    for f in re.split(r"\n\s*Function : ", out)[1:]:
+        name, _, rest = f.partition("\n")
+        ins = [(int(m.group(1), 16), m.group(2)) for m in map(
+            lambda ln: re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln),
+            rest.splitlines()) if m]
+        loops = []
+        for addr, op in ins:
+            back = re.search(r"BRA\b.*?0x([0-9a-f]+)", op)
+            if back and int(back.group(1), 16) < addr:
+                length = (addr - int(back.group(1), 16)) // 16 + 1
+                if length > 20:
+                    loops.append(length)
+        res[name.strip()] = dict(
+            instructions=len(ins), loops=sorted(loops),
+            local=sum(1 for _, op in ins if re.search(r"\b(LDL|STL)\b", op)))
+    return res
+
+
 def site_bwd_times(cs, card: str, result: dict) -> None:
     import torch
 
@@ -365,11 +394,116 @@ def prefetch_times(cs, card: str, result: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def bias_bwd_plan(cs, bwd, lib, n_sm, wide, B, G, N, Wt, H) -> dict:
+    """Rows a band, bands, key runs, shared memory, grid blocks, blocks an
+    SM holds and waves of one bias backward launch at a site of BEV H x H
+    with chip_smoke's heads per group: ``lattice_bias_bwd.plan`` where the
+    checkout has it, else the sizing of the kernels before it (one head's
+    whole padded table, or bands of as many rows as fit, and ``_chunks``).
+    Blocks an SM from the library's ``<kernel>_occupancy(W, smem)``; "-"
+    where the library does not export it."""
+    from bevrender_tpu_torch.ops.kernels._launch import (
+        PAD, SMEM_PER_BLOCK, padded_width)
+
+    Hpg, Ht = cs.HPG, 2 * H - 1
+    Yp, Xp = Ht + 2 * PAD, padded_width(Wt)
+    if hasattr(bwd, "plan"):
+        p = bwd.plan(B, G, Hpg, Ht, Wt, N, H, H, n_sm)
+        rows, bands, runs, smem = p.rows, p.bands, p.runs, p.smem
+    else:
+        if wide:
+            bands = -(-Yp // (SMEM_PER_BLOCK // (4 * Xp)))
+            rows = -(-Yp // bands)
+            smem = rows * Xp * 4
+        else:
+            bands, rows, smem = 1, Yp, Yp * Xp * 6
+        chunks = bwd._chunks(bands * B * G * Hpg, N, n_sm)
+        runs = -(-N // -(-N // chunks))
+    blocks = B * G * Hpg * bands * runs
+    rec = dict(rows=rows, bands=bands, runs=runs, smem=smem, blocks=blocks,
+               per_sm=None, waves=None)
+    name = "lattice_bias_wide_bwd" if wide else "lattice_bias_bwd"
+    if hasattr(lib, f"{name}_occupancy"):
+        rec["per_sm"] = getattr(lib, f"{name}_occupancy")(H, smem)
+        if rec["per_sm"] <= 0:
+            raise SystemExit(f"occupancy query failed: {rec['per_sm']}")
+        rec["waves"] = -(-blocks // (rec["per_sm"] * n_sm))
+    return rec
+
+
+def bias_bwd_times(cs, card: str, result: dict) -> None:
+    """#3 (``lattice_bias_bwd``) and #6 (``lattice_bias_wide_bwd``) at the
+    shapes chip_smoke's phases 8, 12 and 18 time them, with those phases'
+    seeds: every training shape (``TRAIN_BIAS_SITES``) on both kernels and
+    every pyramid shape (``PYR_BIAS_SITES``) on the kernel of its route,
+    #6 also at TSA 56; each shape's plan (``bias_bwd_plan``) and, once a
+    shape, ``grid_sampler_2d_backward`` over the same cotangent
+    (``chip_smoke.grid_sample_args``: bilinear, zero padding,
+    align_corners, one call for every head) as the library time."""
+    import torch
+
+    from bevrender_tpu_torch.ops import deform_attn as da
+    from bevrender_tpu_torch.ops.kernels import build
+
+    bwd = __import__("bevrender_tpu_torch.ops.kernels.lattice_bias_bwd",
+                     fromlist=["x"])
+    libs = {w: build.load_library("lattice_bias_wide_bwd" if w
+                                  else "lattice_bias_bwd")
+            for w in (False, True)}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    best = lambda fn: min(cs.queued_ms(fn, 5) for _ in range(3))  # noqa: E731
+    shapes = []
+    for i, (name, B, G, _, N, Wt, per) in enumerate(cs.TRAIN_BIAS_SITES):
+        shapes.append((f"train_{name}", B, G, N, Wt, cs.H, per, (False, True),
+                       ("site", 40 + i, 50 + i)))
+    for i, (name, H, B, G, N, Wt) in enumerate(cs.PYR_BIAS_SITES):
+        wide = da.bias_route((G, cs.HPG, 2 * H - 1, Wt), H, H) == "wide"
+        routes = (True,) if wide else (
+            (False, True) if name in cs.PYR_WIDE_SITES else (False,))
+        shapes.append((f"pyramid_{name}", B, G, N, Wt, H,
+                       cs.PYR_BIAS_PER_FORWARD[name] // 2, routes,
+                       ("bias", 70 + i, None)))
+    for name, B, G, N, Wt, H, per, routes, (kind, s1, s2) in shapes:
+        if kind == "site":
+            table, k_pos, *_ = cs.site_inputs(s1, B, G, 4, N, Wt,
+                                              cs.SITE_TABLE_STDS[0])
+            gen = torch.Generator(device="cuda").manual_seed(s2)
+            gout = torch.randn(B, G, cs.HPG, N, H * H, generator=gen,
+                               device="cuda").bfloat16()
+        else:
+            table, k_pos, gout = cs.bias_inputs(s1, B, G, N, Wt, H,
+                                                cs.SITE_TABLE_STDS[0])
+        args = da._kernel_args(table, k_pos, H, H)
+        rec = {}
+        for wide in routes:
+            call = (bwd.lattice_bias_wide_bwd_cuda if wide
+                    else bwd.lattice_bias_bwd_cuda)
+            tag = "wide" if wide else "whole"
+            rec[tag] = dict(bias_bwd_plan(cs, bwd, libs[wide], n_sm, wide, B,
+                                          G, N, Wt, H),
+                            ms=best(lambda: call(*args, gout, H, H)))
+        if hasattr(cs, "grid_sample_args"):
+            inp, grid, go = cs.grid_sample_args(da, table, k_pos, gout, H)
+            rec["library_ms"] = best(
+                lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    go, inp, grid, 0, 0, True, [True, True]))
+            del inp, grid, go
+        result["ms"][name] = rec
+        print(f"bias_bwd {name} (x{per} a step): " + "; ".join(
+            f"{k} " + (", ".join(f"{a} {b:.4f}" if isinstance(b, float)
+                                 else f"{a} {b if b is not None else '-'}"
+                                 for a, b in v.items())
+                       if isinstance(v, dict) else f"{v:.4f}")
+            for k, v in rec.items()) + f" [{card}]", flush=True)
+        del table, k_pos, gout, args
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel",
                     choices=("site_bwd", "windows_bwd", "fold_heads",
-                             "prefetch"),
+                             "prefetch", "bias_bwd"),
                     default="site_bwd")
     ap.add_argument("--root", type=Path, default=REPO)
     ap.add_argument("--sass", action="store_true")
@@ -393,11 +527,16 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}; root: {root}; kernel: {args.kernel}", flush=True)
-    source = dict(site_bwd="fused_site_bwd", windows_bwd="lattice_windows",
-                  fold_heads="fused_site_fold_heads",
-                  prefetch="fused_site_wide_prefetch")[args.kernel]
-    proc, lib, tmp = build._start(source)
-    log = build._finish(source, proc, lib, tmp)
+    sources = dict(site_bwd=("fused_site_bwd",),
+                   windows_bwd=("lattice_windows",),
+                   fold_heads=("fused_site_fold_heads",),
+                   prefetch=("fused_site_wide_prefetch",),
+                   bias_bwd=("lattice_bias_bwd", "lattice_bias_wide_bwd"),
+                   )[args.kernel]
+    started = {s: build._start(s) for s in sources}
+    logs = {s: build._finish(s, *started[s]) for s in sources}
+    lib = started[sources[0]][1]
+    log = "\n".join(logs.values())
     result = {"card": card, "root": str(root), "kernel": args.kernel,
               "ms": {}}
     if args.sass:
@@ -407,20 +546,28 @@ def main() -> None:
         if args.kernel == "site_bwd":
             result["sass_ch8"] = sass_counts(lib)
             print(f"sass (ch 8): {result['sass_ch8']}", flush=True)
-        elif args.kernel in ("fold_heads", "prefetch"):
-            result["registers"] = registers(lib)
-            result["sass"] = fold_sass(lib)
+        elif args.kernel in ("fold_heads", "prefetch", "bias_bwd"):
+            result["registers"], result["sass"] = {}, {}
+            for s in sources:
+                result["registers"].update(registers(started[s][1]))
+                result["sass"].update(fold_sass(started[s][1]))
+            if args.kernel == "bias_bwd":
+                result["loops"] = {}
+                for s in sources:
+                    result["loops"].update(sass_loops(started[s][1]))
             for name, ops in result["sass"].items():
                 print(f"sass {name}: registers "
-                      f"{result['registers'].get(name, '-')}, {ops}",
+                      f"{result['registers'].get(name, '-')}, {ops}"
+                      + (f", {result['loops'][name]}"
+                         if name in result.get("loops", {}) else ""),
                       flush=True)
         else:
             result["sass"] = windows_sass(lib)
             for name, rec in result["sass"].items():
                 print(f"sass {name}: {rec}", flush=True)
     {"site_bwd": site_bwd_times, "windows_bwd": windows_bwd_times,
-     "fold_heads": fold_heads_times,
-     "prefetch": prefetch_times}[args.kernel](cs, card, result)
+     "fold_heads": fold_heads_times, "prefetch": prefetch_times,
+     "bias_bwd": bias_bwd_times}[args.kernel](cs, card, result)
     print(json.dumps(result), flush=True)
 
 

@@ -801,6 +801,44 @@ def test_window_bwd_kernel_equals_ordered_mirror(cuda_device, B, G, Hpg, H,
         assert torch.equal(first, ref)
 
 
+# The bias backward kernels against their ordered mirror: (B, G, H, Wt, N).
+# The flagship's SCA table (two bands of 32 rows, so a band boundary inside
+# most keys' windows; 1960 keys in runs of 60, the last shorter), BEV 7 (M
+# = 49), the pyramid's SCA 56 table at W = 56 (two rounds of lanes, six
+# bands), W = 33 and a small TSA table with an odd key count.
+BIAS_BWD_ORDER = [(2, 2, 28, 279, 1960), (1, 2, 7, 13, 49),
+                  (2, 1, 56, 559, 300), (1, 1, 33, 65, 50), (2, 2, 8, 15, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("B,G,H,Wt,N", BIAS_BWD_ORDER)
+def test_bias_bwd_kernels_equal_ordered_mirror(cuda_device, wide, B, G, H,
+                                               Wt, N):
+    """``lattice_bias_bwd`` and ``lattice_bias_wide_bwd`` sum with no float
+    atomic in a fixed order: dtable equals ``lattice_bias_bwd_ordered``
+    under the wrapper's plan bit for bit, dwy and df are within
+    BWD_SUM_TOL of its plain sums, and two calls give the same bits."""
+    lbb = kernels.lattice_bias_bwd
+    table, k_pos, *_ = _inputs(31, B, G, 2, H, H, Wt, N, 4, cuda_device, 0.5)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    gout = torch.randn(B, G, 2, N, H * H, generator=gen,
+                       device="cuda").bfloat16()
+    args = tda._kernel_args(table, k_pos, H, H)
+    fn = lbb.lattice_bias_wide_bwd_cuda if wide else lbb.lattice_bias_bwd_cuda
+    first = fn(*args, gout, H, H)
+    again = fn(*args, gout, H, H)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = lbb.plan(B, G, 2, 2 * H - 1, Wt, N, H, H, sms)
+    ref = lbb.lattice_bias_bwd_ordered(*args, gout, H, H, plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert float(ref[0].abs().max()) > 0
+    assert torch.equal(first[0], ref[0])
+    assert _close(first[1], ref[1], BWD_SUM_TOL)
+    assert _close(first[2], ref[2], BWD_SUM_TOL)
+
+
 @pytest.mark.cuda
 def test_windowed_bias_runs_on_the_window_kernels(cuda_device, monkeypatch):
     """``lattice_bias_windowed`` on CUDA tensors launches one window kernel
