@@ -59,8 +59,9 @@ Phases, each fatal on failure:
     (forward, and backward through autograd) at two table scales: the
     whole-table kernels at all eight shapes (M = 196 and 49 at BEV 14 and
     7), the wide ones at BEV 56; times, bounds, the plain version's peak
-    memory, ``grid_sample``'s forward and backward times; the backward's
-    plan, blocks per SM, two runs equal bit for bit and dtable equal to
+    memory, ``grid_sample``'s forward and backward times; the wide
+    forward's plan and blocks per SM; the backward's plan, blocks per SM,
+    two runs equal bit for bit and dtable equal to
     ``lattice_bias_bwd_ordered``;
 13. a small BEV 56 -> 28 -> 56 model whose SCA at 56 takes the wide kernels
     through the normal dispatch: its parameter gradients through the
@@ -82,7 +83,10 @@ Phases, each fatal on failure:
     ``fused_site_wide_prefetch`` also at a site of its ring path
     (PREFETCH_RING_SITE), at two table scales, against its plain version
     and, with tolerance 0, against its bit-equal sibling;
-    ``lattice_bias_wide`` and its backward at the flagship's shapes; times,
+    ``lattice_bias_wide`` and its backward at the flagship's shapes; the
+    two wide bias forwards (one template) also at every shape of phases 8
+    and 12 (FWD_CHECK_SITES), each with its plan, path and blocks per SM,
+    the prefetch kernel on its whole-table path at all of them; times,
     bounds, plain and library times, and the prefetch site's path and
     blocks per SM;
 19. the folded fused sites: the flagship serving as phase 14
@@ -894,14 +898,13 @@ def bias_inputs(seed, B, G, N, Wt, H, table_std):
     return table, k_pos, gout
 
 
-def bias_bounds(B, G, N, Wt, H, backward: bool, extra_bytes: int = 0):
+def bias_bounds(B, G, N, Wt, H, backward: bool):
     """(bound ms, what bounds it) of the bias forward or backward: bytes
     (each input read once, each output written once) against float32
     operations (forward 12 per element: phi, floor, frac and three lerps of
     three; backward 28: window fractions 3, two x-lerps 6, the tail 15 (dwy
     3, d0/d1 3, df 7, 1 - wx, 4 weights as 2 per pair of corners) and 4 adds
-    into the table gradient) at the H100's published peaks; ``extra_bytes``
-    (a prefetch kernel's pitched table copy) adds to the bytes."""
+    into the table gradient) at the H100's published peaks."""
     elems = B * G * HPG * N * H * H
     table = G * HPG * (2 * H - 1) * Wt
     if backward:
@@ -910,7 +913,6 @@ def bias_bounds(B, G, N, Wt, H, backward: bool, extra_bytes: int = 0):
     else:
         nbytes = elems * 2 + table * 2 + B * G * N * 16 + H * 8
         ops = elems * 12
-    nbytes += extra_bytes
     by = "bytes" if nbytes / HBM_BPS >= ops / F32_FLOPS else "operations"
     return max(nbytes / HBM_BPS, ops / F32_FLOPS) * 1e3, by
 
@@ -996,6 +998,31 @@ def plan_text(plan: dict) -> str:
             f"{plan['blocks']} blocks, {plan['blocks_per_sm']} an SM")
 
 
+def fwd_plan(fwd_mod, prefetch: bool, B, G, N, Wt, H) -> dict:
+    """A wide bias forward's plan at a shape (``lattice_bias.fwd_plan``:
+    ``lattice_bias_wide_prefetch`` where ``prefetch``, else
+    ``lattice_bias_wide``) and the blocks one SM holds of it (the library's
+    ``<kernel>_occupancy``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import torch
+
+    from bevrender_tpu_torch.ops.kernels._launch import blocks_per_sm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = fwd_mod.fwd_plan(B, G, HPG, 2 * H - 1, Wt, N, H, H, sms, prefetch)
+    name = "lattice_bias_wide_prefetch" if prefetch else "lattice_bias_wide"
+    args = ((int(p.path == "whole"),) if prefetch else ()) + (H, p.smem)
+    return dict(p._asdict(), blocks_per_sm=blocks_per_sm(
+        name, f"{name}_occupancy", *args))
+
+
+def fwd_plan_text(plan: dict) -> str:
+    return (f"plan {plan['path']}, {plan['runs']} runs of {plan['keys']} "
+            f"keys a head, {plan['strips']} strips of {plan['rows']} rows, "
+            f"{plan['smem']} B, {plan['blocks']} blocks, "
+            f"{plan['blocks_per_sm']} an SM")
+
+
 def check_bwd_order(bwd_mod, bwd_call, args, gout, H, plan, first):
     """A second run of the bias backward ``bwd_call`` equal to the ``first``
     (dtable, dwy, df) bit for bit and, with ``plan``, dtable equal to
@@ -1038,6 +1065,11 @@ def check_pyramid_bias(da, kernels) -> dict:
         if da.bias_route((G, HPG, 2 * H - 1, Wt), H, H) == "wide":
             routes = ["wide"]
         plans = {r: bwd_plan(bwd, r == "wide", B, G, N, Wt, H) for r in routes}
+        fplan = (fwd_plan(fwd, False, B, G, N, Wt, H) if "wide" in routes
+                 else None)
+        if fplan is not None:
+            print(f"pyramid lattice_bias_wide {name}: {fwd_plan_text(fplan)}",
+                  flush=True)
         for std in SITE_TABLE_STDS:
             table, k_pos, gout = bias_inputs(70 + i, B, G, N, Wt, H, std)
             args = da._kernel_args(table, k_pos, H, H)
@@ -1116,7 +1148,8 @@ def check_pyramid_bias(da, kernels) -> dict:
                 # its recomputation forward, and the final pass backward
                 for kname, ms, plain, err, launches in (
                         (kf, ms_f, plain_f, float(e_f.max()),
-                         dict(per_forward=per, per_step=per * 3 // 2)),
+                         dict(per_forward=per, per_step=per * 3 // 2,
+                              **(dict(plan=fplan) if wide else {}))),
                         (kb, ms_b, plain_b, float((dt - rdt).abs().max()),
                          dict(per_step=per // 2, plan=plans[route]))):
                     bound, by = bias_bounds(B, G, N, Wt, H, kname == kb)
@@ -1129,6 +1162,7 @@ def check_pyramid_bias(da, kernels) -> dict:
                           f"{plain:.4f} ms grid_sample {lib_ms:.4f} ms bound "
                           f"{bound:.4f} ms ({by}); launches {launches}"
                           + (f"; {plan_text(plans[route])}" if kname == kb
+                             else f"; {fwd_plan_text(fplan)}" if wide
                              else ""), flush=True)
                 del out, dt, dwy, df, dp
             del ref, rdt, rdp, rb, t2, p2, table, k_pos, gout, args
@@ -1511,23 +1545,43 @@ PREFETCH_BIAS_SITES = [
     for name, B, G, ch, N, Wt, per_fwd in BIAS_SITES
 ] + [("pyramid_sca56_g1_n7840", 56, 2, 1, 7840, 559,
       PYR_BIAS_PER_FORWARD["sca56_g1_n7840"])]
+# every other shape the bias forward takes on a main path, where phase 18
+# holds the two wide forwards without timing them: phase 8's training
+# shapes and phase 12's pyramid shapes, (name, H, batch, G, N, table width)
+FWD_CHECK_SITES = [
+    (f"train_{name}", H, B, G, N, Wt)
+    for name, B, G, _, N, Wt, _ in TRAIN_BIAS_SITES
+] + [(f"pyramid_{name}", Hs, B, G, N, Wt)
+     for name, Hs, B, G, N, Wt in PYR_BIAS_SITES if name != "sca56_g1_n7840"]
 
 
 def check_prefetch_bias(da, kernels) -> tuple:
-    """Phase 18, ``lattice_bias_wide_prefetch`` and ``lattice_bias_wide`` at
-    every shape of PREFETCH_BIAS_SITES and two table scales: the prefetch
-    variant equal to the wide kernel bit for bit and both to the
-    whole-table one where its shared memory holds the table (the flagship's
-    shapes), all within one bf16 ulp of the plain version. Times (the
-    prefetch variant's as the sum of its kernel's and its pitched table
-    copy's), bounds, plain times.
+    """Phase 18, ``lattice_bias_wide_prefetch`` and ``lattice_bias_wide``
+    (one template, csrc/bias_fwd_rows.cuh) at every shape of
+    PREFETCH_BIAS_SITES and FWD_CHECK_SITES and two table scales: the
+    prefetch kernel equal to the wide one bit for bit and both to the
+    whole-table one where its shared memory holds the table, all within one
+    bf16 ulp of the plain version. Each instance's plan (``fwd_plan``): its
+    path and blocks an SM; the phase fails unless the prefetch kernel takes
+    its whole-table path at every such shape. Times, at PREFETCH_BIAS_SITES
+    only (the prefetch kernel's as the sum of its kernel's and its pitched
+    table copy's), bounds, plain times, ``grid_sample``'s.
     Returns (prefetch record, wide record at the flagship's shapes)."""
     import torch
 
     fwd = kernels.lattice_bias
     rows_p, rows_w, bad = [], [], []
     worst = dict(prefetch=0.0, wide=0.0)
-    for i, (name, Hs, B, G, N, Wt, per_fwd) in enumerate(PREFETCH_BIAS_SITES):
+    sites = ([(*site, True) for site in PREFETCH_BIAS_SITES]
+             + [(*site, 0, False) for site in FWD_CHECK_SITES])
+    for i, (name, Hs, B, G, N, Wt, per_fwd, timed) in enumerate(sites):
+        plan_w = fwd_plan(fwd, False, B, G, N, Wt, Hs)
+        plan_p = fwd_plan(fwd, True, B, G, N, Wt, Hs)
+        print(f"lattice_bias_wide {name}: {fwd_plan_text(plan_w)}; "
+              f"lattice_bias_wide_prefetch: {fwd_plan_text(plan_p)}",
+              flush=True)
+        if plan_p["path"] != "whole":
+            bad.append(f"{name}: prefetch path {plan_p['path']}")
         for std in SITE_TABLE_STDS:
             table, k_pos, _ = bias_inputs(100 + i, B, G, N, Wt, Hs, std)
             args = da._kernel_args(table, k_pos, Hs, Hs)
@@ -1556,7 +1610,7 @@ def check_prefetch_bias(da, kernels) -> tuple:
             worst["prefetch"] = max(worst["prefetch"], err)
             worst["wide"] = max(worst["wide"], err)
             del out_w, out_p, rb
-            if std != SITE_TABLE_STDS[0]:
+            if std != SITE_TABLE_STDS[0] or not timed:
                 del r32
                 continue
             lib = library_bias_ms(da, table, k_pos, None, Hs, r32)["fwd_ms"]
@@ -1571,18 +1625,16 @@ def check_prefetch_bias(da, kernels) -> tuple:
             tb = table.bfloat16().float()
             plain = queued_ms(lambda: da.lattice_bias_plain(
                 tb, k_pos, Hs, Hs, torch.float32), 3)
-            b_w = bias_bounds(B, G, N, Wt, Hs, backward=False)
-            extra = pitched_bytes(G, 2 * Hs - 1, Wt)
-            b_p = bias_bounds(B, G, N, Wt, Hs, backward=False,
-                              extra_bytes=extra)
+            # one function, one bound: the pitched copy is #5's own staging
+            b_w = b_p = bias_bounds(B, G, N, Wt, Hs, backward=False)
             common = dict(site=name, plain_ms=plain, library_ms=lib,
                           per_forward=per_fwd, max_abs_err=err)
             rows_p.append(dict(common, ms=ms_p, kernel_only_ms=ms_p_kernel,
                                wide_ms=ms_w, bound_ms=b_p[0],
-                               bound_by=b_p[1]))
+                               bound_by=b_p[1], plan=plan_p))
             if whole:  # the flagship's shapes (phase 14)
                 rows_w.append(dict(common, ms=ms_w, bound_ms=b_w[0],
-                                   bound_by=b_w[1]))
+                                   bound_by=b_w[1], plan=plan_w))
             print(f"lattice_bias_wide_prefetch {name}: {ms_p:.4f} ms (kernel "
                   f"alone {ms_p_kernel:.4f}), lattice_bias_wide {ms_w:.4f} "
                   f"ms, plain {plain:.4f} ms, grid_sample {lib:.4f} ms; bound "
@@ -2519,6 +2571,7 @@ def main() -> None:
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top.get("library_ms"), "shape": top["site"],
+            **({"plan": top["plan"]} if "plan" in top else {}),
             "per_shape": data["rows"],
             **({"max_abs_err_online": data["worst_online"]}
                if "worst_online" in data else {}),

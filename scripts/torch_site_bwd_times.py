@@ -27,7 +27,14 @@ each line names the path (``fused_site_wide.prefetch_plan``; the ring only
 in a checkout without it), queries a block, shared memory, grid blocks,
 blocks an SM (the library's ``fused_site_wide_prefetch_occupancy``) and
 waves, and at the serving shapes the blocks an SM of the row-folded site
-(``fused_site_fold_rows_occupancy``).
+(``fused_site_fold_rows_occupancy``). ``--kernel bias_bwd`` times both
+bias backwards (csrc/bias_bwd_rows.cuh) at phases 8, 12 and 18's shapes
+beside ``grid_sampler_2d_backward``; ``--kernel bias_fwd`` times both wide
+bias forwards (csrc/bias_fwd_rows.cuh: ``lattice_bias_wide`` and
+``lattice_bias_wide_prefetch``) at phases 12 and 18's shapes beside
+``F.grid_sample``, each line with the plan (``lattice_bias.fwd_plan``;
+the kernels before it where the checkout has none), and their sums over
+one forward of each route.
 
     python3 scripts/torch_site_bwd_times.py [--kernel K] [--root DIR] [--sass]
 
@@ -45,7 +52,8 @@ backward, each shared-memory atomic, shuffle and mma opcode of its ``ch =
 8`` kernel; for the windows backward, each atomic and reduction opcode of
 every backward kernel, and how many of them act on floats; for the folded
 and the prefetch site, each kernel's registers (``cuobjdump -res-usage``)
-and its atomic, mma, asynchronous-copy and barrier opcodes. The windows
+and its atomic, mma, asynchronous-copy and barrier opcodes; for the bias
+forwards each kernel's registers, loop lengths and memory opcodes. The windows
 also print the largest bin of their starts (keys sharing one (g, ms, ys))
 and the share of keys whose ms is clipped to the table's first or last
 start. The last line is one JSON object with the card and the times.
@@ -499,11 +507,131 @@ def bias_bwd_times(cs, card: str, result: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def bias_fwd_plan(cs, fwd, lib, n_sm, prefetch, B, G, N, Wt, H) -> dict:
+    """Path, heads a block, key runs, row strips, shared memory, threads,
+    grid blocks, blocks an SM holds and waves of one bias forward launch
+    (``prefetch``: #5, else #4) at a site of BEV H x H with chip_smoke's
+    heads per group: ``lattice_bias.fwd_plan`` where the checkout has it,
+    else the launch of the kernels before it (#4: 8 keys a block; #5: the
+    window ring of ``bias_ring``, runs of whole stages). Blocks an SM from
+    the library's ``<kernel>_occupancy``; "-" where it does not export it."""
+    Hpg, Ht = cs.HPG, 2 * H - 1
+    if hasattr(fwd, "fwd_plan"):
+        p = fwd.fwd_plan(B, G, Hpg, Ht, Wt, N, H, H, n_sm, prefetch)
+        rec = dict(path=p.path, heads=1, runs=p.runs, keys=p.keys,
+                   strips=p.strips, smem=p.smem, threads=fwd.FWD_THREADS,
+                   blocks=p.blocks)
+    elif prefetch:
+        KS, _, _, smem = fwd.bias_ring(Wt, H, H)
+        stages = max(2, -(-B * G * Hpg * N // (KS * 8 * n_sm)))
+        kpb = KS * stages
+        rec = dict(path="ring", heads=1, keys=kpb, smem=smem, threads=256,
+                   blocks=-(-N // kpb) * G * Hpg * B)
+    else:
+        rec = dict(path="l1", heads=Hpg, keys=8, smem=0, threads=256,
+                   blocks=-(-N // 8) * G * B)
+    name = ("lattice_bias_wide_prefetch" if prefetch
+            else "lattice_bias_wide")
+    rec.update(per_sm=None, waves=None)
+    occupancy = getattr(lib, f"{name}_occupancy", None)
+    if occupancy is not None:
+        args = ((int(rec["path"] == "whole"),) if prefetch else ()) + (
+            H, rec["smem"])
+        rec["per_sm"] = occupancy(*args)
+        if rec["per_sm"] <= 0:
+            raise SystemExit(f"occupancy query failed: {rec['per_sm']}")
+        rec["waves"] = -(-rec["blocks"] // (rec["per_sm"] * n_sm))
+    return rec
+
+
+# (name, H, batch, G, N, table width, seed, launches a forward of #4 on its
+# route, of #5 on its route): the shapes phases 12 and 18 hold the wide
+# bias forwards at, with their seeds (chip_smoke.PREFETCH_BIAS_SITES, then
+# the pyramid's TSA 56 of PYR_BIAS_SITES, which no route launches them at)
+def bias_fwd_shapes(cs) -> list:
+    shapes = [(name, H, B, G, N, Wt, 100 + i, per, per)
+              for i, (name, H, B, G, N, Wt, per) in enumerate(
+                  cs.PREFETCH_BIAS_SITES)]
+    for i, (name, H, B, G, N, Wt) in enumerate(cs.PYR_BIAS_SITES):
+        if name == "tsa56_g1_n49":
+            shapes.append((f"pyramid_{name}", H, B, G, N, Wt, 70 + i, 0, 0))
+    return shapes
+
+
+def bias_fwd_times(cs, card: str, result: dict) -> None:
+    """#4 (``lattice_bias_wide``) and #5 (``lattice_bias_wide_prefetch``,
+    its pitched table copy included) at phases 12 and 18's shapes
+    (``bias_fwd_shapes``), each with its plan (``bias_fwd_plan``), and
+    ``F.grid_sample`` of the same inputs (``chip_smoke.grid_sample_args``:
+    bilinear, zero padding, align_corners, one call for every head) as the
+    library time; then each kernel summed over the launches of one forward
+    of its route."""
+    import torch
+
+    from bevrender_tpu_torch.ops import deform_attn as da
+    from bevrender_tpu_torch.ops.kernels import build
+
+    fwd = __import__("bevrender_tpu_torch.ops.kernels.lattice_bias",
+                     fromlist=["x"])
+    libs = {p: build.load_library("lattice_bias_wide_prefetch" if p
+                                  else "lattice_bias_wide")
+            for p in (False, True)}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    best = lambda fn: min(cs.queued_ms(fn, 5) for _ in range(3))  # noqa: E731
+    sums = collections.defaultdict(float)
+    for name, H, B, G, N, Wt, seed, per4, per5 in bias_fwd_shapes(cs):
+        table, k_pos, _ = cs.bias_inputs(seed, B, G, N, Wt, H,
+                                         cs.SITE_TABLE_STDS[0])
+        args = da._kernel_args(table, k_pos, H, H)[:7]
+        rec = {}
+        model = "pyramid" if H == 56 else "flagship"
+        for prefetch, per in ((False, per4), (True, per5)):
+            call = (fwd.lattice_bias_wide_prefetch_cuda if prefetch
+                    else fwd.lattice_bias_wide_cuda)
+            tag = "prefetch" if prefetch else "wide"
+            rec[tag] = dict(bias_fwd_plan(cs, fwd, libs[prefetch], n_sm,
+                                          prefetch, B, G, N, Wt, H),
+                            ms=best(lambda: call(*args, H, H)))
+            sums[f"{tag} {model}"] += per * rec[tag]["ms"]
+        inp, grid, _ = cs.grid_sample_args(da, table, k_pos, None, H)
+        rec["library_ms"] = best(lambda: torch.nn.functional.grid_sample(
+            inp, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        sums[f"library {model}"] += per4 * rec["library_ms"]
+        result["ms"][name] = rec
+        print(f"bias_fwd {name} (x{per4} a forward): " + "; ".join(
+            f"{k} " + (", ".join(f"{a} {b:.4f}" if isinstance(b, float)
+                                 else f"{a} {b if b is not None else '-'}"
+                                 for a, b in v.items())
+                       if isinstance(v, dict) else f"{v:.4f}")
+            for k, v in rec.items()) + f" [{card}]", flush=True)
+        del table, k_pos, args, inp, grid
+        torch.cuda.empty_cache()
+    result["forward_sums"] = dict(sums)
+    print("bias_fwd summed over a forward's launches (the flagship on "
+          "\"wide\", the pyramid's SCA 56): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
+          + f" [{card}]", flush=True)
+
+
+def fwd_sass(lib: Path) -> dict:
+    """Per kernel of a bias forward library: registers, its SASS
+    instruction count and loop lengths (``sass_loops``), and its global and
+    shared loads and stores, asynchronous copies and barriers."""
+    regs = registers(lib)
+    loops = sass_loops(lib)
+    keep = ("LDG", "LDS", "STG", "STS", "LDGSTS", "BAR", "F2FP")
+    return {name: dict(registers=regs.get(name), **loops.get(name, {}),
+                       ops={k: v for k, v in sorted(ops.items())
+                            if k.startswith(keep)})
+            for name, ops in sass_functions(lib).items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel",
                     choices=("site_bwd", "windows_bwd", "fold_heads",
-                             "prefetch", "bias_bwd"),
+                             "prefetch", "bias_bwd", "bias_fwd"),
                     default="site_bwd")
     ap.add_argument("--root", type=Path, default=REPO)
     ap.add_argument("--sass", action="store_true")
@@ -532,6 +660,7 @@ def main() -> None:
                    fold_heads=("fused_site_fold_heads",),
                    prefetch=("fused_site_wide_prefetch",),
                    bias_bwd=("lattice_bias_bwd", "lattice_bias_wide_bwd"),
+                   bias_fwd=("lattice_bias_wide", "lattice_bias_wide_prefetch"),
                    )[args.kernel]
     started = {s: build._start(s) for s in sources}
     logs = {s: build._finish(s, *started[s]) for s in sources}
@@ -543,7 +672,13 @@ def main() -> None:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(f"ptxas: {ln.strip()}", flush=True)
-        if args.kernel == "site_bwd":
+        if args.kernel == "bias_fwd":
+            result["sass"] = {}
+            for s in sources:
+                result["sass"].update(fwd_sass(started[s][1]))
+            for name, rec in result["sass"].items():
+                print(f"sass {name}: {rec}", flush=True)
+        elif args.kernel == "site_bwd":
             result["sass_ch8"] = sass_counts(lib)
             print(f"sass (ch 8): {result['sass_ch8']}", flush=True)
         elif args.kernel in ("fold_heads", "prefetch", "bias_bwd"):
@@ -567,7 +702,8 @@ def main() -> None:
                 print(f"sass {name}: {rec}", flush=True)
     {"site_bwd": site_bwd_times, "windows_bwd": windows_bwd_times,
      "fold_heads": fold_heads_times, "prefetch": prefetch_times,
-     "bias_bwd": bias_bwd_times}[args.kernel](cs, card, result)
+     "bias_bwd": bias_bwd_times,
+     "bias_fwd": bias_fwd_times}[args.kernel](cs, card, result)
     print(json.dumps(result), flush=True)
 
 

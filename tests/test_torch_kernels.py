@@ -719,6 +719,50 @@ def test_wide_bias_prefetch_equals_wide_bias(cuda_device, H, G, N, Wt,
     assert bool(((pre.float() - ref).abs() <= ref.abs() * 2.0 ** -7).all())
 
 
+# The two wide bias forwards, one template (csrc/bias_fwd_rows.cuh): (H, G,
+# N, Wt) at W = 7, 14, 28 and 56, the prefetch kernel on its whole-table
+# path, and at W = 28 and 56 a table whose padded head overflows a block
+# (63 x 1856 and 119 x 1128 bf16), where it takes path "l1"
+WIDE_FWD = [(7, 8, 49, 13), (7, 8, 140, 69), (14, 4, 490, 139),
+            (28, 1, 49, 55), (28, 2, 1960, 279), (56, 1, 600, 559),
+            (28, 1, 300, 1843), (56, 1, 200, 1119)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_std", [0.01, 1.0])
+@pytest.mark.parametrize("H,G,N,Wt", WIDE_FWD)
+def test_wide_bias_forwards_equal_each_other(cuda_device, H, G, N, Wt,
+                                             table_std):
+    """``lattice_bias_wide`` and ``lattice_bias_wide_prefetch`` equal each
+    other and the plain version (float32 lerps on the bf16 table) rounded
+    to bf16 bit for bit, on both of the prefetch kernel's paths, and
+    ``lattice_bias`` where its shared memory holds the table; one launch
+    each."""
+    table, k_pos, *_ = _inputs(21, 2, G, 2, H, H, Wt, N, 4, cuda_device,
+                               table_std)
+    args = tda._kernel_args(table, k_pos, H, H)
+    fwd = kernels.lattice_bias
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fwd.fwd_plan(2, G, 2, 2 * H - 1, Wt, N, H, H, sms, True)
+    assert plan.path == ("l1" if Wt in (1843, 1119) else "whole")
+    whole = tda.bias_route(table.shape, H, H) == "whole"
+    before = kernels.counts()
+    with torch.no_grad():
+        wide = fwd.lattice_bias_wide_cuda(*args[:7], H, H)
+        pre = fwd.lattice_bias_wide_prefetch_cuda(*args[:7], H, H)
+        ref = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, H,
+                                     torch.float32).bfloat16()
+        if whole:
+            assert torch.equal(fwd.lattice_bias_cuda(*args, H, H), wide)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == dict(lattice_bias_wide=1, lattice_bias_wide_prefetch=1,
+                **({"lattice_bias": 1} if whole else {}))
+    assert torch.equal(pre, wide)
+    assert torch.equal(wide, ref)
+
+
 # The window kernels of the windowed bias (bias_forward="windows"): (B, G,
 # Hpg, H, Wt, N) with rows of W * Hpg = 56, 28, 14 and 7 bf16 (16-, 8-, 4-
 # and 2-byte vectors), at the flagship's SCA and TSA and the pyramid's BEV 7
