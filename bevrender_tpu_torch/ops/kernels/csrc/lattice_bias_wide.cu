@@ -27,7 +27,7 @@ namespace {
 template <int P, int K>
 __global__ void __launch_bounds__(bias_fwd_rows::THREADS, 1)
     lattice_bias_wide_kernel(const bias_fwd_rows::Args a) {
-  bias_fwd_rows::rows<false, P, K>(a);
+  bias_fwd_rows::rows<bias_fwd_rows::L1, P, K>(a);
 }
 
 // the instance for W query columns: segments of 8, 16 or 32 lanes, one
@@ -48,12 +48,11 @@ extern "C" int lattice_bias_wide_launch(
     int strips, int rows, void* stream) {
   if (W < 1 || W > 64) return (int)cudaErrorInvalidValue;
   const bias_fwd_rows::Args a{
-      nullptr, (const int*)ys, (const int*)ms, (const float*)wy,
-      (const float*)fx, (const int*)u0, (const float*)gcomb,
-      (__nv_bfloat16*)out, B, G, Hpg, Ht, Wt, 0, N, H, W, runs, keys, strips,
-      rows};
-  return bias_fwd_rows::launch(kernel_for(W), false, a, table, nullptr,
-                               stream);
+      (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
+      (const float*)wy, (const float*)fx, (const int*)u0,
+      (const float*)gcomb, (__nv_bfloat16*)out, B, G, Hpg, Ht, Wt, 0, N, H,
+      W, runs, keys, strips, rows};
+  return bias_fwd_rows::launch(kernel_for(W), bias_fwd_rows::L1, a, stream);
 }
 
 // Blocks one SM holds of the instance for W at `smem` bytes of shared memory.

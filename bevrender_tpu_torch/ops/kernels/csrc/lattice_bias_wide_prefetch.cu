@@ -14,15 +14,15 @@
 // Bound: bytes; the output dominates, as for lattice_bias_wide.cu. This
 // kernel is the staged instance of bias_fwd_rows.cuh (see there for the
 // design). Where one head's zero-padded table fits a block (path "whole":
-// 119 x 568 bf16, 135 KB, at the pyramid's SCA 56; 63 x 288, 36 KB, at the
-// flagship's SCA), the launch first copies the table into a pitched
-// zero-padded copy (lattice_ring.cuh::pitch_table, rows of Xs bf16, Xs a
-// multiple of 8) and each block stages its head's table from it once by
-// 16-byte cp.async, then walks a run of about 240 keys with no bounds
-// check. Where it does not fit (path "l1"; no shipped model has such a
-// site) it reads the raw table through L1 as lattice_bias_wide.cu does. The
-// plan, and so the path, comes from lattice_bias.py::fwd_plan. Its output
-// equals lattice_bias_wide.cu's and lattice_bias.cu's bit for bit.
+// 119 x 567 bf16, 135 KB, at the pyramid's SCA 56; 63 x 287, 36 KB, at the
+// flagship's SCA), each block stages its head's table once, straight from
+// the raw table by 16-byte cp.async (bias_fwd_rows.cuh::stage_raw, in the
+// same launch, as lattice_bias.cu does), then walks a run of about 240
+// keys with no bounds check. Where it does not fit (path "l1"; no shipped
+// model has such a site) it reads the raw table through L1 as
+// lattice_bias_wide.cu does. The plan, and so the
+// path, comes from lattice_bias.py::fwd_plan. Its output equals
+// lattice_bias_wide.cu's and lattice_bias.cu's bit for bit.
 
 #include "bias_fwd_rows.cuh"
 
@@ -31,7 +31,8 @@ namespace {
 template <bool WHOLE, int P, int K>
 __global__ void __launch_bounds__(bias_fwd_rows::THREADS, 1)
     lattice_bias_wide_prefetch_kernel(const bias_fwd_rows::Args a) {
-  bias_fwd_rows::rows<WHOLE, P, K>(a);
+  bias_fwd_rows::rows<WHOLE ? bias_fwd_rows::RAW : bias_fwd_rows::L1, P, K>(
+      a);
 }
 
 template <bool WHOLE>
@@ -52,23 +53,24 @@ const void* kernel_for(bool whole, int W) {
 
 }  // namespace
 
-// On path "whole" (`whole` 1), `pitched` is scratch of G * Hpg * (Ht + 2
-// PAD) * Xs bf16 (Xs a multiple of 8) for the pitched copy of the table;
-// on "l1" neither is read.
+// On path "whole" (`whole` 1) a block stages its head's padded table at row
+// pitch Xs = Wt + 8 (lattice_bias.py::staged_pitch); on "l1" Xs is not
+// read.
 extern "C" int lattice_bias_wide_prefetch_launch(
-    const void* table, void* pitched, const void* ys, const void* ms,
-    const void* wy, const void* fx, const void* u0, const void* gcomb,
-    void* out, int B, int G, int Hpg, int Ht, int Wt, int Xs, int N, int H,
-    int W, int whole, int runs, int keys, int strips, int rows,
-    void* stream) {
-  if (W < 1 || W > 64 || (whole && Xs % 8)) return (int)cudaErrorInvalidValue;
+    const void* table, const void* ys, const void* ms, const void* wy,
+    const void* fx, const void* u0, const void* gcomb, void* out, int B,
+    int G, int Hpg, int Ht, int Wt, int Xs, int N, int H, int W, int whole,
+    int runs, int keys, int strips, int rows, void* stream) {
+  if (W < 1 || W > 64 || (whole && Xs != Wt + 8))
+    return (int)cudaErrorInvalidValue;
   const bias_fwd_rows::Args a{
-      nullptr, (const int*)ys, (const int*)ms, (const float*)wy,
-      (const float*)fx, (const int*)u0, (const float*)gcomb,
-      (__nv_bfloat16*)out, B, G, Hpg, Ht, Wt, Xs, N, H, W, runs, keys, strips,
-      rows};
-  return bias_fwd_rows::launch(kernel_for(whole, W), whole, a, table,
-                               pitched, stream);
+      (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
+      (const float*)wy, (const float*)fx, (const int*)u0,
+      (const float*)gcomb, (__nv_bfloat16*)out, B, G, Hpg, Ht, Wt, Xs, N, H,
+      W, runs, keys, strips, rows};
+  return bias_fwd_rows::launch(kernel_for(whole, W),
+                               whole ? bias_fwd_rows::RAW : bias_fwd_rows::L1,
+                               a, stream);
 }
 
 // Blocks one SM holds of the instance of a path for W at `smem` bytes of

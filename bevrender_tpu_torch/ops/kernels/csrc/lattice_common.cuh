@@ -16,6 +16,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <unordered_map>
+
 namespace lattice {
 
 constexpr int PAD = 4;
@@ -123,30 +126,22 @@ __device__ __forceinline__ unsigned pack2(float a, float b) {
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
 }
 
-// Store VEC consecutive outputs as bf16: one 16-byte vector for VEC = 8
-// (`dst` 16-byte aligned), one 2-byte store for VEC = 1.
-template <int VEC>
-__device__ __forceinline__ void store_bf16(__nv_bfloat16* dst,
-                                           const float* vals) {
-  static_assert(VEC == 8 || VEC == 1, "VEC is 8 or 1");
-  if constexpr (VEC == 8) {
-    uint4 pk;
-    pk.x = pack2(vals[0], vals[1]);
-    pk.y = pack2(vals[2], vals[3]);
-    pk.z = pack2(vals[4], vals[5]);
-    pk.w = pack2(vals[6], vals[7]);
-    *reinterpret_cast<uint4*>(dst) = pk;
-  } else {
-    dst[0] = __float2bfloat16_rn(vals[0]);
-  }
-}
-
+// Let `kernel` take `bytes` of dynamic shared memory (the attribute is
+// needed above 48 KB). The call is host time on every launch of paths that
+// are host-bound, so each kernel's largest size set so far is remembered
+// and the attribute set again only for a larger one; the lock keeps two
+// threads from recording a size that was not the last set.
 inline int set_smem(const void* kernel, size_t bytes) {
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (bytes <= 48 * 1024) return 0;
+  static std::mutex lock;
+  static std::unordered_map<const void*, size_t> largest;
+  std::lock_guard<std::mutex> guard(lock);
+  size_t& done = largest[kernel];
+  if (bytes <= done) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = bytes;
   return 0;
 }
 

@@ -545,21 +545,27 @@ def site_inputs(seed, B, G, ch, N, Wt, table_std=0.01, side=H):
 
 
 def check_bias(da, kernel_mod) -> dict:
+    """Phase 4: ``lattice_bias`` at the flagship's serving shapes, equal
+    bit for bit to the plain bias rounded to bf16 and to the two wide
+    forwards (``bias_siblings``); its plan, times beside ``grid_sample``'s,
+    and their sums over a serving forward."""
     import torch
 
-    rows, worst = [], 0.0
+    rows, worst, bad = [], 0.0, []
     for i, (name, B, G, ch, N, Wt, per_fwd) in enumerate(BIAS_SITES):
         table, k_pos, *_ = site_inputs(10 + i, B, G, ch, N, Wt)
         args = da._kernel_args(table, k_pos, H, W)
+        plan = fwd_plan(kernel_mod, "lattice_bias", B, G, N, Wt, H)
         out = kernel_mod.lattice_bias_cuda(*args, H, W)
         tb = table.bfloat16().float()
         ref32 = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
         ref = ref32.bfloat16()
+        same = bias_siblings(kernel_mod, out, ref, args, H)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
-        if not bool((err <= ref.float().abs() * BIAS_ULP).all()):
-            fail(f"lattice_bias {name}: max err {float(err.max())} > 1 bf16 ulp")
-        worst = max(worst, float(err.max()))
+        err = float((out.float() - ref.float()).abs().max())
+        if not all(same.values()):
+            bad.append(f"{name}: equal to {same}")
+        worst = max(worst, err)
         launch = lambda: kernel_mod.lattice_bias_cuda(*args, H, W)  # noqa: E731
         ms = queued_ms(launch, 20)
         ev = events_ms(launch, 20)
@@ -569,11 +575,13 @@ def check_bias(da, kernel_mod) -> dict:
         bound, by = bias_bounds(B, G, N, Wt, H, backward=False)
         rows.append(dict(site=name, ms=ms, events_ms=ev, plain_ms=plain,
                          library_ms=lib, bound_ms=bound, bound_by=by,
-                         per_forward=per_fwd, max_abs_err=float(err.max())))
-        print(f"lattice_bias {name}: max_abs_err {float(err.max()):.3g} "
-              f"kernel {ms:.4f} ms (events {ev:.4f}) plain {plain:.4f} ms "
-              f"grid_sample {lib:.4f} ms bound {bound:.4f} ms "
-              f"({by}) x{per_fwd}/forward", flush=True)
+                         per_forward=per_fwd, max_abs_err=err, plan=plan))
+        print(f"lattice_bias {name}: max_abs_err {err:.3g}, equal bit for "
+              f"bit to {same}; kernel {ms:.4f} ms (events {ev:.4f}) plain "
+              f"{plain:.4f} ms grid_sample {lib:.4f} ms bound {bound:.4f} ms "
+              f"({by}) x{per_fwd}/forward; {fwd_plan_text(plan)}", flush=True)
+    if bad:
+        fail(f"lattice_bias differs at {bad}")
     return dict(rows=rows, worst=worst)
 
 
@@ -766,22 +774,31 @@ def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
     forward kernel's output at those shapes against the plain bias too; two
     runs of the backward equal bit for bit at both scales and, at the
     init's, its dtable equal to ``lattice_bias_bwd_ordered`` under its plan.
+    The forward equals the plain bias rounded to bf16 bit for bit, and
+    ``lattice_bias`` equals the two wide forwards (``bias_siblings``).
     With ``wide``, the wide kernels (``lattice_route="wide"``) at the same
     shapes, the forward also against the whole-table one bit for bit; their
     launches per step are those of phase 16 (``fused_bwd``: the narrow
     sites take the fused site instead). Times at the init's scale, with
-    ``grid_sampler_2d_backward``'s as the library time."""
+    ``grid_sampler_2d_backward``'s as the library time; without ``wide``,
+    also the forward's (``fwd_rows``: a default-route step launches it at
+    the final pass and its recomputation, and at the history pass where the
+    head width is over 8), with ``F.grid_sample``'s."""
     import torch
+
+    from bevrender_tpu_torch.ops.kernels import lattice_bias as fwd_mod
 
     fwd_kernel = "lattice_bias_wide" if wide else None
     bwd_call = (kernel_mod.lattice_bias_wide_bwd_cuda if wide
                 else kernel_mod.lattice_bias_bwd_cuda)
     tag = "lattice_bias_wide_bwd" if wide else "lattice_bias_bwd"
-    rows, worst, worst_fwd, bad = [], 0.0, 0.0, []
+    rows, fwd_rows, worst, worst_fwd, bad = [], [], 0.0, 0.0, []
     for i, (name, B, G, ch, N, Wt, per_step) in enumerate(TRAIN_BIAS_SITES):
         if wide and ch <= 8:
             per_step = 0
         plan = bwd_plan(kernel_mod, wide, B, G, N, Wt, H)
+        fplan = (None if wide else
+                 fwd_plan(fwd_mod, "lattice_bias", B, G, N, Wt, H))
         for std in SITE_TABLE_STDS:
             table, k_pos, *_ = site_inputs(40 + i, B, G, ch, N, Wt, std)
             gen = torch.Generator(device="cuda").manual_seed(50 + i)
@@ -797,17 +814,17 @@ def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
             rdt, rdp = torch.autograd.grad(ref, (t2, p2), gout.float(),
                                            retain_graph=True)
             # the forward kernel at this training shape, as check_bias holds
-            # it at the serving shapes: within one bf16 ulp of the plain bias
-            with torch.no_grad():
-                rb = ref.bfloat16().float()
-                e_f = (fwd.float() - rb).abs()
-                ok_f = bool((e_f <= rb.abs() * BIAS_ULP).all())
-                if wide:
-                    ok_f = ok_f and torch.equal(
-                        fwd, da.lattice_bias(table, k_pos, H, W))
-                e_f = float(e_f.max())
-                del rb
+            # it at the serving shapes: the plain bias rounded to bf16, bit
+            # for bit
             args = da._kernel_args(table, k_pos, H, W)
+            with torch.no_grad():
+                rb = ref.bfloat16()
+                e_f = float((fwd.float() - rb.float()).abs().max())
+                same_f = (dict(plain=torch.equal(fwd, rb), lattice_bias=(
+                    torch.equal(fwd, da.lattice_bias(table, k_pos, H, W))))
+                    if wide else bias_siblings(fwd_mod, fwd, rb, args, H))
+                ok_f = all(same_f.values())
+                del rb
             timed = std == SITE_TABLE_STDS[0]
             with torch.no_grad():
                 same, mirror = check_bwd_order(
@@ -819,8 +836,7 @@ def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
                   and mirror is not False and bool(
                       torch.isfinite(dt).all() and torch.isfinite(dp).all()))
             print(f"{tag} {name} table std {std}: forward max "
-                  f"abs err {e_f:.3g} ({'within' if ok_f else 'BEYOND'} 1 "
-                  f"bf16 ulp{', equal to lattice_bias' if wide else ''}); "
+                  f"abs err {e_f:.3g}, equal bit for bit to {same_f}; "
                   f"dtable rel err {e_t:.3g}, dk_pos rel err "
                   f"{e_p:.3g}; two runs {'equal' if same else 'DIFFER'}"
                   + ("" if mirror is None else
@@ -841,24 +857,39 @@ def check_bias_bwd(da, kernel_mod, wide: bool = False) -> dict:
                 plain = queued_ms(lambda: torch.autograd.grad(
                     ref, (t2, p2), gf, retain_graph=True), 3)
                 lib = library_bias_ms(da, table, k_pos, gout, H,
-                                      ref.detach())["bwd_ms"]
+                                      ref.detach())
                 bound, by = bias_bounds(B, G, N, Wt, H, backward=True)
+                if not wide:
+                    ms_f = queued_ms(lambda: fwd_mod.lattice_bias_cuda(
+                        *args, H, W), 10)
+                    b_f = bias_bounds(B, G, N, Wt, H, backward=False)
+                    fwd_rows.append(dict(
+                        site=name, ms=ms_f, library_ms=lib["fwd_ms"],
+                        bound_ms=b_f[0], bound_by=b_f[1],
+                        per_step=per_step * (3 if ch > 8 else 2),
+                        max_abs_err=e_f, plan=fplan))
+                    print(f"lattice_bias {name}: kernel {ms_f:.4f} ms "
+                          f"grid_sample {lib['fwd_ms']:.4f} ms bound "
+                          f"{b_f[0]:.4f} ms ({b_f[1]}) "
+                          f"x{fwd_rows[-1]['per_step']}/step; "
+                          f"{fwd_plan_text(fplan)}", flush=True)
                 rows.append(dict(site=name, ms=ms, events_ms=ev,
-                                 plain_ms=plain, library_ms=lib,
+                                 plain_ms=plain, library_ms=lib["bwd_ms"],
                                  bound_ms=bound, bound_by=by,
                                  per_step=per_step, max_abs_err=err,
                                  rel_err_dtable=e_t, rel_err_dkpos=e_p,
                                  plan=plan))
                 print(f"{tag} {name}: kernel {ms:.4f} ms (events "
                       f"{ev:.4f}) plain {plain:.4f} ms "
-                      f"grid_sampler_2d_backward {lib:.4f} ms bound "
+                      f"grid_sampler_2d_backward {lib['bwd_ms']:.4f} ms bound "
                       f"{bound:.4f} ms ({by}) x{per_step}/step; "
                       f"{plan_text(plan)}", flush=True)
             del ref, rdt, rdp, dt, dp, args
         torch.cuda.empty_cache()
     if bad:
         fail(f"{tag} beyond tolerance at {bad}")
-    return dict(rows=rows, worst=worst, worst_fwd=worst_fwd)
+    return dict(rows=rows, worst=worst, worst_fwd=worst_fwd,
+                fwd_rows=fwd_rows)
 
 
 # The bias sites of the pyramid at B=2 (serving and training alike): (name,
@@ -998,22 +1029,23 @@ def plan_text(plan: dict) -> str:
             f"{plan['blocks']} blocks, {plan['blocks_per_sm']} an SM")
 
 
-def fwd_plan(fwd_mod, prefetch: bool, B, G, N, Wt, H) -> dict:
-    """A wide bias forward's plan at a shape (``lattice_bias.fwd_plan``:
-    ``lattice_bias_wide_prefetch`` where ``prefetch``, else
-    ``lattice_bias_wide``) and the blocks one SM holds of it (the library's
-    ``<kernel>_occupancy``,
+def fwd_plan(fwd_mod, kernel: str, B, G, N, Wt, H) -> dict:
+    """A bias forward's plan at a shape (``lattice_bias.fwd_plan`` of
+    ``kernel``: ``lattice_bias``, ``lattice_bias_wide`` or
+    ``lattice_bias_wide_prefetch``) and the blocks one SM holds of it (the
+    library's ``<kernel>_occupancy``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     import torch
 
     from bevrender_tpu_torch.ops.kernels._launch import blocks_per_sm
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    p = fwd_mod.fwd_plan(B, G, HPG, 2 * H - 1, Wt, N, H, H, sms, prefetch)
-    name = "lattice_bias_wide_prefetch" if prefetch else "lattice_bias_wide"
-    args = ((int(p.path == "whole"),) if prefetch else ()) + (H, p.smem)
+    p = fwd_mod.fwd_plan(B, G, HPG, 2 * H - 1, Wt, N, H, H, sms, kernel)
+    whole = (int(p.path == "whole"),)
+    args = {"lattice_bias": whole, "lattice_bias_wide": (),
+            "lattice_bias_wide_prefetch": whole}[kernel] + (H, p.smem)
     return dict(p._asdict(), blocks_per_sm=blocks_per_sm(
-        name, f"{name}_occupancy", *args))
+        kernel, f"{kernel}_occupancy", *args))
 
 
 def fwd_plan_text(plan: dict) -> str:
@@ -1021,6 +1053,29 @@ def fwd_plan_text(plan: dict) -> str:
             f"keys a head, {plan['strips']} strips of {plan['rows']} rows, "
             f"{plan['smem']} B, {plan['blocks']} blocks, "
             f"{plan['blocks_per_sm']} an SM")
+
+
+def bias_siblings(fwd_mod, out, ref, args, H) -> dict:
+    """``lattice_bias``'s output ``out`` against the plain bias (float32
+    lerps on the bf16 table) rounded to bf16, ``ref``, and against
+    ``lattice_bias_wide`` and ``lattice_bias_wide_prefetch`` on the same
+    inputs (``args``, from ``_kernel_args``): {name: equal bit for bit}."""
+    import torch
+
+    return {"plain": torch.equal(out, ref),
+            "lattice_bias_wide": torch.equal(
+                out, fwd_mod.lattice_bias_wide_cuda(*args[:7], H, H)),
+            "lattice_bias_wide_prefetch": torch.equal(
+                out, fwd_mod.lattice_bias_wide_prefetch_cuda(*args[:7], H, H))}
+
+
+def sum_text(rows: list, per: str) -> str:
+    """Kernel and ``grid_sample`` times summed over a forward or step's
+    launches of every shape in ``rows``."""
+    ms = sum(r["ms"] * r[per] for r in rows)
+    lib = sum(r["library_ms"] * r[per] for r in rows)
+    return (f"{ms:.4f} ms (grid_sample {lib:.4f}; "
+            f"{sum(r[per] for r in rows)} launches)")
 
 
 def check_bwd_order(bwd_mod, bwd_call, args, gout, H, plan, first):
@@ -1044,11 +1099,12 @@ def check_bwd_order(bwd_mod, bwd_call, args, gout, H, plan, first):
 
 
 def check_pyramid_bias(da, kernels) -> dict:
-    """The bias kernels at every pyramid shape, forward against the plain
-    version (one bf16 ulp) and backward against autograd through it
-    (BWD_SUM_TOL of the largest entry), at two table scales: the whole-table
-    kernels at every shape, the wide ones at BEV 56. Two runs of the
-    backward equal bit for bit, and at table std 0.01 its dtable equal to
+    """The bias kernels at every pyramid shape, forward equal bit for bit
+    to the plain version rounded to bf16 (``lattice_bias`` also to the two
+    wide forwards, ``bias_siblings``) and backward against autograd through
+    it (BWD_SUM_TOL of the largest entry), at two table scales: the
+    whole-table kernels at every shape, the wide ones at BEV 56. Two runs of
+    the backward equal bit for bit, and at table std 0.01 its dtable equal to
     ``lattice_bias_bwd_ordered`` under its plan. Times at table std 0.01,
     with ``grid_sample``'s forward and backward as the library times; the
     plain version's peak memory at SCA 56."""
@@ -1065,10 +1121,11 @@ def check_pyramid_bias(da, kernels) -> dict:
         if da.bias_route((G, HPG, 2 * H - 1, Wt), H, H) == "wide":
             routes = ["wide"]
         plans = {r: bwd_plan(bwd, r == "wide", B, G, N, Wt, H) for r in routes}
-        fplan = (fwd_plan(fwd, False, B, G, N, Wt, H) if "wide" in routes
-                 else None)
-        if fplan is not None:
-            print(f"pyramid lattice_bias_wide {name}: {fwd_plan_text(fplan)}",
+        fkern = {r: "lattice_bias_wide" if r == "wide" else "lattice_bias"
+                 for r in routes}
+        fplans = {r: fwd_plan(fwd, fkern[r], B, G, N, Wt, H) for r in routes}
+        for r in routes:
+            print(f"pyramid {fkern[r]} {name}: {fwd_plan_text(fplans[r])}",
                   flush=True)
         for std in SITE_TABLE_STDS:
             table, k_pos, gout = bias_inputs(70 + i, B, G, N, Wt, H, std)
@@ -1081,7 +1138,7 @@ def check_pyramid_bias(da, kernels) -> dict:
             rdt, rdp = torch.autograd.grad(ref, (t2, p2), gout.float(),
                                            retain_graph=True)
             plain_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-            rb = ref.detach().bfloat16().float()
+            rb = ref.detach().bfloat16()
             timed = std == SITE_TABLE_STDS[0]
             lib = (library_bias_ms(da, table, k_pos, gout, H, ref.detach())
                    if timed else None)
@@ -1113,15 +1170,18 @@ def check_pyramid_bias(da, kernels) -> dict:
                 _, _, wy3, f3 = da.lattice_geometry(table.shape, p3, H, H)
                 (dp,) = torch.autograd.grad((wy3, f3), p3, (dwy, df))
                 torch.cuda.synchronize()
-                e_f = (out.float() - rb).abs()
-                ok_f = bool((e_f <= rb.abs() * BIAS_ULP).all())
+                e_f = (out.float() - rb.float()).abs()
+                with torch.no_grad():
+                    same_f = (dict(plain=torch.equal(out, rb)) if wide else
+                              bias_siblings(fwd, out, rb, args, H))
+                ok_f = all(same_f.values())
                 e_t, e_p = rel_err(dt, rdt), rel_err(dp, rdp)
                 ok = (ok_f and e_t <= BWD_SUM_TOL and e_p <= BWD_SUM_TOL
                       and same and mirror is not False
                       and bool(torch.isfinite(dt).all()))
                 print(f"pyramid bias {route} {name} table std {std}: forward "
-                      f"max abs err {float(e_f.max()):.3g} "
-                      f"({'within' if ok_f else 'BEYOND'} 1 bf16 ulp); "
+                      f"max abs err {float(e_f.max()):.3g}, equal bit for "
+                      f"bit to {same_f}; "
                       f"dtable rel err {e_t:.3g}, dk_pos rel err {e_p:.3g}; "
                       f"two runs {'equal' if same else 'DIFFER'}"
                       + ("" if mirror is None else
@@ -1149,7 +1209,7 @@ def check_pyramid_bias(da, kernels) -> dict:
                 for kname, ms, plain, err, launches in (
                         (kf, ms_f, plain_f, float(e_f.max()),
                          dict(per_forward=per, per_step=per * 3 // 2,
-                              **(dict(plan=fplan) if wide else {}))),
+                              plan=fplans[route])),
                         (kb, ms_b, plain_b, float((dt - rdt).abs().max()),
                          dict(per_step=per // 2, plan=plans[route]))):
                     bound, by = bias_bounds(B, G, N, Wt, H, kname == kb)
@@ -1162,8 +1222,8 @@ def check_pyramid_bias(da, kernels) -> dict:
                           f"{plain:.4f} ms grid_sample {lib_ms:.4f} ms bound "
                           f"{bound:.4f} ms ({by}); launches {launches}"
                           + (f"; {plan_text(plans[route])}" if kname == kb
-                             else f"; {fwd_plan_text(fplan)}" if wide
-                             else ""), flush=True)
+                             else f"; {fwd_plan_text(fplans[route])}"),
+                          flush=True)
                 del out, dt, dwy, df, dp
             del ref, rdt, rdp, rb, t2, p2, table, k_pos, gout, args
             torch.cuda.empty_cache()
@@ -1564,8 +1624,7 @@ def check_prefetch_bias(da, kernels) -> tuple:
     bf16 ulp of the plain version. Each instance's plan (``fwd_plan``): its
     path and blocks an SM; the phase fails unless the prefetch kernel takes
     its whole-table path at every such shape. Times, at PREFETCH_BIAS_SITES
-    only (the prefetch kernel's as the sum of its kernel's and its pitched
-    table copy's), bounds, plain times, ``grid_sample``'s.
+    only, bounds, plain times, ``grid_sample``'s.
     Returns (prefetch record, wide record at the flagship's shapes)."""
     import torch
 
@@ -1575,8 +1634,8 @@ def check_prefetch_bias(da, kernels) -> tuple:
     sites = ([(*site, True) for site in PREFETCH_BIAS_SITES]
              + [(*site, 0, False) for site in FWD_CHECK_SITES])
     for i, (name, Hs, B, G, N, Wt, per_fwd, timed) in enumerate(sites):
-        plan_w = fwd_plan(fwd, False, B, G, N, Wt, Hs)
-        plan_p = fwd_plan(fwd, True, B, G, N, Wt, Hs)
+        plan_w = fwd_plan(fwd, "lattice_bias_wide", B, G, N, Wt, Hs)
+        plan_p = fwd_plan(fwd, "lattice_bias_wide_prefetch", B, G, N, Wt, Hs)
         print(f"lattice_bias_wide {name}: {fwd_plan_text(plan_w)}; "
               f"lattice_bias_wide_prefetch: {fwd_plan_text(plan_p)}",
               flush=True)
@@ -1625,7 +1684,6 @@ def check_prefetch_bias(da, kernels) -> tuple:
             tb = table.bfloat16().float()
             plain = queued_ms(lambda: da.lattice_bias_plain(
                 tb, k_pos, Hs, Hs, torch.float32), 3)
-            # one function, one bound: the pitched copy is #5's own staging
             b_w = b_p = bias_bounds(B, G, N, Wt, Hs, backward=False)
             common = dict(site=name, plain_ms=plain, library_ms=lib,
                           per_forward=per_fwd, max_abs_err=err)
@@ -2351,6 +2409,8 @@ def main() -> None:
     with torch.no_grad():
         bias = check_bias(da, kernels.lattice_bias)
         site = check_site(da, kernels.fused_site)
+    print(f"lattice_bias over a flagship serving forward: "
+          f"{sum_text(bias['rows'], 'per_forward')} [{card}]", flush=True)
 
     stamp("phase 5")
     # ---- reference: a small model through the kernels and through plain
@@ -2409,6 +2469,9 @@ def main() -> None:
     bias["worst"] = max(bias["worst"], bias_bwd["worst_fwd"])
     bias_bwd["per_step_ms"] = sum(r["ms"] * r["per_step"]
                                   for r in bias_bwd["rows"])
+    print(f"lattice_bias over a default-route flagship step: "
+          f"{sum_text(bias_bwd['fwd_rows'], 'per_step')} [{card}]",
+          flush=True)
     print(f"lattice_bias_bwd over a default-route flagship step: "
           f"{bias_bwd['per_step_ms']:.4f} ms (each shape's time x its "
           f"launches, {sum(r['per_step'] for r in bias_bwd['rows'])} "
@@ -2440,6 +2503,10 @@ def main() -> None:
           f"{pyr_none['step_ms']:.3f} ms/step (peak "
           f"{pyr_none['peak_gib']:.3f} GiB) [{card}]", flush=True)
     pyr_bias = check_pyramid_bias(da, kernels)
+    pyr_fwd = [r for r in pyr_bias["lattice_bias"]["rows"] if r["per_forward"]]
+    print(f"lattice_bias over a pyramid serving forward: "
+          f"{sum_text(pyr_fwd, 'per_forward')}; over a pyramid step: "
+          f"{sum_text(pyr_fwd, 'per_step')} [{card}]", flush=True)
     for k in ("lattice_bias_bwd", "lattice_bias_wide_bwd"):
         pyr_bias[k]["per_step_ms"] = sum(r["ms"] * r["per_step"]
                                          for r in pyr_bias[k]["rows"])
@@ -2586,6 +2653,7 @@ def main() -> None:
               launches_train_fused_bwd=train_fused["counts"]["lattice_bias"],
               launches_pyramid_serving=pyr_serve["counts"]["lattice_bias"],
               launches_pyramid_train=pyr_train["counts"]["lattice_bias"],
+              per_shape_train=bias_bwd["fwd_rows"],
               per_shape_pyramid=pyr_bias["lattice_bias"]["rows"]),
         entry("fused_site", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site.cu",

@@ -63,9 +63,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import importlib.util
 import json
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -507,36 +509,39 @@ def bias_bwd_times(cs, card: str, result: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def bias_fwd_plan(cs, fwd, lib, n_sm, prefetch, B, G, N, Wt, H) -> dict:
-    """Path, heads a block, key runs, row strips, shared memory, threads,
-    grid blocks, blocks an SM holds and waves of one bias forward launch
-    (``prefetch``: #5, else #4) at a site of BEV H x H with chip_smoke's
-    heads per group: ``lattice_bias.fwd_plan`` where the checkout has it,
-    else the launch of the kernels before it (#4: 8 keys a block; #5: the
-    window ring of ``bias_ring``, runs of whole stages). Blocks an SM from
-    the library's ``<kernel>_occupancy``; "-" where it does not export it."""
+def bias_fwd_plan(cs, fwd, lib, n_sm, kernel, B, G, N, Wt, H) -> dict:
+    """Path, key runs, row strips, shared memory, threads, grid blocks,
+    blocks an SM holds and waves of one launch of ``kernel``
+    (``lattice_bias`` #1, ``lattice_bias_wide`` #4 or
+    ``lattice_bias_wide_prefetch`` #5) at a site of BEV H x H with
+    chip_smoke's heads per group: ``lattice_bias.fwd_plan`` where the
+    checkout has it for that kernel, else the launch of the kernel before
+    the template (#1 then: a block of 256 threads a (group, batch, run of
+    keys) with the group's padded tables in shared memory, path "group").
+    Blocks an SM from the library's ``<kernel>_occupancy``; "-" where it
+    does not export it."""
+    from bevrender_tpu_torch.ops.kernels._launch import padded_width
+
     Hpg, Ht = cs.HPG, 2 * H - 1
-    if hasattr(fwd, "fwd_plan"):
-        p = fwd.fwd_plan(B, G, Hpg, Ht, Wt, N, H, H, n_sm, prefetch)
-        rec = dict(path=p.path, heads=1, runs=p.runs, keys=p.keys,
-                   strips=p.strips, smem=p.smem, threads=fwd.FWD_THREADS,
-                   blocks=p.blocks)
-    elif prefetch:
-        KS, _, _, smem = fwd.bias_ring(Wt, H, H)
-        stages = max(2, -(-B * G * Hpg * N // (KS * 8 * n_sm)))
-        kpb = KS * stages
-        rec = dict(path="ring", heads=1, keys=kpb, smem=smem, threads=256,
-                   blocks=-(-N // kpb) * G * Hpg * B)
+    new = hasattr(fwd, "FWD_KERNELS")
+    if new or kernel != "lattice_bias":
+        p = fwd.fwd_plan(B, G, Hpg, Ht, Wt, N, H, H, n_sm, kernel if new
+                         else kernel == "lattice_bias_wide_prefetch")
+        rec = dict(path=p.path, runs=p.runs, keys=p.keys, strips=p.strips,
+                   rows=p.rows, smem=p.smem,
+                   threads=fwd.FWD_THREADS, blocks=p.blocks)
     else:
-        rec = dict(path="l1", heads=Hpg, keys=8, smem=0, threads=256,
-                   blocks=-(-N // 8) * G * B)
-    name = ("lattice_bias_wide_prefetch" if prefetch
-            else "lattice_bias_wide")
+        kpb = max(1, min(64, -(-B * G * N // (2 * n_sm))))
+        rec = dict(path="group", runs=-(-N // kpb), keys=kpb, strips=None,
+                   rows=None, smem=Hpg * (Ht + 8) * padded_width(Wt) * 2,
+                   threads=256, blocks=-(-N // kpb) * G * B)
     rec.update(per_sm=None, waves=None)
-    occupancy = getattr(lib, f"{name}_occupancy", None)
+    occupancy = getattr(lib, f"{kernel}_occupancy", None)
     if occupancy is not None:
-        args = ((int(rec["path"] == "whole"),) if prefetch else ()) + (
-            H, rec["smem"])
+        whole = (int(rec["path"] == "whole"),)
+        args = {"lattice_bias": whole,
+                "lattice_bias_wide": (),
+                "lattice_bias_wide_prefetch": whole}[kernel] + (H, rec["smem"])
         rec["per_sm"] = occupancy(*args)
         if rec["per_sm"] <= 0:
             raise SystemExit(f"occupancy query failed: {rec['per_sm']}")
@@ -558,14 +563,121 @@ def bias_fwd_shapes(cs) -> list:
     return shapes
 
 
-def bias_fwd_times(cs, card: str, result: dict) -> None:
-    """#4 (``lattice_bias_wide``) and #5 (``lattice_bias_wide_prefetch``,
-    its pitched table copy included) at phases 12 and 18's shapes
+# where #1's launches of a shape are summed: a flagship serving forward
+# (B=4), a flagship training step on the default route, a pyramid serving
+# forward and a pyramid training step
+BIAS_SUMS = ("flagship forward", "flagship step", "pyramid forward",
+             "pyramid step")
+
+
+def bias_shapes(cs) -> list:
+    """(name, H, batch, G, N, table width, seed, {sum: launches}) of every
+    shape #1 (``lattice_bias``) takes: phase 4's (the flagship's serving
+    sites), phase 8's (its training step: the final pass and its
+    recomputation at every site, the history pass at the head widths over
+    8, which the fused site does not take) and phase 12's (the pyramid's,
+    but SCA 56, which takes #4; a step runs 1.5 forwards)."""
+    shapes = [(f"serve_{name}", cs.H, B, G, N, Wt, 200 + i,
+               {"flagship forward": per})
+              for i, (name, B, G, ch, N, Wt, per) in enumerate(cs.BIAS_SITES)]
+    shapes += [(f"train_{name}", cs.H, B, G, N, Wt, 210 + i,
+                {"flagship step": per * (3 if ch > 8 else 2)})
+               for i, (name, B, G, ch, N, Wt, per) in enumerate(
+                   cs.TRAIN_BIAS_SITES)]
+    shapes += [(f"pyramid_{name}", H, B, G, N, Wt, 220 + i,
+                {"pyramid forward": cs.PYR_BIAS_PER_FORWARD[name],
+                 "pyramid step": cs.PYR_BIAS_PER_FORWARD[name] * 3 // 2})
+               for i, (name, H, B, G, N, Wt) in enumerate(cs.PYR_BIAS_SITES)
+               if name != "sca56_g1_n7840"]
+    return shapes
+
+
+# a kernel of the card's launch floor (an empty block) and store floor (the
+# grid writing a constant over the output, 16 bytes a thread, each block a
+# contiguous share), for any grid, block and shared memory
+FLOORS_CU = r"""
+#include <cuda_runtime.h>
+
+__global__ void empty_kernel() {}
+
+__global__ void store_kernel(uint4* __restrict__ out, long long n) {
+  const long long per = (n + gridDim.x - 1) / gridDim.x;
+  const long long end = min(n, (blockIdx.x + 1) * per);
+  for (long long i = blockIdx.x * per + threadIdx.x; i < end; i += blockDim.x)
+    out[i] = make_uint4(0x3c003c00u, 0x3c003c00u, 0x3c003c00u, 0x3c003c00u);
+}
+
+extern "C" int floor_launch(int store, void* out, long long bytes, int blocks,
+                            int threads, int smem, void* stream) {
+  const void* k = store ? (const void*)store_kernel : (const void*)empty_kernel;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (store)
+    store_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        (uint4*)out, bytes / 16);
+  else
+    empty_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def floors_lib():
+    """FLOORS_CU built with the kernels' nvcc flags under build/, loaded."""
+    import ctypes
+    import hashlib
+
+    from bevrender_tpu_torch.ops.kernels import build
+
+    h = hashlib.sha256((FLOORS_CU + " ".join(build.NVCC_FLAGS)).encode())
+    out = REPO / "build" / "bias_fwd_floors" / h.hexdigest()[:16]
+    lib = out / "libfloors.so"
+    if not lib.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "floors.cu").write_text(FLOORS_CU)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                        str(out / "floors.cu")], check=True,
+                       capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib)).floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def floor_ms(best, fn, store: bool, out, blocks, threads, smem) -> float:
+    """The launch floor (an empty kernel) or the store floor of a grid of
+    ``blocks`` x ``threads`` with ``smem`` bytes of shared memory, writing
+    the bytes of ``out``."""
+    import torch
+
+    def launch():
+        rc = fn(int(store), out.data_ptr(), out.numel() * out.element_size(),
+                blocks, threads, smem,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"floor_launch: CUDA error {rc}")
+
+    return best(launch)
+
+
+def bias_fwd_times(cs, card: str, result: dict, floors: bool,
+                   layouts: bool) -> None:
+    """#1 (``lattice_bias``) at every shape it takes (``bias_shapes``) and
+    #4 (``lattice_bias_wide``), #5 (``lattice_bias_wide_prefetch``; before
+    it staged from the raw table, its pitched table copy included) at
+    phases 12 and 18's shapes
     (``bias_fwd_shapes``), each with its plan (``bias_fwd_plan``), and
     ``F.grid_sample`` of the same inputs (``chip_smoke.grid_sample_args``:
     bilinear, zero padding, align_corners, one call for every head) as the
     library time; then each kernel summed over the launches of one forward
-    of its route."""
+    (and, for #1, one training step) of its route. With ``floors``, beside
+    #1 the launch floor and the store floor of its grid (``floor_ms``);
+    with ``layouts``, #1 on both of its paths (``lattice_bias_cuda(...,
+    path=...)``) where the checkout has them."""
     import torch
 
     from bevrender_tpu_torch.ops import deform_attn as da
@@ -573,24 +685,65 @@ def bias_fwd_times(cs, card: str, result: dict) -> None:
 
     fwd = __import__("bevrender_tpu_torch.ops.kernels.lattice_bias",
                      fromlist=["x"])
-    libs = {p: build.load_library("lattice_bias_wide_prefetch" if p
-                                  else "lattice_bias_wide")
-            for p in (False, True)}
+    names = ("lattice_bias", "lattice_bias_wide", "lattice_bias_wide_prefetch")
+    libs = {k: build.load_library(k) for k in names}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     best = lambda fn: min(cs.queued_ms(fn, 5) for _ in range(3))  # noqa: E731
+    floor_fn = floors_lib() if floors else None
     sums = collections.defaultdict(float)
+
+    def show(name, rec, per):
+        print(f"bias_fwd {name} (x{per}): " + "; ".join(
+            f"{k} " + (", ".join(f"{a} {b:.4f}" if isinstance(b, float)
+                                 else f"{a} {b if b is not None else '-'}"
+                                 for a, b in v.items())
+                       if isinstance(v, dict) else f"{v:.4f}")
+            for k, v in rec.items()) + f" [{card}]", flush=True)
+
+    for name, H, B, G, N, Wt, seed, per in bias_shapes(cs):
+        table, k_pos, _ = cs.bias_inputs(seed, B, G, N, Wt, H,
+                                         cs.SITE_TABLE_STDS[0])
+        args = da._kernel_args(table, k_pos, H, H)
+        plan = bias_fwd_plan(cs, fwd, libs["lattice_bias"], n_sm,
+                             "lattice_bias", B, G, N, Wt, H)
+        rec = {"bias": dict(plan, ms=best(
+            lambda: fwd.lattice_bias_cuda(*args, H, H)))}
+        if floors:
+            out = fwd.lattice_bias_cuda(*args, H, H)
+            grid = (plan["blocks"], plan["threads"], plan["smem"])
+            rec["bias"]["launch_floor"] = floor_ms(best, floor_fn, False, out,
+                                                   *grid)
+            rec["bias"]["store_floor"] = floor_ms(best, floor_fn, True, out,
+                                                  *grid)
+        if layouts and hasattr(fwd, "fwd_layout"):
+            rec["layouts"] = {}
+            for path in ("l1", "whole"):
+                rec["layouts"][path] = best(
+                    lambda: fwd.lattice_bias_cuda(*args, H, H, path=path))
+        inp, grid, _ = cs.grid_sample_args(da, table, k_pos, None, H)
+        rec["library_ms"] = best(lambda: torch.nn.functional.grid_sample(
+            inp, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        for k, n in per.items():
+            sums[f"bias {k}"] += n * rec["bias"]["ms"]
+            sums[f"library {k}"] += n * rec["library_ms"]
+        result["ms"][name] = rec
+        show(name, rec, per)
+        del table, k_pos, args, inp, grid
+        torch.cuda.empty_cache()
+
     for name, H, B, G, N, Wt, seed, per4, per5 in bias_fwd_shapes(cs):
         table, k_pos, _ = cs.bias_inputs(seed, B, G, N, Wt, H,
                                          cs.SITE_TABLE_STDS[0])
         args = da._kernel_args(table, k_pos, H, H)[:7]
         rec = {}
         model = "pyramid" if H == 56 else "flagship"
-        for prefetch, per in ((False, per4), (True, per5)):
-            call = (fwd.lattice_bias_wide_prefetch_cuda if prefetch
-                    else fwd.lattice_bias_wide_cuda)
-            tag = "prefetch" if prefetch else "wide"
-            rec[tag] = dict(bias_fwd_plan(cs, fwd, libs[prefetch], n_sm,
-                                          prefetch, B, G, N, Wt, H),
+        for kernel, tag, per in (("lattice_bias_wide", "wide", per4),
+                                 ("lattice_bias_wide_prefetch", "prefetch",
+                                  per5)):
+            call = getattr(fwd, f"{kernel}_cuda")
+            rec[tag] = dict(bias_fwd_plan(cs, fwd, libs[kernel], n_sm,
+                                          kernel, B, G, N, Wt, H),
                             ms=best(lambda: call(*args, H, H)))
             sums[f"{tag} {model}"] += per * rec[tag]["ms"]
         inp, grid, _ = cs.grid_sample_args(da, table, k_pos, None, H)
@@ -598,19 +751,14 @@ def bias_fwd_times(cs, card: str, result: dict) -> None:
             inp, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True))
         sums[f"library {model}"] += per4 * rec["library_ms"]
-        result["ms"][name] = rec
-        print(f"bias_fwd {name} (x{per4} a forward): " + "; ".join(
-            f"{k} " + (", ".join(f"{a} {b:.4f}" if isinstance(b, float)
-                                 else f"{a} {b if b is not None else '-'}"
-                                 for a, b in v.items())
-                       if isinstance(v, dict) else f"{v:.4f}")
-            for k, v in rec.items()) + f" [{card}]", flush=True)
+        result["ms"][f"wide_{name}"] = rec
+        show(f"wide_{name}", rec, per4)
         del table, k_pos, args, inp, grid
         torch.cuda.empty_cache()
     result["forward_sums"] = dict(sums)
-    print("bias_fwd summed over a forward's launches (the flagship on "
-          "\"wide\", the pyramid's SCA 56): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
+    print("bias_fwd summed over the launches of a forward or step (#1 on its "
+          "routes; #4 and #5 on the flagship's \"wide\" and the pyramid's SCA "
+          "56): " + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
           + f" [{card}]", flush=True)
 
 
@@ -627,6 +775,92 @@ def fwd_sass(lib: Path) -> dict:
             for name, ops in sass_functions(lib).items()}
 
 
+# what each copy changes in the bias forwards, (file, text, new text):
+# "no_staging" skips the staging of the table in shared memory (the
+# stage_padded call of #1 before the template, or the template's stage_raw
+# call), so the kernel reads whatever shared memory holds; "no_row_test"
+# drops the test of a strip's first x-lerp (always true) that the staged
+# W > 32 instance keeps, which changes how the compiler unrolls its row loop
+COPIES = {"no_staging": (
+    ("lattice_bias.cu", "lattice::stage_padded(",
+     "if (0) lattice::stage_padded("),
+    ("bias_fwd_rows.cuh", "t = stage_raw(",
+     "t = tab;\n    if (0) stage_raw(")),
+    "no_row_test": (
+    ("bias_fwd_rows.cuh",
+     "if (!STAGED || P < 32 || iy0 < iy1) xlerp(y0 + iy0, up);",
+     "xlerp(y0 + iy0, up);"),)}
+
+
+@functools.lru_cache(maxsize=None)
+def make_copy(root: Path, copy: str) -> Path:
+    """A copy of ``root``'s package under the git-ignored build/ with the
+    edits of COPIES[copy], for timing only; made once a run of this
+    script."""
+    dst = REPO / "build" / "bias_fwd_copies" / f"{root.name}_{copy}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(root / "bevrender_tpu_torch", dst / "bevrender_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = dst / "bevrender_tpu_torch" / "ops" / "kernels" / "csrc"
+    edited = 0
+    for name, old, new in COPIES[copy]:
+        text = (csrc / name).read_text()
+        if old in text:
+            (csrc / name).write_text(text.replace(old, new))
+            edited += text.count(old)
+    if edited != 1:
+        raise SystemExit(f"{copy}: {edited} calls edited in {root}, not 1")
+    return dst
+
+
+def run_in_turns(specs: list, argv: list) -> None:
+    """Run this script once for each of ``specs`` (ROOT or ROOT:COPY), in
+    that order, each in its own process, then print for each shape and
+    kernel the least time of each spec's runs, and the most of them (the
+    spread between runs): parent, tree, tree, parent compares two builds on
+    one card."""
+    runs = []
+    for spec in specs:
+        root, _, copy = spec.partition(":")
+        root = Path(root).resolve()
+        if copy:
+            root = make_copy(root, copy)
+        out = subprocess.run([sys.executable, __file__, *argv, "--root",
+                              str(root)], capture_output=True, text=True)
+        sys.stdout.write(out.stdout)
+        sys.stderr.write(out.stderr[-4000:])
+        if out.returncode:
+            raise SystemExit(f"{spec}: exit {out.returncode}")
+        runs.append((spec, json.loads(out.stdout.strip().splitlines()[-1])))
+    best = collections.defaultdict(dict)
+    most = collections.defaultdict(dict)
+    for spec, res in runs:
+        for shape, rec in res["ms"].items():
+            for kernel, v in rec.items():
+                vals = v if kernel == "layouts" else {"ms": v} if isinstance(
+                    v, float) else {k: x for k, x in v.items()
+                                    if k in ("ms", "launch_floor",
+                                             "store_floor")}
+                for k, x in vals.items():
+                    key = (shape, kernel, k)
+                    best[spec][key] = min(x, best[spec].get(key, x))
+                    most[spec][key] = max(x, most[spec].get(key, x))
+        for k, x in res.get("forward_sums", {}).items():
+            key = ("sum", k, "ms")
+            best[spec][key] = min(x, best[spec].get(key, x))
+            most[spec][key] = max(x, most[spec].get(key, x))
+    summary = {spec: {" ".join(k): v for k, v in b.items()}
+               for spec, b in best.items()}
+    spread = {spec: {" ".join(k): v for k, v in b.items()}
+              for spec, b in most.items()}
+    for spec, b in summary.items():
+        print(f"least (most) of {spec}: " + "; ".join(
+            f"{k} {v:.4f} ({spread[spec][k]:.4f})" for k, v in b.items()),
+            flush=True)
+    print(json.dumps({"card": runs[0][1]["card"], "order": specs,
+                      "least": summary, "most": spread}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel",
@@ -635,7 +869,20 @@ def main() -> None:
                     default="site_bwd")
     ap.add_argument("--root", type=Path, default=REPO)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--floors", action="store_true",
+                    help="bias_fwd: #1's launch and store floors")
+    ap.add_argument("--layouts", action="store_true",
+                    help="bias_fwd: #1 on both of its paths")
+    ap.add_argument("--runs", default="",
+                    help="comma-separated ROOT or ROOT:COPY (COPIES), run "
+                         "in this order, each in its own process")
     args = ap.parse_args()
+    if args.runs:
+        argv = ["--kernel", args.kernel] + [
+            f"--{f}" for f in ("sass", "floors", "layouts")
+            if getattr(args, f)]
+        run_in_turns(args.runs.split(","), argv)
+        return
     root = args.root.resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -660,7 +907,8 @@ def main() -> None:
                    fold_heads=("fused_site_fold_heads",),
                    prefetch=("fused_site_wide_prefetch",),
                    bias_bwd=("lattice_bias_bwd", "lattice_bias_wide_bwd"),
-                   bias_fwd=("lattice_bias_wide", "lattice_bias_wide_prefetch"),
+                   bias_fwd=("lattice_bias", "lattice_bias_wide",
+                             "lattice_bias_wide_prefetch"),
                    )[args.kernel]
     started = {s: build._start(s) for s in sources}
     logs = {s: build._finish(s, *started[s]) for s in sources}
@@ -703,7 +951,9 @@ def main() -> None:
     {"site_bwd": site_bwd_times, "windows_bwd": windows_bwd_times,
      "fold_heads": fold_heads_times, "prefetch": prefetch_times,
      "bias_bwd": bias_bwd_times,
-     "bias_fwd": bias_fwd_times}[args.kernel](cs, card, result)
+     "bias_fwd": functools.partial(bias_fwd_times, floors=args.floors,
+                                   layouts=args.layouts)
+     }[args.kernel](cs, card, result)
     print(json.dumps(result), flush=True)
 
 

@@ -427,25 +427,32 @@ def test_prefetch_rings_are_sized_from_the_shapes():
     """Each prefetch kernel's staging comes from the shapes: at the
     flagship's SCA (55 x 279, W = 28) the fused site's ring stage is 32 keys
     x 7 rows x 152 columns, and the bias stages one head's padded table of
-    63 x 288 bf16 a block (``lattice_bias.fwd_plan``, path "whole"); at the
-    pyramid's SCA 56 (111 x 559) the bias's table is 119 x 568. A bias table
-    whose padded head overflows a block takes path "l1" (no shared
+    63 x 287 bf16 a block (``lattice_bias.fwd_plan``, path "whole"; it may
+    start up to 7 entries in, and is rounded up to 16 bytes); at the
+    pyramid's SCA 56 (111 x 559) the bias's table is 119 x 567. A bias
+    table whose padded head overflows a block takes path "l1" (no shared
     memory); a fused-site table whose ring
     overflows shared memory, and a bias of W over 64, are refused with the
     numbers."""
     R, CW, Xs, smem = fused_site_wide.prefetch_ring(55, 279, 28, 28, 8)
     assert (R, CW, smem) == (7, 152, 2 * 32 * 7 * 152 * 2 + 32 * 19 * 4)
     assert Xs % 8 == 0 and Xs >= 279 + 4 + 146
-    p = lattice_bias.fwd_plan(4, 2, 2, 55, 279, 1960, 28, 28, 132, True)
-    assert (p.path, p.pitch, p.smem) == ("whole", 288, 63 * 288 * 2)
-    p = lattice_bias.fwd_plan(2, 1, 2, 111, 559, 7840, 56, 56, 132, True)
-    assert (p.path, p.pitch, p.smem) == ("whole", 568, 119 * 568 * 2)
-    p = lattice_bias.fwd_plan(2, 1, 2, 111, 1119, 200, 56, 56, 132, True)
+    p = lattice_bias.fwd_plan(4, 2, 2, 55, 279, 1960, 28, 28, 132,
+                              "lattice_bias_wide_prefetch")
+    assert (p.path, p.pitch, p.smem) == (
+        "whole", 287, -(-(63 * 287 * 2 + 14) // 16) * 16)
+    p = lattice_bias.fwd_plan(2, 1, 2, 111, 559, 7840, 56, 56, 132,
+                              "lattice_bias_wide_prefetch")
+    assert (p.path, p.pitch, p.smem) == (
+        "whole", 567, -(-(119 * 567 * 2 + 14) // 16) * 16)
+    p = lattice_bias.fwd_plan(2, 1, 2, 111, 1119, 200, 56, 56, 132,
+                              "lattice_bias_wide_prefetch")
     assert (p.path, p.pitch, p.smem) == ("l1", 0, 0)
     with pytest.raises(ValueError, match="shared memory"):
         fused_site_wide.prefetch_ring(399, 1999, 200, 200, 4)
     with pytest.raises(ValueError, match="1 to 64"):
-        lattice_bias.fwd_plan(1, 1, 2, 399, 1999, 10, 200, 200, 132, True)
+        lattice_bias.fwd_plan(1, 1, 2, 399, 1999, 10, 200, 200, 132,
+                              "lattice_bias_wide_prefetch")
 
 
 # ---- the prefetch site's two paths ------------------------------------------
