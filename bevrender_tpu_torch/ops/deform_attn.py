@@ -346,7 +346,8 @@ def site_route(table_shape, H: int, W: int, ch: int) -> str:
     bf16 table and the key tile (K and V in float32, three words of
     geometry a key) fit in the shared memory of one block, as
     csrc/fused_site.cu lays them out; "wide" (``fused_site_wide``, which
-    reads the raw table through L1) when not. Every shipped site is whole:
+    then reads the raw table through L1, its path "raw") when not. Every
+    shipped site is whole:
     the largest table, the pyramid's SCA at BEV 56, needs 202 KB; a narrow
     head at BEV 64 with depth 5 (127 x 639) would need 262 KB."""
     _, _, Ht, Wt = table_shape

@@ -10,6 +10,10 @@ from bevrender_tpu_torch.ops.kernels.build import load_library
 
 # shared memory one block may use on an H100 (227 KB, opted in above 48 KB)
 SMEM_PER_BLOCK = 232448
+# shared memory of one H100 SM (228 KB), of which each resident block also
+# takes 1 KB
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
 # rows (above and below) and columns (on the left) of zero padding around an
 # rpe table in the kernels (PAD in csrc/lattice_common.cuh)
 PAD = 4
@@ -90,6 +94,11 @@ def _fn(lib_name: str, fn_name: str, args):
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
+
+
+def sm_count(device) -> int:
+    """SMs of the card that holds ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def blocks_per_sm(lib_name: str, fn_name: str, *args: int) -> int:

@@ -1,20 +1,20 @@
-// Shared pieces of the fused-site forward kernels (fused_site.cu,
-// fused_site_wide.cu, fused_site_wide_prefetch.cu, and the folded
-// fused_site_fold_rows.cu and fused_site_fold_heads.cu, some of whose
-// threads carry every head of their query): one thread per query, the keys
-// in tiles of KT staged in shared memory, an online softmax in base 2. The
-// kernels differ only in where a pair's bias comes from and how the tile is
-// staged.
+// Shared pieces of the fused-site forward kernels (fused_site.cu, the
+// whole-table template site_whole.cuh and its instances, and the window
+// rings of fused_site_wide_prefetch.cu and fused_site_fold_heads.cu, whose
+// folded ring carries every head of a query in one thread): one thread per
+// query, the keys in tiles of KT staged in shared memory, an online softmax
+// in base 2. The kernels differ only in where a pair's bias comes from and
+// how the tile is staged.
 //
 // Every float32 step is written with an explicit rounding (fmaf for q . k
 // and for scale * qk + bias, then one rounded multiply by log2 e; the
 // rescale and sum of l and O), so the compiler contracts nothing,
 // ops/deform_attn.py::site_consumer_online repeats it in PyTorch, and the
-// three kernels give the same output and logsumexp bit for bit. p = exp2(s
+// kernels give the same output and logsumexp bit for bit. p = exp2(s
 // - running max) is rounded to bf16 before it multiplies V, as the Pallas
-// kernels round it; l sums the unrounded p. The folded kernels run the same
-// steps per head (`scores_heads`, `update`, `update_rows`), so they equal
-// the others too.
+// kernels round it; l sums the unrounded p. The folded ring runs the same
+// steps per head (`scores_heads`, `update`), and the template `update_rows`,
+// so they equal the others too.
 #pragma once
 
 #include "lattice_common.cuh"

@@ -1,35 +1,47 @@
 // The whole-table fused site, shared by the head-folded site
-// (fused_site_fold_heads.cu, HB = HPG heads a block) and the window-prefetch
-// site (fused_site_wide_prefetch.cu, one head a block):
+// (fused_site_fold_heads.cu, HB = HPG heads a block), the window-prefetch
+// site (fused_site_wide_prefetch.cu, one head a block), the wide site and
+// its logsumexp instance (fused_site_wide.cu) and the row-folded site
+// (fused_site_fold_rows.cu):
 //   out[b, g, h, m, :] = sum_n softmax_n(bias[h, n, m] + scale q[h, m] . k[h, n]) v[h, n]
 //
 // A block owns HB heads of one (b, g) cell (heads hb HB .. hb HB + HB - 1 of
 // its Hpg) and a strip of S queries, one thread per (head, query): HB x S
 // threads, head h of the block in threads h S .. h S + S - 1. Block row y =
-// (b G + g) Hpg / HB + hb; the key geometry is the cell's, (b G + g). The
-// block stages its heads' zero-padded tables once, from the raw table
-// (lattice_common.cuh::stage_padded: (Ht + 2 PAD) x Xp bf16 a head, 63 x 429
-// x 2 B = 54 KB at the flagship's SCA), so a pair's bias is four reads of
-// shared memory with no per-key copy and no scratch. Only the key tile
-// moves: its K and V rows of every head of the block in bf16 and its
-// geometry (ys, ms, wy, f), in two stages filled by cp.async while the block
-// scores the other, so each tile of KT keys costs one __syncthreads. Per
-// thread the work is fused_site.cu's: score every key of the tile
-// (site_common.cuh::score) and fold the tile into the one state
-// (update_rows), so the output equals fused_site.cu's and
-// fused_site_wide.cu's bit for bit and the logsumexp fused_site.cu's lse
+// (b G + g) Hpg / HB + hb; the key geometry is the cell's, (b G + g). A
+// pair's bias comes from one of two table sources (Source):
+// - WHOLE: the block stages its heads' zero-padded tables once, from the raw
+//   table (lattice_common.cuh::stage_padded: (Ht + 2 PAD) x Xp bf16 a head,
+//   63 x 429 x 2 B = 54 KB at the flagship's SCA), so a pair's bias is four
+//   reads of shared memory with no per-key copy and no scratch;
+// - RAW: each thread reads the four entries of a pair from its head's raw
+//   table in device memory through L1, with bounds checks in place of the
+//   padding (lattice_common.cuh::bias_at_raw), so a table of any size
+//   launches; the block's shared memory is the key stages alone.
+// Only the key tile moves: its K and V rows of every head of the block in
+// bf16 and its geometry (ys, ms, wy, f), in two stages filled by cp.async
+// while the block scores the other, so each tile of KT keys costs one
+// __syncthreads. Per thread the work is fused_site.cu's: score every key of
+// the tile (site_common.cuh::score) and fold the tile into the one state
+// (update_rows). bias_at on the staged table and bias_at_raw read the same
+// four entries with the same arithmetic, so on either source the output
+// equals fused_site.cu's bit for bit and the logsumexp fused_site.cu's lse
 // instance.
 //
 // Bound: operations per (query, key) pair, as fused_site.cu (the bias's
-// three lerps from four shared-memory reads, the exp, 2 ch multiply-adds).
-// What this layout buys on the H100 is occupancy: a block's shared memory is
-// its tables and 2 x (2 HB KT CH x 2 + 4 KT x 4) bytes of key stages, where
-// a window ring of the same tile took 136 KB at the flagship's SCA and left
-// one 128-thread block an SM.
+// three lerps from four reads, the exp, 2 ch multiply-adds). What this
+// layout buys on the H100 is occupancy: a block's shared memory is its
+// tables (none on RAW) and 2 x (2 HB KT CH x 2 + 4 KT x 4) bytes of key
+// stages, where a window ring of the same tile took 136 KB at the
+// flagship's SCA and left one 128-thread block an SM.
 //
-// The shared memory and the launch check come from the wrappers
-// (ops/kernels/fused_site_fold.py::whole_smem, heads_plan;
-// fused_site_wide.py::prefetch_plan), which pick this path from the shapes.
+// Each source file instantiates the body (`site_block`) in a kernel of its
+// own name and launch bounds; fused_site_whole_kernel is the instance of
+// fused_site_wide_prefetch.cu and fused_site_fold_heads.cu. The shared
+// memory, the strip and the launch check come from the wrappers
+// (ops/kernels/fused_site_fold.py::whole_smem, heads_plan, rows_plan;
+// fused_site_wide.py::prefetch_plan, wide_plan), which pick the path from
+// the shapes.
 #pragma once
 
 #include "lattice_ring.cuh"
@@ -38,6 +50,12 @@
 namespace site_whole {
 
 using site::KT;
+
+// Where a pair's bias comes from
+enum Source : int {
+  WHOLE = 0,  // the block's heads' padded tables, staged once in shared memory
+  RAW = 1,    // the raw table in device memory, through L1
+};
 
 // One stage of the key pipeline: the block's heads' K rows, then V rows, of
 // a key tile in bf16, (HB, KT, CH) each, then the tile's ys, ms, wy and f
@@ -48,11 +66,13 @@ struct Stage {
   static constexpr int BYTES = 2 * KV * 2 + 4 * KT * 4;  // a multiple of 16
 };
 
-// Shared memory of a block: two stages, then the HB padded tables.
-template <int CH, int HB>
+// Shared memory of a block: two stages, then on WHOLE the HB padded tables.
+template <int CH, int HB, int SRC>
 size_t smem_bytes(int Ht, int Xp) {
   return (size_t)2 * Stage<CH, HB>::BYTES +
-         (size_t)HB * (Ht + 2 * lattice::PAD) * Xp * sizeof(__nv_bfloat16);
+         (SRC == WHOLE ? (size_t)HB * (Ht + 2 * lattice::PAD) * Xp *
+                             sizeof(__nv_bfloat16)
+                       : 0);
 }
 
 // CH consecutive bf16 in shared memory (2 CH-byte aligned) as floats.
@@ -75,23 +95,33 @@ __device__ __forceinline__ void load_row(float (&x)[CH],
   }
 }
 
-// MAXT threads a block at most, MINB blocks an SM asked of the compiler.
-template <int CH, int HB, int MAXT, int MINB>
-__global__ void __launch_bounds__(MAXT, MINB) fused_site_whole_kernel(
-    const __nv_bfloat16* __restrict__ table,  // (G, Hpg, Ht, Wt)
-    const int* __restrict__ ys, const int* __restrict__ ms,  // (B, G, N)
-    const float* __restrict__ wy, const float* __restrict__ fx,  // (B, G, N)
-    const int* __restrict__ u0, const float* __restrict__ gcomb,  // (W,)
-    const __nv_bfloat16* __restrict__ q,  // (B, G, Hpg, M, CH)
-    const __nv_bfloat16* __restrict__ k,  // (B, G, Hpg, N, CH)
-    const __nv_bfloat16* __restrict__ v,  // (B, G, Hpg, N, CH)
-    float* __restrict__ out,              // (B, G, Hpg, M, CH)
-    float* __restrict__ lse,              // (B, G, Hpg, M) or null
-    int G, int Hpg, int Ht, int Wt, int Xp, int N, int H, int W, int S,
-    float scale) {
+// The parameters of every kernel of the template, and their names as the
+// arguments of `site_block`. The pointers are __restrict__, as the kernels'
+// own parameters, so the compiler may move their loads past the block's
+// shared-memory stores.
+#define SITE_WHOLE_PARAMS                                                    \
+  const __nv_bfloat16 *__restrict__ table, /* (G, Hpg, Ht, Wt) */           \
+      const int *__restrict__ ys, const int *__restrict__ ms, /* (B, G, N) */ \
+      const float *__restrict__ wy, const float *__restrict__ fx,            \
+      const int *__restrict__ u0, const float *__restrict__ gcomb, /* (W,) */ \
+      const __nv_bfloat16 *__restrict__ q,   /* (B, G, Hpg, M, CH) */       \
+      const __nv_bfloat16 *__restrict__ k,   /* (B, G, Hpg, N, CH) */       \
+      const __nv_bfloat16 *__restrict__ v,   /* (B, G, Hpg, N, CH) */       \
+      float *__restrict__ out,               /* (B, G, Hpg, M, CH) */       \
+      float *__restrict__ lse,               /* (B, G, Hpg, M) or null */   \
+      int G, int Hpg, int Ht, int Wt, int Xp, int N, int H, int W, int S,    \
+      float scale
+#define SITE_WHOLE_ARGS                                                     \
+  table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, lse, G, Hpg, Ht, Wt, Xp, N, \
+      H, W, S, scale
+
+// The work of one block (the layout above), in a kernel of HB S threads; Xp
+// is the staged pitch on WHOLE.
+template <int CH, int HB, int SRC>
+__device__ __forceinline__ void site_block(SITE_WHOLE_PARAMS) {
   using St = Stage<CH, HB>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // two stages, then the (HB, Ht + 2 PAD, Xp) padded tables
+  // two stages, then on WHOLE the (HB, Ht + 2 PAD, Xp) padded tables
   __nv_bfloat16* st =
       reinterpret_cast<__nv_bfloat16*>(smem_raw + 2 * St::BYTES);
 
@@ -107,9 +137,13 @@ __global__ void __launch_bounds__(MAXT, MINB) fused_site_whole_kernel(
   const int iy = m / W;
   const int ix = m - iy * W;
   const float gcol = gcomb[ix];
-  // this thread's corner in its head's table
+  const __nv_bfloat16* heads = table + ((size_t)g * Hpg + h0) * Ht * Wt;
+  // WHOLE: this thread's corner in its head's staged table; RAW: its head's
+  // raw table
   const __nv_bfloat16* tq =
-      st + (h * (Ht + 2 * lattice::PAD) + iy) * Xp + u0[ix];
+      SRC == WHOLE ? st + (h * (Ht + 2 * lattice::PAD) + iy) * Xp + u0[ix]
+                   : heads + (size_t)h * Ht * Wt;
+  const int cq = SRC == WHOLE ? 0 : u0[ix];  // the corner's column on RAW
 
   const size_t bgh0 = (size_t)bg * Hpg + h0;  // (b, g, first head) row
   const __nv_bfloat16* kb = k + bgh0 * N * CH;
@@ -152,8 +186,8 @@ __global__ void __launch_bounds__(MAXT, MINB) fused_site_whole_kernel(
   for (int c = 0; c < CH; ++c) qf[c] = __bfloat162float(qp[c]);
 
   issue(0, 0);
-  lattice::stage_padded(st, table + ((size_t)g * Hpg + h0) * Ht * Wt, HB, Ht,
-                        Wt, Xp);
+  if constexpr (SRC == WHOLE)
+    lattice::stage_padded(st, heads, HB, Ht, Wt, Xp);
   site::Online<CH> state;
   for (int n0 = 0, t = 0; n0 < N; n0 += KT, ++t) {
     const int nk = min(KT, N - n0);
@@ -174,8 +208,13 @@ __global__ void __launch_bounds__(MAXT, MINB) fused_site_whole_kernel(
       if (j < nk) {
         float kj[CH];
         load_row<CH>(kj, skh + j * CH);
-        const float b = lattice::bias_at(tq + sys[j] * Xp + sms[j], Xp, gcol,
-                                         swy[j], sf[j]);
+        float b;
+        if constexpr (SRC == WHOLE)
+          b = lattice::bias_at(tq + sys[j] * Xp + sms[j], Xp, gcol, swy[j],
+                               sf[j]);
+        else
+          b = lattice::bias_at_raw(tq, Ht, Wt, sys[j] + iy, sms[j] + cq, gcol,
+                                   swy[j], sf[j]);
         s[j] = site::score(qf, kj, scale, b);
       }
     }
@@ -189,31 +228,67 @@ __global__ void __launch_bounds__(MAXT, MINB) fused_site_whole_kernel(
   }
 }
 
-// Launch on `stream`: S queries a head (HB S threads, a multiple of 32, at
-// most MAXT), Xp the row pitch of the padded tables. k and v must start on
-// a 2 CH-byte boundary (one vector copy a row). Returns cudaGetLastError.
+// The instance of fused_site_wide_prefetch.cu and fused_site_fold_heads.cu:
+// the staged tables, MAXT threads a block at most, MINB blocks an SM asked
+// of the compiler.
+template <int CH, int HB, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB)
+    fused_site_whole_kernel(SITE_WHOLE_PARAMS) {
+  site_block<CH, HB, WHOLE>(SITE_WHOLE_ARGS);
+}
+
+// The arguments of one launch, on the host.
+struct Args {
+  const void *table, *ys, *ms, *wy, *fx, *u0, *gcomb, *q, *k, *v;
+  void *out, *lse;
+  int G, Hpg, Ht, Wt, Xp, N, H, W, S;
+  float scale;
+};
+
+// A kernel of the template (SITE_WHOLE_PARAMS).
+using Kernel = void (*)(const __nv_bfloat16*, const int*, const int*,
+                        const float*, const float*, const int*, const float*,
+                        const __nv_bfloat16*, const __nv_bfloat16*,
+                        const __nv_bfloat16*, float*, float*, int, int, int,
+                        int, int, int, int, int, int, float);
+
+// Launch `kernel` (an instance of site_block<CH, HB, SRC> of at most `maxt`
+// threads) on `stream`: S queries a head (HB S threads, a multiple of 32),
+// Xp the row pitch of the padded tables on WHOLE. k and v must start on a 2
+// CH-byte boundary (one vector copy a row). Returns cudaGetLastError.
+template <int CH, int HB, int SRC>
+int launch_kernel(Kernel kernel, int maxt, const Args& a, int B,
+                  cudaStream_t stream) {
+  const int threads = HB * a.S;
+  if (a.S < 1 || threads > maxt || threads % 32 || a.Hpg % HB ||
+      (size_t)a.k % (CH * 2) || (size_t)a.v % (CH * 2))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<CH, HB, SRC>(a.Ht, a.Xp);
+  const int rc = lattice::set_smem((const void*)kernel, smem);
+  if (rc) return rc;
+  const dim3 grid((a.H * a.W + a.S - 1) / a.S, B * a.G * (a.Hpg / HB));
+  kernel<<<grid, threads, smem, stream>>>(
+      (const __nv_bfloat16*)a.table, (const int*)a.ys, (const int*)a.ms,
+      (const float*)a.wy, (const float*)a.fx, (const int*)a.u0,
+      (const float*)a.gcomb, (const __nv_bfloat16*)a.q,
+      (const __nv_bfloat16*)a.k, (const __nv_bfloat16*)a.v, (float*)a.out,
+      (float*)a.lse, a.G, a.Hpg, a.Ht, a.Wt, a.Xp, a.N, a.H, a.W, a.S,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+// fused_site_whole_kernel's launch (the staged tables).
 template <int CH, int HB, int MAXT, int MINB>
 int launch(const void* table, const void* ys, const void* ms, const void* wy,
            const void* fx, const void* u0, const void* gcomb, const void* q,
            const void* k, const void* v, void* out, void* lse, int B, int G,
            int Hpg, int Ht, int Wt, int Xp, int N, int H, int W, int S,
            float scale, cudaStream_t stream) {
-  const int threads = HB * S;
-  if (S < 1 || threads > MAXT || threads % 32 || Hpg % HB ||
-      (size_t)k % (CH * 2) || (size_t)v % (CH * 2))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<CH, HB>(Ht, Xp);
-  const int rc = lattice::set_smem(
-      (const void*)fused_site_whole_kernel<CH, HB, MAXT, MINB>, smem);
-  if (rc) return rc;
-  dim3 grid((H * W + S - 1) / S, B * G * (Hpg / HB));
-  fused_site_whole_kernel<CH, HB, MAXT, MINB><<<grid, threads, smem, stream>>>(
-      (const __nv_bfloat16*)table, (const int*)ys, (const int*)ms,
-      (const float*)wy, (const float*)fx, (const int*)u0,
-      (const float*)gcomb, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (float*)out, (float*)lse, G, Hpg, Ht, Wt, Xp,
-      N, H, W, S, scale);
-  return (int)cudaGetLastError();
+  return launch_kernel<CH, HB, WHOLE>(
+      fused_site_whole_kernel<CH, HB, MAXT, MINB>, MAXT,
+      Args{table, ys, ms, wy, fx, u0, gcomb, q, k, v, out, lse, G, Hpg, Ht,
+           Wt, Xp, N, H, W, S, scale},
+      B, stream);
 }
 
 // Blocks of `threads` threads with `smem` bytes of dynamic shared memory that

@@ -20,19 +20,28 @@ instance for Hpg (``folds``); its shared memory must fit as well
 (``rows_fit``, ``heads_fit``). The wrappers refuse any other site. The
 head-folded kernels take one of two paths, by the shapes alone
 (``heads_plan``): every head's whole padded table in shared memory where
-they fit one block, the window ring where they do not.
+they fit one block, the window ring where they do not. The row-folded
+kernel is an instance of the same whole-table template
+(csrc/site_whole.cuh) at ROWS_HEADS heads a block, in strips that fill
+whole waves of the card (``rows_plan``, ``wave_strip``).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from bevrender_tpu_torch.ops.kernels._launch import (
     PAD,
     SMEM_PER_BLOCK,
+    SMEM_PER_BLOCK_RESERVED,
+    SMEM_PER_SM,
     blocks_per_sm,
     call,
     padded_width,
+    sm_count,
     window_columns,
 )
 from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
@@ -41,7 +50,7 @@ from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
 launches_rows = 0  # fused_site_fold_rows
 launches_heads = 0  # fused_site_fold_heads
 launches_heads_lse = 0  # fused_site_fold_heads_lse
-THREADS = 128  # queries per block, THREADS in both sources (the ring path's)
+THREADS = 128  # queries of a ring block, THREADS in fused_site_fold_heads.cu
 KEY_HALF = KEY_TILE // 2  # keys per ring slot, KH in fused_site_fold_heads.cu
 # threads of a whole-table block of fused_site_fold_heads at most (Hpg x its
 # strip of queries; MAX_THREADS in csrc/fused_site_fold_heads.cu)
@@ -50,6 +59,13 @@ MAX_THREADS = 256
 # two)
 HEADS = (1, 2)
 FOLD_WIDTH = 128  # Hpg * W at most
+# fused_site_fold_rows (csrc/fused_site_fold_rows.cu): heads a block, threads
+# a block at most, and the blocks an SM its launch bounds ask for. One head a
+# block: four blocks of the flagship's SCA share an SM, where both heads a
+# block (the fold of fused_site_fold_heads) fit two (PERF.md §6)
+ROWS_HEADS = 1
+ROWS_THREADS = 160
+ROWS_MIN_BLOCKS = 4
 
 
 def folds(Hpg: int, W: int) -> bool:
@@ -58,16 +74,19 @@ def folds(Hpg: int, W: int) -> bool:
     return Hpg in HEADS and Hpg * W <= FOLD_WIDTH
 
 
-def rows_smem(Hpg: int, Ht: int, Xp: int, ch: int) -> int:
-    """Shared memory of ``fused_site_fold_rows``: the Hpg zero-padded
-    tables ((Ht + 2 PAD) x Xp bf16 each) and every head's K and V of a key
-    tile in float32 with three words of geometry a key."""
-    return (Hpg * (Ht + 2 * PAD) * Xp * 2 + 2 * Hpg * KEY_TILE * ch * 4
-            + KEY_TILE * 3 * 4)
-
-
 def rows_fit(Hpg: int, Ht: int, Xp: int, W: int, ch: int) -> bool:
-    return folds(Hpg, W) and rows_smem(Hpg, Ht, Xp, ch) <= SMEM_PER_BLOCK
+    """Whether ``fused_site_fold_rows`` takes a site: it folds, and every
+    head's padded table fits one block with the key stages of the
+    whole-table template (``whole_smem`` at Hpg heads), as the JAX
+    package's row fold holds every head's table at once. The kernel stages
+    ROWS_HEADS of them a block; the fit stays the fold's. Before the
+    template the kernel's own layout (the tables, every head's K and V tile
+    in float32, three words a key) was the fit: ``whole_smem`` is 640 bytes
+    more at two heads and either head width, so only a site within 640
+    bytes of SMEM_PER_BLOCK could drop, and no site of either supported
+    model is (the flagship's largest, its SCA, needs 113,228 bytes; the
+    pyramid has no fused site)."""
+    return folds(Hpg, W) and whole_smem(Hpg, Ht, Xp, ch) <= SMEM_PER_BLOCK
 
 
 def _ring(Hpg: int, Wt: int, H: int, W: int, ch: int) -> tuple:
@@ -98,13 +117,19 @@ def fold_ring(Hpg: int, Wt: int, H: int, W: int, ch: int) -> tuple:
     return R, CW, Xs, smem
 
 
+def stages_smem(Hpg: int, ch: int) -> int:
+    """Shared memory of the key stages of a whole-table block
+    (csrc/site_whole.cuh) of Hpg heads: two stages of every head's K and V
+    rows of a key tile in bf16 with four words of geometry a key. A block
+    that reads the raw table (path "raw") has no other."""
+    return 2 * (2 * Hpg * KEY_TILE * ch * 2 + 4 * KEY_TILE * 4)
+
+
 def whole_smem(Hpg: int, Ht: int, Xp: int, ch: int) -> int:
     """Shared memory of a whole-table block (csrc/site_whole.cuh) of Hpg
-    heads: two stages of every head's K and V rows of a key tile in bf16
-    with four words of geometry a key, and the Hpg zero-padded tables ((Ht
-    + 2 PAD) x Xp bf16 each), as the kernel lays them out."""
-    stage = 2 * Hpg * KEY_TILE * ch * 2 + 4 * KEY_TILE * 4
-    return 2 * stage + Hpg * (Ht + 2 * PAD) * Xp * 2
+    heads: the key stages (``stages_smem``) and the Hpg zero-padded tables
+    ((Ht + 2 PAD) x Xp bf16 each), as the kernel lays them out."""
+    return stages_smem(Hpg, ch) + Hpg * (Ht + 2 * PAD) * Xp * 2
 
 
 def strip(Hpg: int, M: int, most: int = MAX_THREADS) -> int:
@@ -116,6 +141,84 @@ def strip(Hpg: int, M: int, most: int = MAX_THREADS) -> int:
     step = 32 // Hpg
     per = -(-M // -(-M // (most // Hpg)))
     return -(-per // step) * step
+
+
+class SitePlan(NamedTuple):
+    """How one launch of a whole-table site kernel cuts the work."""
+
+    path: str     # "whole": the heads' padded tables in shared memory;
+                  # "raw": the raw table read through L1
+    heads: int    # heads a block
+    strip: int    # queries a head of a block
+    threads: int  # heads x strip
+    smem: int     # shared memory a block, bytes
+    blocks: int   # blocks of the grid
+    per_sm: int   # blocks an SM the plan counts on (``blocks_an_sm``)
+    waves: int    # rounds of per_sm blocks on every SM the grid takes
+
+
+def blocks_an_sm(smem: int, min_blocks: int) -> int:
+    """Blocks an SM holds at once, as the plans count them from the shapes:
+    what its shared memory holds at ``smem`` bytes a block, at most the
+    ``min_blocks`` that the kernel's launch bounds ask the compiler to fit
+    (so its registers hold them; the card may hold more of smaller ones)."""
+    return min(min_blocks, SMEM_PER_SM // (smem + SMEM_PER_BLOCK_RESERVED))
+
+
+def wave_strip(heads: int, M: int, rows: int, per_sm: int, sms: int,
+               most: int) -> int:
+    """Queries a head of a block of ``heads`` heads and at most ``most``
+    threads, for a grid of ``rows`` block rows over M queries on ``sms``
+    SMs that hold ``per_sm`` blocks each: of the strips whose threads are a
+    multiple of 32, evenly cut, those whose grid takes the fewest waves
+    (rounds of per_sm x sms blocks), then the one whose busiest SM runs the
+    fewest warps summed over the waves (a wave spreads its blocks evenly),
+    then the fewest blocks. At one head a block and the flagship's SCA
+    (M = 784, 96 block rows, 4 blocks an SM on 132 SMs) that is 160: 5
+    strips, 480 blocks, one wave; at two heads and 24 rows, 2 blocks an SM,
+    80 where ``strip`` gives 112 (240 blocks in one wave against 168, the
+    busiest SM 10 warps against 14)."""
+    step = 32 // heads
+    slots = per_sm * sms
+
+    def cost(S: int) -> tuple:
+        blocks = -(-M // S) * rows
+        load, left = 0, blocks
+        while left > 0:
+            wave = min(left, slots)
+            load += -(-wave // sms) * (heads * S // 32)
+            left -= wave
+        return -(-blocks // slots), load, blocks
+
+    fewest = -(-M // (most // heads))
+    cands = {-(-(-(-M // k)) // step) * step  # ceil(M / k) up to a step
+             for k in range(fewest, -(-M // step) + 1)}
+    return min((S for S in cands if S * heads <= most),
+               key=lambda S: (cost(S), S))
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(B: int, G: int, Hpg: int, Ht: int, Xp: int, H: int, W: int,
+              ch: int, sms: int) -> SitePlan:
+    """The launch of ``fused_site_fold_rows`` at a site that it takes
+    (``rows_fit``) on a card of ``sms`` SMs: ROWS_HEADS heads a block, the
+    heads' padded tables staged ("whole"), in strips of ``wave_strip``
+    queries."""
+    smem = whole_smem(ROWS_HEADS, Ht, Xp, ch)
+    per_sm = blocks_an_sm(smem, ROWS_MIN_BLOCKS)
+    rows = B * G * Hpg // ROWS_HEADS
+    S = wave_strip(ROWS_HEADS, H * W, rows, per_sm, sms, ROWS_THREADS)
+    blocks = -(-(H * W) // S) * rows
+    return SitePlan("whole", ROWS_HEADS, S, ROWS_HEADS * S, smem, blocks,
+                    per_sm, -(-blocks // (per_sm * sms)))
+
+
+def rows_blocks_per_sm(plan: SitePlan, ch: int) -> int:
+    """Blocks of ``fused_site_fold_rows`` at ``plan`` that one SM of the
+    card holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return blocks_per_sm("fused_site_fold_rows",
+                         "fused_site_fold_rows_occupancy", ch, plan.threads,
+                         plan.smem)
 
 
 def heads_plan(Hpg: int, Wt: int, H: int, W: int, ch: int) -> tuple:
@@ -165,17 +268,19 @@ def fused_site_fold_rows_cuda(table, ys, ms, wy, f, u0, g, Xp: int, q, k, v,
     B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
                                                q, k, v, H, W)
     _check_fold("fused_site_fold_rows", Hpg, W)
-    smem = rows_smem(Hpg, Ht, Xp, ch)
-    if smem > SMEM_PER_BLOCK:
+    if not rows_fit(Hpg, Ht, Xp, W, ch):
         raise ValueError(
             f"fused_site_fold_rows: {Hpg} padded tables of {Ht + 2 * PAD} x "
-            f"{Xp} and the key tile need {smem} bytes of shared memory, over "
-            f"{SMEM_PER_BLOCK}; take fused_site (site_fold_rows=False)")
+            f"{Xp} and the key stages need {whole_smem(Hpg, Ht, Xp, ch)} "
+            f"bytes of shared memory, over {SMEM_PER_BLOCK}; take fused_site "
+            f"(site_fold_rows=False)")
+    check_rows_aligned("fused_site_fold_rows", k, v, ch)
+    plan = rows_plan(B, G, Hpg, Ht, Xp, H, W, ch, sm_count(table.device))
     out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32,
                       device=table.device)
     call("fused_site_fold_rows", "fused_site_fold_rows_launch",
          (table, ys, ms, wy, f, u0, g, q, k, v, out, B, G, Hpg, Ht, Wt, Xp, N,
-          H, W, ch, float(scale)))
+          H, W, plan.strip, ch, float(scale)))
     launches_rows += 1
     return out
 

@@ -4,7 +4,11 @@ table ``fused_site`` cannot stage in shared memory, or every site under
 
 - ``fused_site_wide_cuda`` (csrc/fused_site_wide.cu), the counterpart of
   bevrender_tpu/ops/pallas/fused_attn.py::fused_site_call (the
-  ``pallas_call`` of ``_fused_site_pallas_call``, plain staging);
+  ``pallas_call`` of ``_fused_site_pallas_call``, plain staging): an
+  instance of the whole-table template (csrc/site_whole.cuh), one head a
+  block, on one of two table sources chosen by the shapes alone
+  (``wide_plan``): the head's padded table staged in shared memory where it
+  fits one block, the raw table read through L1 where it does not;
 - ``fused_site_wide_lse_cuda``, its instance that also returns the
   logsumexp, the counterpart of ``fused_site_call_lse`` there;
 - ``fused_site_wide_prefetch_cuda`` (csrc/fused_site_wide_prefetch.cu), the
@@ -22,6 +26,8 @@ plain versions are ``ops.deform_attn.site_plain`` and ``site_plain_lse``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from bevrender_tpu_torch.ops.kernels._launch import (
@@ -30,12 +36,16 @@ from bevrender_tpu_torch.ops.kernels._launch import (
     blocks_per_sm,
     call,
     padded_width,
+    sm_count,
     window_columns,
 )
 from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
 from bevrender_tpu_torch.ops.kernels.fused_site_fold import (
+    SitePlan,
+    blocks_an_sm,
     check_rows_aligned,
-    strip,
+    stages_smem,
+    wave_strip,
     whole_smem,
 )
 
@@ -48,6 +58,13 @@ THREADS = 128
 # queries of a whole-table block at most (WHOLE_THREADS there: with its
 # launch bounds, four such blocks of the flagship's SCA share an SM)
 WHOLE_THREADS = 160
+# fused_site_wide (csrc/fused_site_wide.cu, one head a block on either table
+# source): threads a block at most and the blocks an SM its launch bounds
+# ask for, those of fused_site_wide_prefetch's whole-table path, whose plan
+# is this kernel's (``prefetch_plan``)
+WIDE_THREADS = WHOLE_THREADS
+WIDE_MIN_BLOCKS = 4
+WIDE_PATHS = ("whole", "raw")
 
 
 def prefetch_ring(Ht: int, Wt: int, H: int, W: int, ch: int) -> tuple:
@@ -66,64 +83,106 @@ def prefetch_ring(Ht: int, Wt: int, H: int, W: int, ch: int) -> tuple:
     return R, CW, Xs, smem
 
 
-def prefetch_plan(Ht: int, Wt: int, H: int, W: int, ch: int) -> tuple:
+def prefetch_plan(Ht: int, Wt: int, H: int, W: int, ch: int, heads: int,
+                  sms: int) -> tuple:
     """(path, queries a block, threads a block, shared-memory bytes) of
-    ``fused_site_wide_prefetch``, one head a block: "whole" where the head's
-    zero-padded table fits one block with the two key stages
-    (``fused_site_fold.whole_smem`` at one head), in strips of at most
-    WHOLE_THREADS queries; else "ring" (``prefetch_ring``, which refuses a
-    site that fits neither). A route of the shapes, never of a failure:
-    every site of the supported models takes "whole"."""
-    smem = whole_smem(1, Ht, padded_width(Wt), ch)
-    if smem <= SMEM_PER_BLOCK:
-        S = strip(1, H * W, WHOLE_THREADS)
-        return "whole", S, S, smem
+    ``fused_site_wide_prefetch`` at a site of ``heads`` = B * G * Hpg heads
+    on a card of ``sms`` SMs, one head a block: "whole" where the head's
+    zero-padded table fits one block with the two key stages, as
+    ``fused_site_wide``'s plan of that path (``wide_plan``: the same
+    template instance, in strips of ``wave_strip`` queries); else "ring"
+    (``prefetch_ring``, which refuses a site that fits neither). A route of
+    the shapes, never of a failure: every site of the supported models
+    takes "whole"."""
+    p = wide_plan(Ht, Wt, H, W, ch, heads, sms)
+    if p.path == "whole":
+        return "whole", p.strip, p.threads, p.smem
     return "ring", THREADS, THREADS, prefetch_ring(Ht, Wt, H, W, ch)[3]
 
 
-def prefetch_blocks_per_sm(Ht: int, Wt: int, H: int, W: int, ch: int) -> int:
+def prefetch_blocks_per_sm(Ht: int, Wt: int, H: int, W: int, ch: int,
+                           heads: int, sms: int) -> int:
     """Blocks of ``fused_site_wide_prefetch`` that one SM of the card holds
     at once at this site, on the path ``prefetch_plan`` takes
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    path, _, threads, smem = prefetch_plan(Ht, Wt, H, W, ch)
+    path, _, threads, smem = prefetch_plan(Ht, Wt, H, W, ch, heads, sms)
     return blocks_per_sm("fused_site_wide_prefetch",
                          "fused_site_wide_prefetch_occupancy",
                          int(path == "whole"), ch, threads, smem)
 
 
+def wide_plan(Ht: int, Wt: int, H: int, W: int, ch: int, heads: int,
+              sms: int, path: str | None = None) -> SitePlan:
+    """The launch of ``fused_site_wide`` (and its logsumexp instance) at a
+    site of ``heads`` = B * G * Hpg heads on a card of ``sms`` SMs, one head
+    a block: path "whole" (the head's zero-padded table staged in shared
+    memory) where it fits one block with the key stages
+    (``fused_site_fold.whole_smem`` at one head: every site of the
+    supported models), else "raw" (the raw table read through L1; shared
+    memory the key stages alone), in strips of ``wave_strip`` queries. A
+    route of the shapes, never of a failure; ``path`` names one for
+    measurements."""
+    whole = whole_smem(1, Ht, padded_width(Wt), ch)
+    if path is None:
+        path = "whole" if whole <= SMEM_PER_BLOCK else "raw"
+    if path not in WIDE_PATHS:
+        raise ValueError(f"fused_site_wide: no path {path!r}")
+    smem = whole if path == "whole" else stages_smem(1, ch)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"fused_site_wide: a staged head table of {smem} B "
+                         f"overflows a block")
+    per_sm = blocks_an_sm(smem, WIDE_MIN_BLOCKS)
+    S = wave_strip(1, H * W, heads, per_sm, sms, WIDE_THREADS)
+    blocks = -(-(H * W) // S) * heads
+    return SitePlan(path, 1, S, S, smem, blocks, per_sm,
+                    -(-blocks // (per_sm * sms)))
+
+
+def wide_blocks_per_sm(plan: SitePlan, ch: int) -> int:
+    """Blocks of ``fused_site_wide`` at ``plan`` that one SM of the card
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return blocks_per_sm("fused_site_wide", "fused_site_wide_occupancy",
+                         int(plan.path == "raw"), ch, plan.threads, plan.smem)
+
+
 def _launch(fn_name: str, table, ys, ms, wy, f, u0, g, q, k, v, H, W, scale,
-            with_lse: bool):
+            with_lse: bool, path: str | None):
     B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
                                                q, k, v, H, W)
+    check_rows_aligned("fused_site_wide", k, v, ch)
     dev = table.device
+    plan = wide_plan(Ht, Wt, H, W, ch, B * G * Hpg, sm_count(dev), path)
     out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32, device=dev)
     lse = (torch.empty((B, G, Hpg, H * W), dtype=torch.float32, device=dev)
            if with_lse else None)
     call("fused_site_wide", fn_name,
          (table, ys, ms, wy, f, u0, g, q, k, v, out)
          + ((lse,) if with_lse else ())
-         + (B, G, Hpg, Ht, Wt, N, H, W, ch, float(scale)))
+         + (B, G, Hpg, Ht, Wt, padded_width(Wt), N, H, W, plan.strip,
+            int(plan.path == "raw"), ch, float(scale)))
     return out, lse
 
 
 def fused_site_wide_cuda(table, ys, ms, wy, f, u0, g, q, k, v, H: int,
-                         W: int, scale: float) -> torch.Tensor:
+                         W: int, scale: float,
+                         path: str | None = None) -> torch.Tensor:
     """Arguments as ``fused_site_cuda`` without the padded width (the
-    kernel reads the raw table) -> (B, G, Hpg, H*W, ch) float32."""
+    kernel takes it from the table) -> (B, G, Hpg, H*W, ch) float32, on the
+    path ``wide_plan`` names (``path`` forces one, for measurements)."""
     global launches
     out, _ = _launch("fused_site_wide_launch", table, ys, ms, wy, f, u0, g, q,
-                     k, v, H, W, scale, False)
+                     k, v, H, W, scale, False, path)
     launches += 1
     return out
 
 
 def fused_site_wide_lse_cuda(table, ys, ms, wy, f, u0, g, q, k, v, H: int,
-                             W: int, scale: float):
+                             W: int, scale: float, path: str | None = None):
     """``fused_site_wide_cuda`` that also returns the logsumexp over the
     keys, (B, G, Hpg, H*W) float32 in natural-log units."""
     global launches_lse
     out = _launch("fused_site_wide_lse_launch", table, ys, ms, wy, f, u0, g,
-                  q, k, v, H, W, scale, True)
+                  q, k, v, H, W, scale, True, path)
     launches_lse += 1
     return out
 
@@ -137,8 +196,9 @@ def fused_site_wide_prefetch_cuda(table, ys, ms, wy, f, u0, g, q, k, v,
     global launches_prefetch
     B, G, Hpg, Ht, Wt, N, ch = check_site_args(table, ys, ms, wy, f, u0, g,
                                                q, k, v, H, W)
-    path, S, _, _ = prefetch_plan(Ht, Wt, H, W, ch)
     dev = table.device
+    path, S, _, _ = prefetch_plan(Ht, Wt, H, W, ch, B * G * Hpg,
+                                  sm_count(dev))
     out = torch.empty((B, G, Hpg, H * W, ch), dtype=torch.float32, device=dev)
     if path == "whole":
         check_rows_aligned("fused_site_wide_prefetch", k, v, ch)

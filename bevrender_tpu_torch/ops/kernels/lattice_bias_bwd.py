@@ -21,6 +21,8 @@ import torch
 from bevrender_tpu_torch.ops.kernels._launch import (
     PAD,
     SMEM_PER_BLOCK,
+    SMEM_PER_BLOCK_RESERVED,
+    SMEM_PER_SM,
     call,
     check_geometry,
     window_width,
@@ -33,10 +35,6 @@ launches_wide = 0  # lattice_bias_wide_bwd
 # csrc/bias_bwd_rows.cuh: warps a block, keys a chunk of the dwy/df partials
 WARPS = 8
 KEYS_A_CHUNK = 16
-# shared memory of one H100 SM (228 KB), of which each resident block also
-# takes 1 KB
-SMEM_PER_SM = 233472
-SMEM_PER_BLOCK_RESERVED = 1024
 # bands of fewer rows than this (where the padded table has more) cost more
 # key visits and gout re-reads than a fourth or third block an SM gains
 MIN_BAND_ROWS = 16

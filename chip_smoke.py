@@ -88,7 +88,10 @@ Phases, each fatal on failure:
     and 12 (FWD_CHECK_SITES), each with its plan, path and blocks per SM,
     the prefetch kernel on its whole-table path at all of them; times,
     bounds, plain and library times, and the prefetch site's path and
-    blocks per SM;
+    blocks per SM; ``fused_site_wide``'s and its logsumexp instance's plan
+    (path, strip, blocks, waves) and blocks per SM at every shape, path
+    "whole" at every serving and training shape and "raw" at
+    PREFETCH_RING_SITE;
 19. the folded fused sites: the flagship serving as phase 14
     (WIDE_REQUESTS requests) with ``lattice_route="wide"``,
     ``site_prefetch`` and ``site_fold_heads``: exactly 24
@@ -105,8 +108,10 @@ Phases, each fatal on failure:
     head-folded kernels also at a site of their ring path
     (FOLD_RING_SITE), at two table scales, against its plain version and,
     with tolerance 0, against its per-head sibling; times, bounds, plain
-    and library times, the sibling's time in the same call, and the
-    head-folded kernels' path and blocks per SM;
+    and library times, the sibling's time in the same call, the
+    head-folded kernels' path and blocks per SM, and the row-folded
+    kernel's plan (path, heads and strip a block, blocks, waves) and
+    blocks per SM;
 23. the windowed bias (``bias_forward="windows"``): the flagship serving as
     phase 3 (WINDOWS_REQUESTS requests), exactly 24 ``fused_site`` and 64
     ``lattice_windows`` per forward, the render equal (max abs 0) to the
@@ -387,10 +392,12 @@ def queued_ms(fn, iters: int) -> float:
 
 
 # The whole-table paths of fused_site_wide_prefetch and
-# fused_site_fold_heads launch one template (csrc/site_whole.cuh), whose
-# instances the profiler names by their arguments, the launch bounds last:
+# fused_site_fold_heads launch one instance kernel of csrc/site_whole.cuh,
+# which the profiler names by its arguments, the launch bounds last:
 # (160, 4) in fused_site_wide_prefetch.cu, (256, 2) in
-# fused_site_fold_heads.cu. Every other kernel is named "<counter>_kernel".
+# fused_site_fold_heads.cu. Every other kernel, fused_site_wide's and
+# fused_site_fold_rows' instances of the template among them, is named
+# "<counter>_kernel".
 WHOLE_INSTANCES = {"fused_site_wide_prefetch": ", 160, 4>",
                    "fused_site_fold_heads": ", 256, 2>"}
 
@@ -1055,6 +1062,38 @@ def fwd_plan_text(plan: dict) -> str:
             f"{plan['blocks_per_sm']} an SM")
 
 
+def site_plan(kernels, kernel: str, B, G, ch, Wt, side=H) -> dict:
+    """The plan of a whole-table site kernel (``fused_site_wide`` and its
+    logsumexp instance: ``fused_site_wide.wide_plan``;
+    ``fused_site_fold_rows``: ``fused_site_fold.rows_plan``) at a shape of
+    BEV side x side on this card, with the blocks one SM holds of it (the
+    library's occupancy query) beside the blocks an SM the plan counts
+    on."""
+    import torch
+
+    from bevrender_tpu_torch.ops.kernels._launch import padded_width
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    Ht = 2 * side - 1
+    if kernel == "fused_site_fold_rows":
+        fold = kernels.fused_site_fold
+        p = fold.rows_plan(B, G, HPG, Ht, padded_width(Wt), side, side, ch,
+                           sms)
+        on_card = fold.rows_blocks_per_sm(p, ch)
+    else:
+        wide = kernels.fused_site_wide
+        p = wide.wide_plan(Ht, Wt, side, side, ch, B * G * HPG, sms)
+        on_card = wide.wide_blocks_per_sm(p, ch)
+    return dict(p._asdict(), blocks_per_sm=on_card)
+
+
+def site_plan_text(plan: dict) -> str:
+    return (f"plan {plan['path']}, {plan['heads']} head x {plan['strip']} "
+            f"queries a block, {plan['smem']} B, {plan['blocks']} blocks, "
+            f"{plan['per_sm']} an SM planned ({plan['blocks_per_sm']} on "
+            f"the card), {plan['waves']} wave(s)")
+
+
 def bias_siblings(fwd_mod, out, ref, args, H) -> dict:
     """``lattice_bias``'s output ``out`` against the plain bias (float32
     lerps on the bf16 table) rounded to bf16, ``ref``, and against
@@ -1414,9 +1453,10 @@ def check_wide_site(da, kernels) -> tuple:
     ``fused_site`` takes the table: not at the ring site) and
     ``fused_site_wide_prefetch`` equal to ``fused_site_wide``, both within
     the fused site's tolerances of the plain version and of the online
-    mirror. Each prefetch line names the path ``prefetch_plan`` takes and
-    the blocks one SM holds there; the phase fails unless every SITE_SITES
-    shape takes "whole" and the ring site "ring". Times (the prefetch
+    mirror. Each line names the paths ``wide_plan`` and ``prefetch_plan``
+    take, ``fused_site_wide``'s plan and the blocks one SM holds of each;
+    the phase fails unless every SITE_SITES shape takes "whole" on both and
+    the ring site "raw" and "ring". Times (the prefetch
     variant's on its ring path as the sum of its kernel's and its pitched
     table copy's, with that copy in its bound), bounds, plain and library
     times, and ``fused_site``'s time at the same shapes for comparison.
@@ -1430,9 +1470,12 @@ def check_wide_site(da, kernels) -> tuple:
     for i, (name, B, G, ch, N, Wt, per_fwd, side) in enumerate(sites):
         ring = name == PREFETCH_RING_SITE[0]
         Ht = 2 * side - 1
-        plan = dict(path=wide.prefetch_plan(Ht, Wt, side, side, ch)[0],
+        grid = (B * G * HPG, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        plan = dict(path=wide.prefetch_plan(Ht, Wt, side, side, ch, *grid)[0],
                     blocks_per_sm=wide.prefetch_blocks_per_sm(
-                        Ht, Wt, side, side, ch))
+                        Ht, Wt, side, side, ch, *grid))
+        wplan = site_plan(kernels, "fused_site_wide", B, G, ch, Wt, side)
         for std in SITE_TABLE_STDS:
             table, k_pos, q, k, v = site_inputs(80 + i, B, G, ch, N, Wt, std,
                                                 side)
@@ -1462,15 +1505,17 @@ def check_wide_site(da, kernels) -> tuple:
                              and bool((d_online <= ONLINE_TOL * wabs
                                        + 1e-7).all()))
             ok = (same_w and same_p and errs["wide"][2] and errs["prefetch"][2]
-                  and plan["path"] == ("ring" if ring else "whole"))
+                  and plan["path"] == ("ring" if ring else "whole")
+                  and wplan["path"] == ("raw" if ring else "whole"))
             print(f"fused_site_wide {name} table std {std}: "
                   + ("" if ring else
                      f"{'equals' if same_w else 'DIFFERS FROM'} fused_site; ")
                   + f"prefetch {'equals' if same_p else 'DIFFERS FROM'} "
                   f"fused_site_wide; max abs err vs plain {errs['wide'][0]:.3g}"
                   f" / {errs['prefetch'][0]:.3g}, vs site_consumer_online "
-                  f"{errs['wide'][1]:.3g} / {errs['prefetch'][1]:.3g}; prefetch "
-                  f"path {plan['path']}, blocks_per_sm {plan['blocks_per_sm']} "
+                  f"{errs['wide'][1]:.3g} / {errs['prefetch'][1]:.3g}; wide "
+                  f"{site_plan_text(wplan)}; prefetch path {plan['path']}, "
+                  f"blocks_per_sm {plan['blocks_per_sm']} "
                   f"({'ok' if ok else 'FAIL'})", flush=True)
             if not ok:
                 bad.append(f"{name} std {std}")
@@ -1502,7 +1547,8 @@ def check_wide_site(da, kernels) -> tuple:
                           per_forward=per_fwd, fused_site_ms=ms_whole)
             rows_w.append(dict(common, ms=ms_w, bound_ms=b_w[0],
                                bound_by=b_w[1], max_abs_err=errs["wide"][0],
-                               max_abs_err_online=errs["wide"][1]))
+                               max_abs_err_online=errs["wide"][1],
+                               plan=wplan))
             rows_p.append(dict(common, ms=ms_p, kernel_only_ms=ms_p_kernel,
                                bound_ms=b_p[0], bound_by=b_p[1],
                                max_abs_err=errs["prefetch"][0],
@@ -1513,8 +1559,9 @@ def check_wide_site(da, kernels) -> tuple:
                   + ("" if ring else f"fused_site {ms_whole:.4f} ms; ")
                   + f"plain {plain:.4f} ms sdpa+mask {lib:.4f} ms; bound "
                   f"{b_w[0]:.4f} / {b_p[0]:.4f} ms ({b_w[1]}) "
-                  f"x{per_fwd}/forward; prefetch path {plan['path']}, "
-                  f"blocks_per_sm {plan['blocks_per_sm']}", flush=True)
+                  f"x{per_fwd}/forward; wide {site_plan_text(wplan)}; "
+                  f"prefetch path {plan['path']}, blocks_per_sm "
+                  f"{plan['blocks_per_sm']}", flush=True)
             del bias, ref, wabs, online
         torch.cuda.empty_cache()
     if bad:
@@ -1531,13 +1578,16 @@ def check_wide_site_lse(da, kernels) -> dict:
     logsumexp equal to ``fused_site_lse``'s bit for bit, the output within
     the fused site's tolerance of the plain version and the logsumexp
     within LSE_TOL of the plain one and LSE_ONLINE_TOL of the online
-    mirror's. Times, bound, plain and library (SDPA forward) times."""
+    mirror's; each shape's plan (``wide_plan``) and the blocks one SM holds
+    of it, and the phase fails unless every shape takes path "whole".
+    Times, bound, plain and library (SDPA forward) times."""
     import torch
 
     wide = kernels.fused_site_wide
     rows, bad = [], []
     worst = dict(err=0.0, lse=0.0, lse_online=0.0)
     for i, (name, B, G, ch, N, Wt, per_step) in enumerate(TRAIN_SITE_SITES):
+        plan = site_plan(kernels, "fused_site_wide", B, G, ch, Wt)
         for std in SITE_TABLE_STDS:
             table, k_pos, q, k, v = site_inputs(90 + i, B, G, ch, N, Wt, std)
             scale = ch ** -0.5
@@ -1561,11 +1611,13 @@ def check_wide_site_lse(da, kernels) -> dict:
             e_l = float((lse - ref_lse).abs().max())
             e_lo = float((lse - on_lse).abs().max())
             ok = (same and e_l <= LSE_TOL and e_lo <= LSE_ONLINE_TOL and bool(
-                ((out - ref).abs() <= SITE_P_ROUND * wabs + 1e-5).all()))
+                ((out - ref).abs() <= SITE_P_ROUND * wabs + 1e-5).all())
+                and plan["path"] == "whole")
             print(f"fused_site_wide_lse {name} table std {std}: out and lse "
                   f"{'equal' if same else 'DIFFER FROM'} fused_site_lse's; "
-                  f"out err {err:.3g}, lse err {e_l:.3g} (online {e_lo:.3g}) "
-                  f"({'ok' if ok else 'FAIL'})", flush=True)
+                  f"out err {err:.3g}, lse err {e_l:.3g} (online {e_lo:.3g}); "
+                  f"{site_plan_text(plan)} ({'ok' if ok else 'FAIL'})",
+                  flush=True)
             if not ok:
                 bad.append(f"{name} std {std}")
             worst = dict(err=max(worst["err"], err),
@@ -1585,7 +1637,8 @@ def check_wide_site_lse(da, kernels) -> dict:
             rows.append(dict(site=name, ms=ms, fused_site_lse_ms=ms_whole,
                              plain_ms=plain, library_ms=lib, bound_ms=bound,
                              bound_by=by, per_step=per_step, max_abs_err=e_l,
-                             max_abs_err_online=e_lo, max_abs_err_out=err))
+                             max_abs_err_online=e_lo, max_abs_err_out=err,
+                             plan=plan))
             print(f"fused_site_wide_lse {name}: kernel {ms:.4f} ms "
                   f"(fused_site_lse {ms_whole:.4f}) plain {plain:.4f} ms "
                   f"sdpa+mask {lib:.4f} ms bound {bound:.4f} ms ({by}) "
@@ -1727,8 +1780,11 @@ def check_fold_sites(da, kernels) -> tuple:
     the sum of its kernel's and its pitched table copy's), bounds (with that copy on the ring path only), plain and
     library times, and the sibling's time in the same call; a head-folded
     line also names its path (``fused_site_fold.heads_plan``) and the
-    blocks one SM holds. Returns the records of (fused_site_fold_rows,
-    fused_site_fold_heads, fused_site_fold_heads_lse)."""
+    blocks one SM holds, a row-folded line its plan
+    (``fused_site_fold.rows_plan``: path "whole" at every serving site, or
+    the phase fails) and the blocks one SM holds. Returns the records of
+    (fused_site_fold_rows, fused_site_fold_heads,
+    fused_site_fold_heads_lse)."""
     import torch
 
     fold, wide = kernels.fused_site_fold, kernels.fused_site_wide
@@ -1788,11 +1844,18 @@ def check_fold_sites(da, kernels) -> tuple:
                                                                ch))
             ok = ok and plan["path"] == ("ring" if name == FOLD_RING_SITE[0]
                                          else "whole")
+        else:
+            rplan = site_plan(kernels, "fused_site_fold_rows", B, G, ch, Wt,
+                              side)
+            plan = dict(plan=rplan)
+            ok = ok and rplan["path"] == "whole"
+        shown = (f"; {site_plan_text(plan['plan'])}" if tag == "rows" else
+                 "".join(f"; {k} {v}" for k, v in plan.items()))
         print(f"fold {tag} {name} table std {std}: "
               f"{'equals' if same else 'DIFFERS FROM'} {sib}; max abs err vs "
               f"plain {err:.3g}{' (lse)' if tag == 'lse' else ''}, out "
-              f"{float(d_out.max()):.3g} ({'ok' if ok else 'FAIL'})"
-              + "".join(f"; {k} {v}" for k, v in plan.items()), flush=True)
+              f"{float(d_out.max()):.3g} ({'ok' if ok else 'FAIL'})" + shown,
+              flush=True)
         if not ok:
             bad.append(f"{tag} {name} std {std}")
         rec = recs[tag]
@@ -1815,8 +1878,7 @@ def check_fold_sites(da, kernels) -> tuple:
         print(f"fold {tag} {name}: kernel {ms:.4f} ms, {sib} {ms_sib:.4f} ms; "
               f"plain {plain_ms:.4f} ms sdpa+mask {lib:.4f} ms; bound "
               f"{bound:.4f} ms ({by}) x{per}/"
-              f"{'step' if tag == 'lse' else 'forward'}"
-              + "".join(f"; {k} {v}" for k, v in plan.items()), flush=True)
+              f"{'step' if tag == 'lse' else 'forward'}" + shown, flush=True)
 
     ring = [FOLD_RING_SITE[:-1]]
     for tag, sites in (("rows", SITE_SITES), ("heads", SITE_SITES + ring),

@@ -19,15 +19,22 @@ the ring only), the grid's blocks, the blocks one SM holds (the library's
 ``fused_site_fold_heads_occupancy``, from
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; "-" where the library
 does not export it) and the waves they make. ``--kernel prefetch`` times
-the window-prefetch fused site (csrc/fused_site_wide_prefetch.cu) at phase
-18's shapes (``chip_smoke.SITE_SITES`` and, where chip_smoke has it,
-``PREFETCH_RING_SITE``) beside ``fused_site_wide``, ``fused_site`` and
-SDPA with the mask, then at the SCA G=4 ch 8 shape for B*V = 2, 4, ... 12;
-each line names the path (``fused_site_wide.prefetch_plan``; the ring only
-in a checkout without it), queries a block, shared memory, grid blocks,
-blocks an SM (the library's ``fused_site_wide_prefetch_occupancy``) and
-waves, and at the serving shapes the blocks an SM of the row-folded site
-(``fused_site_fold_rows_occupancy``). ``--kernel bias_bwd`` times both
+the fused sites of the whole-table template (csrc/site_whole.cuh) at
+phases 18 and 22's shapes (``chip_smoke.SITE_SITES`` and, where
+chip_smoke has it, ``PREFETCH_RING_SITE``): the window-prefetch site #10
+(csrc/fused_site_wide_prefetch.cu), the wide site #7
+(csrc/fused_site_wide.cu), the row-folded site #13
+(csrc/fused_site_fold_rows.cu) and the head-folded #11 beside
+``fused_site`` and SDPA with the mask; the logsumexp instances (#8-wide,
+``fused_site_lse``, #12) at ``TRAIN_SITE_SITES``; then #10, #7 and #13 at
+the SCA G=4 ch 8 shape for B*V = 2, 4, ... 12. Each line names the plans
+of #10 (``fused_site_wide.prefetch_plan``; the ring only in a checkout
+without it), #7 (``wide_plan``) and #13 (``fused_site_fold.rows_plan``;
+a checkout without them has their fixed blocks of 128 queries): path,
+heads and queries a block, shared memory, grid blocks, blocks an SM (the
+libraries' occupancy queries) and waves. A checkout with ``wide_plan``
+also times #7 and #8-wide forced onto path "raw" and #11 and #12 at the
+strips ``fused_site_fold.wave_strip`` gives them. ``--kernel bias_bwd`` times both
 bias backwards (csrc/bias_bwd_rows.cuh) at phases 8, 12 and 18's shapes
 beside ``grid_sampler_2d_backward``; ``--kernel bias_fwd`` times both wide
 bias forwards (csrc/bias_fwd_rows.cuh: ``lattice_bias_wide`` and
@@ -328,7 +335,10 @@ def prefetch_plan(cs, wide, lib, n_sm, B, G, ch, Wt, side) -> dict:
     ``fused_site_wide_prefetch`` at a site of BEV side x side with
     chip_smoke's heads per group (one head a block on either path)."""
     Ht = 2 * side - 1
-    if hasattr(wide, "prefetch_plan"):
+    if hasattr(wide, "wide_plan"):  # #10's whole path takes #7's plan
+        path, queries, threads, smem = wide.prefetch_plan(
+            Ht, Wt, side, side, ch, B * G * cs.HPG, n_sm)
+    elif hasattr(wide, "prefetch_plan"):
         path, queries, threads, smem = wide.prefetch_plan(Ht, Wt, side, side,
                                                           ch)
     else:  # a checkout before the whole-table path: the ring only
@@ -346,11 +356,85 @@ def prefetch_plan(cs, wide, lib, n_sm, B, G, ch, Wt, side) -> dict:
     return rec
 
 
+def site_plan(kernels, kernel, n_sm, B, G, Hpg, ch, Wt, side) -> dict:
+    """The plan of ``fused_site_wide`` (``kernel`` "wide") or
+    ``fused_site_fold_rows`` ("rows") at a site of BEV side x side: path,
+    heads and queries a block, grid blocks, blocks an SM (the card's
+    occupancy query) and waves. A checkout before they became instances of
+    csrc/site_whole.cuh (no ``wide_plan`` / ``rows_plan``) gets its fixed
+    128-query blocks: one head a block reading the raw table ("l1"), or
+    every head a block with the tables staged ("fold"), and for the latter
+    its library's occupancy where it has one."""
+    from bevrender_tpu_torch.ops.kernels import build
+    from bevrender_tpu_torch.ops.kernels._launch import padded_width
+
+    wide, fold = kernels.fused_site_wide, kernels.fused_site_fold
+    Ht, M = 2 * side - 1, side * side
+    Xp = padded_width(Wt)
+    if kernel == "wide" and hasattr(wide, "wide_plan"):
+        p = wide.wide_plan(Ht, Wt, side, side, ch, B * G * Hpg, n_sm)
+        return dict(p._asdict(), per_sm=wide.wide_blocks_per_sm(p, ch))
+    if kernel == "rows" and hasattr(fold, "rows_plan"):
+        p = fold.rows_plan(B, G, Hpg, Ht, Xp, side, side, ch, n_sm)
+        return dict(p._asdict(), per_sm=fold.rows_blocks_per_sm(p, ch))
+    heads = 1 if kernel == "wide" else Hpg
+    blocks = -(-M // 128) * B * G * Hpg // heads
+    rec = dict(path="l1" if kernel == "wide" else "fold", heads=heads,
+               strip=128, blocks=blocks, per_sm=None, waves=None)
+    if kernel == "rows" and hasattr(fold, "rows_smem"):
+        lib = build.load_library("fused_site_fold_rows")
+        rec["per_sm"] = lib.fused_site_fold_rows_occupancy(
+            ch, Hpg, fold.rows_smem(Hpg, Ht, Xp, ch))
+        rec["waves"] = -(-blocks // (rec["per_sm"] * n_sm))
+    return rec
+
+
+def wave_ms(best, kernels, which, args, B, G, Hpg, Ht, Wt, N, side, ch,
+            scale, n_sm):
+    """#11 (``which`` "heads") or #12 ("heads_lse") on its whole-table path
+    with the strip ``fused_site_fold.wave_strip`` gives its grid (the rule
+    of #7, #8-wide, #10 and #13), called through its C entry point; None
+    where that strip is the one its wrapper takes, or the checkout has no
+    ``wave_strip``."""
+    import torch
+
+    from bevrender_tpu_torch.ops.kernels._launch import call, padded_width
+
+    fold = kernels.fused_site_fold
+    if not hasattr(fold, "wave_strip"):
+        return None
+    Xp, M = padded_width(Wt), side * side
+    path, S, _, smem = fold.heads_plan(Hpg, Wt, side, side, ch)
+    if path != "whole":
+        return None
+    per_sm = fold.blocks_an_sm(smem, 2)  # the launch bounds' 2 blocks an SM
+    S2 = fold.wave_strip(Hpg, M, B * G, per_sm, n_sm, fold.MAX_THREADS)
+    if S2 == S:
+        return None
+    dev = args[0].device
+    out = torch.empty((B, G, Hpg, M, ch), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, G, Hpg, M), dtype=torch.float32, device=dev)
+    lib, fn = "fused_site_fold_heads", f"fused_site_fold_{which}_launch"
+    tail = (B, G, Hpg, Ht, Wt, Xp, N, side, side, S2, ch, float(scale))
+    outs = (out, lse) if which == "heads_lse" else (out,)
+    return best(lambda: call(lib, fn, (*args, *outs, *tail))), S2
+
+
 def prefetch_times(cs, card: str, result: dict) -> None:
-    """#10 at phase 18's shapes (SITE_SITES and PREFETCH_RING_SITE, where
-    chip_smoke has it) beside ``fused_site_wide``, ``fused_site`` (where its
-    table fits) and SDPA with the mask, then at the SCA G=4 ch 8 shape for
-    B*V = 2, 4, ... 12; and #13's blocks an SM at the serving shapes."""
+    """The site kernels of the whole-table template and their siblings:
+    #10 (``fused_site_wide_prefetch``), #7 (``fused_site_wide``), #13
+    (``fused_site_fold_rows``), #11 (``fused_site_fold_heads``),
+    ``fused_site`` and SDPA with the mask at phase 18's shapes
+    (SITE_SITES and PREFETCH_RING_SITE, where chip_smoke has it); the
+    logsumexp instances #8-wide (``fused_site_wide_lse``),
+    ``fused_site_lse`` and #12 (``fused_site_fold_heads_lse``) at the
+    training shapes (TRAIN_SITE_SITES); #10, #7 and #13 at the SCA G=4 ch 8
+    shape for B*V = 2, 4, ... 12. Each line prints the plans of #10, #7
+    and #13 (path, heads and queries a block, blocks, blocks an SM, waves).
+    Where the checkout has ``wide_plan``, #7 and #8-wide are also timed on
+    path "raw" where they take "whole" (``raw_ms``), and #11 and #12 at the
+    strips ``wave_strip`` would give them (``*_wave_ms``, with the strip)
+    where those differ from their own."""
     import torch
 
     from bevrender_tpu_torch.ops import deform_attn as da
@@ -360,43 +444,86 @@ def prefetch_times(cs, card: str, result: dict) -> None:
     wide, fold, bf = kernels.fused_site_wide, kernels.fused_site_fold, (
         torch.bfloat16)
     lib = build.load_library("fused_site_wide_prefetch")
-    rows_lib = build.load_library("fused_site_fold_rows")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     best = lambda fn: min(cs.queued_ms(fn, 5) for _ in range(3))  # noqa: E731
+    new = hasattr(wide, "wide_plan")
+    Hpg = cs.HPG
     _, B4, G4, ch4, N4, Wt4, _ = cs.SITE_SITES[2]
     ring = getattr(cs, "PREFETCH_RING_SITE", None)
-    runs = ([(*site, cs.H, 80 + i) for i, site in enumerate(cs.SITE_SITES)]
-            + ([(*ring[:-1], ring[-1], 84)] if ring else [])
-            + [(f"sweep_bv{b}_g{G4}_ch{ch4}", b, G4, ch4, N4, Wt4, 0, cs.H,
-                82) for b in range(2, 13, 2)])
-    for name, B, G, ch, N, Wt, per, side, seed in runs:
+    runs = ([("serve", *site, cs.H, 80 + i)
+             for i, site in enumerate(cs.SITE_SITES)]
+            + ([("serve", *ring[:-1], ring[-1], 84)] if ring else [])
+            + [("lse", *site, cs.H, 90 + i)
+               for i, site in enumerate(cs.TRAIN_SITE_SITES)]
+            + [("sweep", f"sweep_bv{b}_g{G4}_ch{ch4}", b, G4, ch4, N4, Wt4, 0,
+                cs.H, 82) for b in range(2, 13, 2)])
+    for tag, name, B, G, ch, N, Wt, per, side, seed in runs:
         table, k_pos, q, k, v = cs.site_inputs(seed, B, G, ch, N, Wt,
                                                side=side)
         scale = ch ** -0.5
+        Ht = 2 * side - 1
         kargs = da._kernel_args(table, k_pos, side, side) + tuple(
             x.to(bf).contiguous() for x in (q, k, v))
         geo, qkv = kargs[:7], kargs[8:]
-        rec = prefetch_plan(cs, wide, lib, n_sm, B, G, ch, Wt, side)
-        rec["ms"] = best(lambda: wide.fused_site_wide_prefetch_cuda(
-            *geo, *qkv, side, side, scale))
-        if not name.startswith("sweep"):
-            rec["fused_site_wide_ms"] = best(lambda: wide.fused_site_wide_cuda(
+        fits = da.site_route(table.shape, side, side, ch) == "whole"
+        folds = fold.rows_fit(Hpg, Ht, kargs[7], side, ch)
+        rec = {"wide": site_plan(kernels, "wide", n_sm, B, G, Hpg, ch, Wt,
+                                 side)}
+        if tag == "lse":
+            rec["ms"] = best(lambda: wide.fused_site_wide_lse_cuda(
                 *geo, *qkv, side, side, scale))
-            if da.site_route(table.shape, side, side, ch) == "whole":
-                rec["fused_site_ms"] = best(
-                    lambda: kernels.fused_site.fused_site_cuda(
+            if new and rec["wide"]["path"] == "whole":
+                rec["raw_ms"] = best(lambda: wide.fused_site_wide_lse_cuda(
+                    *geo, *qkv, side, side, scale, path="raw"))
+            rec["fused_site_lse_ms"] = best(
+                lambda: kernels.fused_site.fused_site_lse_cuda(
+                    *kargs, side, side, scale))
+            rec["fold_heads_lse_ms"] = best(
+                lambda: fold.fused_site_fold_heads_lse_cuda(
+                    *geo, *qkv, side, side, scale))
+            w = wave_ms(best, kernels, "heads_lse", geo + qkv, B, G, Hpg, Ht,
+                        Wt, N, side, ch, scale, n_sm)
+            if w:
+                rec["fold_heads_lse_wave_ms"], rec["fold_heads_lse_wave"] = w
+        else:
+            rec["prefetch"] = prefetch_plan(cs, wide, lib, n_sm, B, G, ch, Wt,
+                                            side)
+            rec["prefetch_ms"] = best(
+                lambda: wide.fused_site_wide_prefetch_cuda(
+                    *geo, *qkv, side, side, scale))
+            rec["ms"] = best(lambda: wide.fused_site_wide_cuda(
+                *geo, *qkv, side, side, scale))
+            if new and rec["wide"]["path"] == "whole":
+                rec["raw_ms"] = best(lambda: wide.fused_site_wide_cuda(
+                    *geo, *qkv, side, side, scale, path="raw"))
+            if folds:
+                rec["rows"] = site_plan(kernels, "rows", n_sm, B, G, Hpg, ch,
+                                        Wt, side)
+                rec["fold_rows_ms"] = best(
+                    lambda: fold.fused_site_fold_rows_cuda(
                         *kargs, side, side, scale))
+            if tag == "serve":
+                if fits:
+                    rec["fused_site_ms"] = best(
+                        lambda: kernels.fused_site.fused_site_cuda(
+                            *kargs, side, side, scale))
+                if fold.heads_fit(Hpg, Wt, side, side, ch) and fold.heads_plan(
+                        Hpg, Wt, side, side, ch)[0] == "whole":
+                    rec["fold_heads_ms"] = best(
+                        lambda: fold.fused_site_fold_heads_cuda(
+                            *geo, *qkv, side, side, scale))
+                    w = wave_ms(best, kernels, "heads", geo + qkv, B, G, Hpg,
+                                Ht, Wt, N, side, ch, scale, n_sm)
+                    if w:
+                        rec["fold_heads_wave_ms"], rec["fold_heads_wave"] = w
+        if tag != "sweep":
             bias = da.lattice_bias_plain(table.bfloat16().float(), k_pos,
                                          side, side, torch.float32)
             rec["sdpa_ms"] = min(cs.sdpa_ms(q, k, v, bias, scale, 5)
                                  for _ in range(3))
             del bias
-        if side == cs.H and hasattr(rows_lib, "fused_site_fold_rows_occupancy"):
-            Xp = da.padded_width(Wt)
-            rec["fold_rows_per_sm"] = rows_lib.fused_site_fold_rows_occupancy(
-                ch, cs.HPG, fold.rows_smem(cs.HPG, 2 * side - 1, Xp, ch))
-        result["ms"][name] = rec
-        print(f"prefetch {name} (x{per}): "
+        result["ms"][f"{tag} {name}"] = rec
+        print(f"{tag} {name} (x{per}): "
               + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
                           else f"{k} {v if v is not None else '-'}"
                           for k, v in rec.items()) + f" [{card}]", flush=True)
@@ -775,13 +902,27 @@ def fwd_sass(lib: Path) -> dict:
             for name, ops in sass_functions(lib).items()}
 
 
-# what each copy changes in the bias forwards, (file, text, new text):
+# what each copy changes, (file under csrc/, text, new text): in #7's raw
+# path, "wide_minb3" and "wide_minb2" ask the compiler for 3 or 2
+# blocks an SM of 160 threads (room for more registers) in place of 4;
+# "wide_strip" takes ``fused_site_fold.strip``'s fewest strips in place of
+# ``wave_strip``'s. In the bias forwards:
 # "no_staging" skips the staging of the table in shared memory (the
 # stage_padded call of #1 before the template, or the template's stage_raw
 # call), so the kernel reads whatever shared memory holds; "no_row_test"
 # drops the test of a strip's first x-lerp (always true) that the staged
 # W > 32 instance keeps, which changes how the compiler unrolls its row loop
-COPIES = {"no_staging": (
+COPIES = {
+    "wide_minb3": (("fused_site_wide.cu", "constexpr int MIN_BLOCKS = 4;",
+                    "constexpr int MIN_BLOCKS = 3;"),),
+    "wide_minb2": (("fused_site_wide.cu", "constexpr int MIN_BLOCKS = 4;",
+                    "constexpr int MIN_BLOCKS = 2;"),),
+    "wide_strip": (("../fused_site_wide.py",
+                    "S = wave_strip(1, H * W, heads, per_sm, sms, "
+                    "WIDE_THREADS)",
+                    "from bevrender_tpu_torch.ops.kernels.fused_site_fold "
+                    "import strip\n    S = strip(1, H * W, WIDE_THREADS)"),),
+    "no_staging": (
     ("lattice_bias.cu", "lattice::stage_padded(",
      "if (0) lattice::stage_padded("),
     ("bias_fwd_rows.cuh", "t = stage_raw(",
@@ -837,6 +978,8 @@ def run_in_turns(specs: list, argv: list) -> None:
     for spec, res in runs:
         for shape, rec in res["ms"].items():
             for kernel, v in rec.items():
+                if not isinstance(v, (float, dict)):
+                    continue  # a plan's name or count
                 vals = v if kernel == "layouts" else {"ms": v} if isinstance(
                     v, float) else {k: x for k, x in v.items()
                                     if k in ("ms", "launch_floor",
@@ -905,7 +1048,9 @@ def main() -> None:
     sources = dict(site_bwd=("fused_site_bwd",),
                    windows_bwd=("lattice_windows",),
                    fold_heads=("fused_site_fold_heads",),
-                   prefetch=("fused_site_wide_prefetch",),
+                   prefetch=("fused_site_wide_prefetch", "fused_site_wide",
+                             "fused_site_fold_rows", "fused_site_fold_heads",
+                             "fused_site"),
                    bias_bwd=("lattice_bias_bwd", "lattice_bias_wide_bwd"),
                    bias_fwd=("lattice_bias", "lattice_bias_wide",
                              "lattice_bias_wide_prefetch"),

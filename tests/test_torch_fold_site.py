@@ -236,6 +236,67 @@ def test_fold_rows_needs_room_for_every_head():
                             opts, training=False) == ("fused_site_fold_rows",)
 
 
+def _rows_fit_before(Hpg, Ht, Xp, W, ch) -> bool:
+    """``rows_fit`` as it stood before the row-folded site became an
+    instance of csrc/site_whole.cuh: the heads fold, and the Hpg padded
+    tables with every head's K and V tile in float32 and three words of
+    geometry a key fit one block."""
+    smem = Hpg * (Ht + 8) * Xp * 2 + 2 * Hpg * 32 * ch * 4 + 32 * 12
+    return Hpg in (1, 2) and Hpg * W <= 128 and smem <= 232448
+
+
+@pytest.mark.parametrize("sites", ["flagship", "pyramid", "grid"])
+def test_rows_fit_takes_every_site_it_took_before(sites):
+    """``rows_fit`` is now the template's fit (every head's padded table
+    and the whole-table key stages in one block, 640 bytes more than the
+    old kernel's layout): at every site of both supported models it takes
+    what it took before; over PATH_GRID it takes nothing new and drops
+    only sites whose old layout came within 640 bytes of a block's shared
+    memory."""
+    fold = kernels.fused_site_fold
+    if sites == "grid":
+        rows = [(Hpg, 2 * H - 1, tda.padded_width(Wt), H, ch)
+                for Hpg, H, Wt, ch in PATH_GRID]
+    else:
+        mc = FLAGSHIP if sites == "flagship" else PYRAMID
+        rows = [(t[1], t[2], tda.padded_width(t[3]), W, q[-1])
+                for q, t, H, W, _ in _site_calls(mc, 4)]
+    before = [_rows_fit_before(*r) for r in rows]
+    now = [fold.rows_fit(*r) for r in rows]
+    if sites != "grid":
+        assert now == before and any(now)
+        return
+    for r, a, b in zip(rows, before, now):
+        assert b <= a, r
+        if a != b:
+            Hpg, Ht, Xp, _, ch = r
+            assert fold.whole_smem(Hpg, Ht, Xp, ch) - 640 <= 232448, r
+    assert sum(now) > 0
+
+
+@pytest.mark.parametrize("site", chip_smoke.SITE_SITES
+                         + chip_smoke.TRAIN_SITE_SITES)
+def test_rows_plan_follows_the_shapes(site):
+    """``fused_site_fold_rows`` at chip_smoke's shapes (phase 22) takes one
+    head's padded table a block (ROWS_HEADS), four blocks an SM counted
+    on, in the strip ``wave_strip`` gives its B * G * Hpg block rows: 160
+    at the SCA shapes, 128 at the TSA ones but the serving G = 8 (160)."""
+    name, B, G, ch, N, Wt, _ = site
+    fold = kernels.fused_site_fold
+    H, Xp = chip_smoke.H, tda.padded_width(Wt)
+    plan = fold.rows_plan(B, G, chip_smoke.HPG, 2 * H - 1, Xp, H, H, ch, 132)
+    assert fold.rows_fit(chip_smoke.HPG, 2 * H - 1, Xp, H, ch)
+    assert (plan.path, plan.heads, plan.per_sm) == ("whole", 1, 4)
+    assert plan.smem == fold.whole_smem(1, 2 * H - 1, Xp, ch)
+    rows = B * G * chip_smoke.HPG
+    assert plan.strip == plan.threads == fold.wave_strip(
+        1, H * H, rows, 4, 132, fold.ROWS_THREADS)
+    assert plan.strip == (160 if name.startswith("sca") or (B, G) == (4, 8)
+                          else 128)
+    assert plan.blocks == -(-(H * H) // plan.strip) * rows
+    assert plan.waves == -(-plan.blocks // (4 * 132))
+
+
 def test_site_fold_heads_needs_site_prefetch():
     with pytest.raises(ValueError, match="site_prefetch"):
         tda.SiteOptions(site_fold_heads=True, site_prefetch=False)

@@ -538,7 +538,8 @@ def test_prefetch_paths_equal_fused_site_wide(cuda_device, Hpg, H, W, Wt, N,
     site's tolerance of the plain version. At the flagship's SCA width
     three or more whole-table blocks fit an SM (one ring block did)."""
     wide = kernels.fused_site_wide
-    assert wide.prefetch_plan(2 * H - 1, Wt, H, W, ch)[0] == path
+    assert wide.prefetch_plan(2 * H - 1, Wt, H, W, ch, 2 * 2 * Hpg,
+                              132)[0] == path
     table, k_pos, q, k, v = _inputs(27, 2, 2, Hpg, H, W, Wt, N, ch,
                                     cuda_device, 1.0)
     scale = ch ** -0.5
@@ -559,7 +560,94 @@ def test_prefetch_paths_equal_fused_site_wide(cuda_device, Hpg, H, W, Wt, N,
     assert torch.equal(pre, out)
     assert bool(((pre - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
     if (H, Wt) == (28, 279):
-        assert wide.prefetch_blocks_per_sm(2 * H - 1, Wt, H, W, ch) >= 3
+        assert wide.prefetch_blocks_per_sm(2 * H - 1, Wt, H, W, ch,
+                                           2 * 2 * Hpg, 132) >= 3
+
+
+# (Hpg, H, W, table width, N, ch): the wide and row-folded sites, instances
+# of csrc/site_whole.cuh, at the flagship's SCA (784 queries in 5 strips of
+# 160) and TSA widths, a non-square 12 x 20, BEV 10 (one strip) and one head
+# per group, N no multiple of 32 but at the TSA.
+TEMPLATE_SITES = [
+    (2, 28, 28, 279, 1959, 8), (2, 28, 28, 55, 196, 4),
+    (2, 12, 20, 119, 70, 8), (2, 10, 10, 39, 45, 4),
+    (1, 28, 28, 279, 100, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["whole", "raw"])
+@pytest.mark.parametrize("Hpg,H,W,Wt,N,ch", TEMPLATE_SITES)
+def test_template_site_paths_equal_fused_site(cuda_device, Hpg, H, W, Wt, N,
+                                              ch, path):
+    """``fused_site_wide`` on each table source, "whole" (the head's padded
+    table staged, which ``wide_plan`` takes at all of these) and "raw" (the
+    raw table through L1), equals ``fused_site`` bit for bit, and its
+    logsumexp instance ``fused_site_lse`` in output and logsumexp;
+    ``fused_site_fold_rows`` (its heads' tables staged) equals
+    ``fused_site``; one launch each, within the fused site's tolerance of
+    the plain version."""
+    wide, fold = kernels.fused_site_wide, kernels.fused_site_fold
+    assert wide.wide_plan(2 * H - 1, Wt, H, W, ch, 2 * 2 * Hpg,
+                          132).path == "whole"
+    table, k_pos, q, k, v = _inputs(28, 2, 2, Hpg, H, W, Wt, N, ch,
+                                    cuda_device, 1.0)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, W)
+    geo, qkv = kargs[:7], kargs[8:]
+    before = kernels.counts()
+    with torch.no_grad():
+        whole = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
+        whole_o, whole_lse = kernels.fused_site.fused_site_lse_cuda(
+            *kargs, H, W, scale)
+        out = wide.fused_site_wide_cuda(*geo, *qkv, H, W, scale, path=path)
+        out_o, out_lse = wide.fused_site_wide_lse_cuda(*geo, *qkv, H, W,
+                                                       scale, path=path)
+        rows = fold.fused_site_fold_rows_cuda(*kargs, H, W, scale)
+        bias = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, W,
+                                      torch.float32)
+        ref = tda.site_consumer(q, k, v, bias, scale)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"fused_site": 1, "fused_site_lse": 1, "fused_site_wide": 1,
+            "fused_site_wide_lse": 1, "fused_site_fold_rows": 1}
+    assert torch.equal(out, whole) and torch.equal(rows, whole)
+    assert torch.equal(out_o, whole_o) and torch.equal(out_lse, whole_lse)
+    assert bool(((out - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [4, 8])
+def test_wide_raw_path_takes_an_oversized_table(cuda_device, ch):
+    """Where one head's padded table overflows a block (BEV 64 at depth 5:
+    135 x 969, 264,702 bytes with the key stages) ``fused_site_wide`` and
+    its logsumexp instance take path "raw" by the shapes alone, and stand
+    within the fused site's tolerances of the plain version (output) and
+    of ``site_plain_lse`` (logsumexp)."""
+    H = W = 64
+    wide = kernels.fused_site_wide
+    plan = wide.wide_plan(2 * H - 1, 639, H, W, ch, 2 * 2, 132)
+    assert plan.path == "raw" and plan.smem < 4096
+    table, k_pos, q, k, v = _inputs(29, 1, 2, 2, H, W, 639, 300, ch,
+                                    cuda_device, 1.0)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, W)
+    geo, qkv = kargs[:7], kargs[8:]
+    with torch.no_grad():
+        out = wide.fused_site_wide_cuda(*geo, *qkv, H, W, scale)
+        out_o, out_lse = wide.fused_site_wide_lse_cuda(*geo, *qkv, H, W,
+                                                       scale)
+        tb = table.bfloat16().float()
+        _, ref_lse = tda.site_plain_lse(q, k, v, k_pos, tb, H, W, scale,
+                                        torch.float32)
+        bias = tda.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+        ref = tda.site_consumer(q, k, v, bias, scale)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out_o, out)
+    assert bool(((out - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
+    assert float((out_lse - ref_lse).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -668,16 +756,21 @@ def test_fold_wrappers_refuse_cpu_tensors_and_other_heads():
 
 def test_fold_sizes_follow_the_shapes():
     """At the flagship's SCA (55 x 279, W = 28, two heads) the row-folded
-    site stages two padded tables of 63 x 429 and the head-folded ring is
-    two slots of 16 keys x 2 heads x 7 rows x 152 columns, the per-head
-    prefetch ring's 136 KB, though the head-folded site takes its
-    whole-table path (113 KB); a shape whose ring overflows shared memory
-    is refused with the numbers (two heads of BEV 64 at depth 8)."""
+    site folds where both padded tables of 63 x 429 fit one block with the
+    whole-table key stages, and stages one of them a block; the
+    head-folded ring is two slots of 16 keys x 2 heads x 7 rows x 152
+    columns, the per-head prefetch ring's 136 KB, though the head-folded
+    site takes its whole-table path (113 KB); a shape whose ring overflows
+    shared memory is refused with the numbers (two heads of BEV 64 at depth
+    8)."""
     fold = kernels.fused_site_fold
     Xp = tda.padded_width(279)
-    assert fold.rows_smem(2, 55, Xp, 8) == (2 * 63 * Xp * 2
-                                            + 2 * 2 * 32 * 8 * 4 + 32 * 12)
+    assert fold.whole_smem(2, 55, Xp, 8) == (2 * 63 * Xp * 2
+                                             + 2 * (2 * 2 * 32 * 8 * 2
+                                                    + 32 * 16))
     assert fold.rows_fit(2, 55, Xp, 28, 8)
+    assert fold.rows_plan(12, 4, 2, 55, Xp, 28, 28, 8, 132).smem == (
+        fold.whole_smem(1, 55, Xp, 8))
     assert not fold.rows_fit(2, 127, tda.padded_width(639), 64, 4)
     R, CW, _, smem = fold.fold_ring(2, 279, 28, 28, 8)
     assert (R, CW) == (7, 152)

@@ -476,10 +476,13 @@ PREFETCH_PLANS = [
 def test_prefetch_plan_follows_the_shapes(Ht, Wt, H, ch, path, smem):
     """``fused_site_wide_prefetch`` takes its whole-table path wherever one
     head's padded table and two key stages (K and V rows in bf16, four
-    words of geometry a key) fit one block, in strips of at most
-    WHOLE_THREADS queries (one head a block), and its window ring where
-    not; the shared memory is each kernel's layout."""
-    got, S, threads, need = fused_site_wide.prefetch_plan(Ht, Wt, H, H, ch)
+    words of geometry a key) fit one block, in the strips of at most
+    WHOLE_THREADS queries (one head a block) of ``fused_site_wide``'s plan
+    of that path, and its window ring where not; the shared memory is each
+    kernel's layout."""
+    heads = 2 * 4 * 2  # B = 2, G = 4, two heads a group
+    got, S, threads, need = fused_site_wide.prefetch_plan(Ht, Wt, H, H, ch,
+                                                          heads, 132)
     assert (got, need) == (path, smem)
     assert threads == S and S % 32 == 0 and S <= 256
     whole = (2 * (2 * 32 * ch * 2 + 4 * 32 * 4)
@@ -488,9 +491,11 @@ def test_prefetch_plan_follows_the_shapes(Ht, Wt, H, ch, path, smem):
                                                       tda.padded_width(Wt), ch)
     if path == "whole":
         assert need == whole <= fused_site_wide.SMEM_PER_BLOCK
-        assert S == kernels.fused_site_fold.strip(
-            1, H * H, fused_site_wide.WHOLE_THREADS)
+        assert S == kernels.fused_site_fold.wave_strip(
+            1, H * H, heads, 4, 132, fused_site_wide.WHOLE_THREADS)
         assert S <= fused_site_wide.WHOLE_THREADS
+        assert fused_site_wide.wide_plan(Ht, Wt, H, H, ch, heads, 132)[
+            :5] == ("whole", 1, S, S, need)
     else:
         assert whole > fused_site_wide.SMEM_PER_BLOCK
         assert (S, need) == (128, fused_site_wide.prefetch_ring(
@@ -500,7 +505,8 @@ def test_prefetch_plan_follows_the_shapes(Ht, Wt, H, ch, path, smem):
 def test_flagship_prefetch_sites_take_the_whole_path():
     """Every site that the flagship's wide + prefetch request (phase 15)
     sends to ``fused_site_wide_prefetch`` takes its whole-table path, in 5
-    strips of 160 of the 784 queries."""
+    strips of 160 of the 784 queries, but the TSA of G = 4 (32 heads of
+    784 queries: 7 strips of 128, ``wave_strip``)."""
     opts = tda.SiteOptions(lattice_route="wide", site_prefetch=True,
                            bias_forward="prefetch")
     launches = 0
@@ -508,8 +514,10 @@ def test_flagship_prefetch_sites_take_the_whole_path():
         if tda.site_kernels(q, t, H, W, opts,
                             training=False) == ("fused_site_wide_prefetch",):
             launches += 2 * n  # the history and the final pass
-            assert fused_site_wide.prefetch_plan(t[2], t[3], H, W, q[-1])[
-                :2] == ("whole", 160)
+            heads = q[0] * t[0] * t[1]
+            assert fused_site_wide.prefetch_plan(
+                t[2], t[3], H, W, q[-1], heads, 132)[:2] == (
+                    "whole", 128 if heads == 32 else 160)
     assert launches == chip_smoke.WIDE_PREFETCH_PER_FORWARD[
         "fused_site_wide_prefetch"]
 
@@ -526,7 +534,8 @@ def test_chip_smoke_prefetch_sites_take_the_paths_it_expects(site):
     ring = name == chip_smoke.PREFETCH_RING_SITE[0]
     side = chip_smoke.PREFETCH_RING_SITE[-1] if ring else chip_smoke.H
     Ht = 2 * side - 1
-    path = fused_site_wide.prefetch_plan(Ht, Wt, side, side, ch)[0]
+    path = fused_site_wide.prefetch_plan(Ht, Wt, side, side, ch,
+                                         B * G * chip_smoke.HPG, 132)[0]
     assert path == ("ring" if ring else "whole")
     table_shape = (G, chip_smoke.HPG, Ht, Wt)
     assert tda.site_route(table_shape, side, side, ch) == (
@@ -542,14 +551,129 @@ def test_prefetch_plan_refuses_a_site_that_fits_neither_path():
     with pytest.raises(ValueError, match=r"2 x 32 keys x 3 rows x 1016 "
                        r"columns needs 391552 bytes of shared memory, over "
                        r"232448"):
-        fused_site_wide.prefetch_plan(399, 1999, 200, 200, 4)
+        fused_site_wide.prefetch_plan(399, 1999, 200, 200, 4, 2, 132)
+
+
+# ---- the wide site's plan and the strip rule ---------------------------------
+
+# (name, batch, G, ch, BEV side, table width, path, strip, shared memory,
+# blocks, waves) of ``fused_site_wide`` on a 132-SM card: chip_smoke's
+# serving and training shapes (phases 14 and 16, two heads a group), its
+# PREFETCH_RING_SITE, and a head of BEV 200 at depth 5 (399 x 1999), which
+# #10 refuses; the stages are 2 x (2 x 32 ch x 2 + 512) bytes, a padded
+# table 63 x 93 (TSA) or 63 x 429 (SCA) bf16.
+WIDE_PLANS = [
+    ("serve_tsa_g4_ch8", 4, 4, 8, 28, 55, "whole", 128, 3072 + 11718, 224, 1),
+    ("serve_tsa_g8_ch4", 4, 8, 4, 28, 55, "whole", 160, 2048 + 11718, 320, 1),
+    ("serve_sca_g4_ch8", 12, 4, 8, 28, 279, "whole", 160, 57126, 480, 1),
+    ("serve_sca_g8_ch4", 12, 8, 4, 28, 279, "whole", 160, 56102, 960, 2),
+    ("train_tsa_g4_ch8", 2, 4, 8, 28, 55, "whole", 128, 14790, 112, 1),
+    ("train_tsa_g8_ch4", 2, 8, 4, 28, 55, "whole", 128, 13766, 224, 1),
+    ("train_sca_g4_ch8", 6, 4, 8, 28, 279, "whole", 160, 57126, 240, 1),
+    ("train_sca_g8_ch4", 6, 8, 4, 28, 279, "whole", 160, 56102, 480, 1),
+    ("ring_bev64_g4_ch8", 2, 4, 8, 64, 639, "raw", 128, 3072, 512, 1),
+    ("bev200_g1_ch4", 1, 1, 4, 200, 1999, "raw", 160, 2048, 500, 1)]
+
+
+@pytest.mark.parametrize("name,B,G,ch,side,Wt,path,S,smem,blocks,waves",
+                         WIDE_PLANS, ids=[p[0] for p in WIDE_PLANS])
+def test_wide_plan_follows_the_shapes(name, B, G, ch, side, Wt, path, S,
+                                      smem, blocks, waves):
+    """``fused_site_wide`` stages the head's padded table ("whole") wherever
+    it fits one block with the key stages, every shipped site, and reads
+    the raw table ("raw", the key stages alone) where it does not, so any
+    table launches; one head a block in the strip ``wave_strip`` gives,
+    four blocks an SM counted on."""
+    heads = B * G * chip_smoke.HPG
+    plan = fused_site_wide.wide_plan(2 * side - 1, Wt, side, side, ch, heads,
+                                     132)
+    assert (plan.path, plan.strip, plan.smem, plan.blocks, plan.waves) == (
+        path, S, smem, blocks, waves)
+    assert plan.heads == 1 and plan.threads == S and plan.per_sm == 4
+    whole = kernels.fused_site_fold.whole_smem(1, 2 * side - 1,
+                                               tda.padded_width(Wt), ch)
+    assert (whole <= fused_site_wide.SMEM_PER_BLOCK) == (path == "whole")
+    assert plan.strip == kernels.fused_site_fold.wave_strip(
+        1, side * side, heads, 4, 132, fused_site_wide.WIDE_THREADS)
+    forced = fused_site_wide.wide_plan(2 * side - 1, Wt, side, side, ch,
+                                       heads, 132, "raw")
+    assert forced.path == "raw" and forced.smem == 2 * (
+        2 * 32 * ch * 2 + 512)
+    with pytest.raises(ValueError, match="path"):
+        fused_site_wide.wide_plan(2 * side - 1, Wt, side, side, ch, heads,
+                                  132, "l1")
+
+
+def test_chip_smoke_wide_sites_take_the_paths_it_expects():
+    """chip_smoke's phase 18 fails unless ``fused_site_wide`` (and its
+    logsumexp instance) takes path "whole" at every serving and training
+    shape and "raw" at PREFETCH_RING_SITE, whose table ``fused_site``
+    leaves to it; every flagship site that the wide route (phases 14, 16)
+    sends to either takes "whole"."""
+    H = chip_smoke.H
+    for name, B, G, ch, N, Wt, _ in (chip_smoke.SITE_SITES
+                                     + chip_smoke.TRAIN_SITE_SITES):
+        assert fused_site_wide.wide_plan(2 * H - 1, Wt, H, H, ch,
+                                         B * G * 2, 132).path == "whole"
+    _, B, G, ch, N, Wt, _, side = chip_smoke.PREFETCH_RING_SITE
+    assert fused_site_wide.wide_plan(2 * side - 1, Wt, side, side, ch,
+                                     B * G * 2, 132).path == "raw"
+    seen = 0
+    for training, B in ((False, chip_smoke.SERVE_B),
+                        (True, chip_smoke.TRAIN_B)):
+        opts = tda.SiteOptions(lattice_route="wide", fused_bwd=training)
+        for q, t, H, W, _ in _site_calls(FLAGSHIP, B):
+            kernel = tda.site_kernels(q, t, H, W, opts, training=training)[0]
+            if kernel.startswith("fused_site_wide"):
+                seen += 1
+                assert fused_site_wide.wide_plan(
+                    t[2], t[3], H, W, q[-1], q[0] * t[0] * t[1],
+                    132).path == "whole"
+    assert seen == 12  # stages 2-4, a TSA and an SCA site each, twice
+
+
+# (heads a block, M, block rows, blocks an SM, SMs, threads at most, strip):
+# one head a block at the flagship's SCA serving (one wave of 5 strips) and
+# with 192 rows (two waves), at its TSA (7 strips of 128: the busiest SM 8
+# warps against 10), on a 114-SM card (two waves either way: 7 strips of
+# 128, the busiest SM 24 warps over both, against 25 for 160); two heads a
+# block at the training SCA's 24 rows (80: 240 blocks in one wave, the busiest SM 10
+# warps against 14) and 96 rows (112: 3 waves, where 80 took 4);
+# PREFETCH_RING_SITE's 4096 queries of 16 heads (32 strips of 128, 512
+# blocks in one wave); a grid far under a wave (BEV 7, 8 rows: two strips
+# of 32, the busiest SM one warp against two).
+STRIPS = [(1, 784, 96, 4, 132, 160, 160), (1, 784, 192, 4, 132, 160, 160),
+          (1, 784, 32, 4, 132, 160, 128), (1, 784, 96, 4, 114, 160, 128),
+          (2, 784, 24, 2, 132, 256, 80), (2, 784, 96, 2, 132, 256, 112),
+          (1, 4096, 16, 4, 132, 160, 128), (1, 49, 8, 4, 132, 160, 32)]
+
+
+@pytest.mark.parametrize("heads,M,rows,per_sm,sms,most,want", STRIPS)
+def test_wave_strip_fills_whole_waves(heads, M, rows, per_sm, sms, most,
+                                      want):
+    """The strip takes the fewest waves any strip of at most ``most``
+    threads can (those of the largest), and among those the least load on
+    the busiest SM; its threads are a multiple of 32 and its strips cover
+    the queries as evenly as that allows."""
+    fold = kernels.fused_site_fold
+    S = fold.wave_strip(heads, M, rows, per_sm, sms, most)
+    assert S == want
+    assert (heads * S) % 32 == 0 and heads * S <= most
+    slots = per_sm * sms
+    waves = -(-(-(-M // S) * rows) // slots)
+    largest = most // heads
+    assert waves == -(-(-(-M // largest) * rows) // slots)
+    strips = -(-M // S)
+    assert S - (-(-M // strips)) < 32 // heads  # no strip a step too wide
 
 
 def test_chip_smoke_reads_whole_table_launches_by_launch_bounds():
     """The whole-table paths of ``fused_site_wide_prefetch`` and
-    ``fused_site_fold_heads`` launch one template (csrc/site_whole.cuh):
-    chip_smoke tells their launches apart in the profiler's names by the
-    launch bounds each source gives its instances, which these are."""
+    ``fused_site_fold_heads`` launch one instance kernel of
+    csrc/site_whole.cuh: chip_smoke tells their launches apart in the
+    profiler's names by the launch bounds each source gives its instances,
+    which these are; ``fused_site_wide`` and ``fused_site_fold_rows`` run
+    the template in kernels of their own names."""
     csrc = ROOT / "bevrender_tpu_torch" / "ops" / "kernels" / "csrc"
     pre = (csrc / "fused_site_wide_prefetch.cu").read_text()
     assert fused_site_wide.WHOLE_THREADS == 160
@@ -564,7 +688,14 @@ def test_chip_smoke_reads_whole_table_launches_by_launch_bounds():
         Event("void site_whole::fused_site_whole_kernel<4, 2, 256, 2>(", 8),
         Event("void (anonymous namespace)::fused_site_wide_prefetch_kernel<8>(",
               2),
+        Event("void (anonymous namespace)::fused_site_wide_kernel<8, 0>(", 4),
+        Event("void (anonymous namespace)::fused_site_fold_rows_kernel<4>(",
+              6),
         Event("void (anonymous namespace)::lattice_bias_wide_kernel<8>(", 64)]
     assert chip_smoke.seen_launches(avgs, "fused_site_wide_prefetch") == 18
     assert chip_smoke.seen_launches(avgs, "fused_site_fold_heads") == 8
+    assert chip_smoke.seen_launches(avgs, "fused_site_wide") == 4
+    assert chip_smoke.seen_launches(avgs, "fused_site_fold_rows") == 6
     assert chip_smoke.seen_launches(avgs, "lattice_bias_wide") == 64
+    for name in ("fused_site_wide.cu", "fused_site_fold_rows.cu"):
+        assert name[:-3] + "_kernel(" in (csrc / name).read_text()
