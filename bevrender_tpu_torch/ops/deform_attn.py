@@ -343,16 +343,19 @@ def bias_route(table_shape, H: int, W: int) -> str:
 def site_route(table_shape, H: int, W: int, ch: int) -> str:
     """Which fused-site kernel a narrow-head site takes on the card, from
     its shapes alone: "whole" (``fused_site``) when one head's zero-padded
-    bf16 table and the key tile (K and V in float32, three words of
-    geometry a key) fit in the shared memory of one block, as
-    csrc/fused_site.cu lays them out; "wide" (``fused_site_wide``, which
-    then reads the raw table through L1, its path "raw") when not. Every
-    shipped site is whole:
-    the largest table, the pyramid's SCA at BEV 56, needs 202 KB; a narrow
-    head at BEV 64 with depth 5 (127 x 639) would need 262 KB."""
+    bf16 table and the two key stages of the whole-table template (K and V
+    in bf16, four words of geometry a key) fit in the shared memory of one
+    block, as csrc/fused_site.cu lays them out
+    (``fused_site_fold.whole_smem`` at one head); "wide"
+    (``fused_site_wide``, which then reads the raw table through L1, its
+    path "raw") when not. A route of the shapes, not a fallback. Every
+    shipped site is whole: the largest table, the pyramid's SCA at BEV 56,
+    needs 202 KB; a narrow head at BEV 64 with depth 5 (127 x 639) would
+    need 262 KB. The stages take 640 bytes more than the float32 key tile
+    of the kernel before the template, so a table within those 640 bytes
+    of the limit, which took "whole" then, takes "wide"."""
     _, _, Ht, Wt = table_shape
-    need = ((Ht + 2 * PAD) * padded_width(Wt) * 2
-            + _fused_site_kernel.KEY_TILE * (2 * ch + 3) * 4)
+    need = _fold_kernel.whole_smem(1, Ht, padded_width(Wt), ch)
     return "whole" if need <= SMEM_PER_BLOCK else "wide"
 
 

@@ -17,6 +17,9 @@ SMEM_PER_BLOCK_RESERVED = 1024
 # rows (above and below) and columns (on the left) of zero padding around an
 # rpe table in the kernels (PAD in csrc/lattice_common.cuh)
 PAD = 4
+# head widths the fused-site kernels have instances for
+HEAD_WIDTHS = (4, 8)
+KEY_TILE = 32  # keys per online-softmax step, KT in csrc/site_common.cuh
 
 
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device):
@@ -51,6 +54,22 @@ def check_geometry(fn: str, table, ys, ms, wy, f, u0, g, H: int, W: int,
         check("gout", gout, torch.bfloat16, (B, G, Hpg, N, H * W), dev)
     if dev.type != "cuda":
         raise ValueError(f"{fn} takes CUDA tensors")
+
+
+def check_site_args(table, ys, ms, wy, f, u0, g, q, k, v, H: int, W: int):
+    """Shape, dtype, device and layout checks shared by the site kernels'
+    wrappers; returns (B, G, Hpg, Ht, Wt, N, ch)."""
+    ch = q.shape[-1]
+    if ch not in HEAD_WIDTHS:
+        raise ValueError(f"fused site takes head widths {HEAD_WIDTHS}, got {ch}")
+    check_geometry("the fused site kernels", table, ys, ms, wy, f, u0, g, H, W)
+    G, Hpg, Ht, Wt = table.shape
+    B, _, N = ys.shape
+    dev = table.device
+    check("q", q, torch.bfloat16, (B, G, Hpg, H * W, ch), dev)
+    check("k", k, torch.bfloat16, (B, G, Hpg, N, ch), dev)
+    check("v", v, torch.bfloat16, (B, G, Hpg, N, ch), dev)
+    return B, G, Hpg, Ht, Wt, N, ch
 
 
 def window_width(Wt: int) -> int:

@@ -14,8 +14,8 @@ from bevrender_tpu_torch.ops.kernels._launch import (
     SMEM_PER_BLOCK,
     call,
     check,
+    check_site_args,
 )
-from bevrender_tpu_torch.ops.kernels.fused_site import check_site_args
 
 launches = 0  # kernel launches since the last reset (ops.kernels.reset_counts)
 

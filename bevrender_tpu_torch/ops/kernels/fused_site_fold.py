@@ -34,17 +34,18 @@ from typing import NamedTuple
 import torch
 
 from bevrender_tpu_torch.ops.kernels._launch import (
+    KEY_TILE,
     PAD,
     SMEM_PER_BLOCK,
     SMEM_PER_BLOCK_RESERVED,
     SMEM_PER_SM,
     blocks_per_sm,
     call,
+    check_site_args,
     padded_width,
     sm_count,
     window_columns,
 )
-from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
 
 # kernel launches since the last reset (ops.kernels.reset_counts)
 launches_rows = 0  # fused_site_fold_rows
@@ -197,6 +198,20 @@ def wave_strip(heads: int, M: int, rows: int, per_sm: int, sms: int,
                key=lambda S: (cost(S), S))
 
 
+def whole_plan(path: str, heads: int, smem: int, rows: int, M: int,
+               sms: int, most: int, min_blocks: int) -> SitePlan:
+    """The launch of a whole-table site kernel (csrc/site_whole.cuh) of
+    ``heads`` heads a block, at most ``most`` threads and ``min_blocks``
+    blocks an SM asked of the compiler, with ``smem`` bytes a block, over
+    ``rows`` block rows of M queries on ``sms`` SMs: strips of
+    ``wave_strip`` queries."""
+    per_sm = blocks_an_sm(smem, min_blocks)
+    S = wave_strip(heads, M, rows, per_sm, sms, most)
+    blocks = -(-M // S) * rows
+    return SitePlan(path, heads, S, heads * S, smem, blocks, per_sm,
+                    -(-blocks // (per_sm * sms)))
+
+
 @functools.lru_cache(maxsize=None)
 def rows_plan(B: int, G: int, Hpg: int, Ht: int, Xp: int, H: int, W: int,
               ch: int, sms: int) -> SitePlan:
@@ -204,13 +219,9 @@ def rows_plan(B: int, G: int, Hpg: int, Ht: int, Xp: int, H: int, W: int,
     (``rows_fit``) on a card of ``sms`` SMs: ROWS_HEADS heads a block, the
     heads' padded tables staged ("whole"), in strips of ``wave_strip``
     queries."""
-    smem = whole_smem(ROWS_HEADS, Ht, Xp, ch)
-    per_sm = blocks_an_sm(smem, ROWS_MIN_BLOCKS)
-    rows = B * G * Hpg // ROWS_HEADS
-    S = wave_strip(ROWS_HEADS, H * W, rows, per_sm, sms, ROWS_THREADS)
-    blocks = -(-(H * W) // S) * rows
-    return SitePlan("whole", ROWS_HEADS, S, ROWS_HEADS * S, smem, blocks,
-                    per_sm, -(-blocks // (per_sm * sms)))
+    return whole_plan("whole", ROWS_HEADS, whole_smem(ROWS_HEADS, Ht, Xp, ch),
+                      B * G * Hpg // ROWS_HEADS, H * W, sms, ROWS_THREADS,
+                      ROWS_MIN_BLOCKS)
 
 
 def rows_blocks_per_sm(plan: SitePlan, ch: int) -> int:

@@ -26,26 +26,24 @@ plain versions are ``ops.deform_attn.site_plain`` and ``site_plain_lse``.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from bevrender_tpu_torch.ops.kernels._launch import (
+    KEY_TILE,
     PAD,
     SMEM_PER_BLOCK,
     blocks_per_sm,
     call,
+    check_site_args,
     padded_width,
     sm_count,
     window_columns,
 )
-from bevrender_tpu_torch.ops.kernels.fused_site import KEY_TILE, check_site_args
 from bevrender_tpu_torch.ops.kernels.fused_site_fold import (
     SitePlan,
-    blocks_an_sm,
     check_rows_aligned,
     stages_smem,
-    wave_strip,
+    whole_plan,
     whole_smem,
 )
 
@@ -131,11 +129,8 @@ def wide_plan(Ht: int, Wt: int, H: int, W: int, ch: int, heads: int,
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"fused_site_wide: a staged head table of {smem} B "
                          f"overflows a block")
-    per_sm = blocks_an_sm(smem, WIDE_MIN_BLOCKS)
-    S = wave_strip(1, H * W, heads, per_sm, sms, WIDE_THREADS)
-    blocks = -(-(H * W) // S) * heads
-    return SitePlan(path, 1, S, S, smem, blocks, per_sm,
-                    -(-blocks // (per_sm * sms)))
+    return whole_plan(path, 1, smem, heads, H * W, sms, WIDE_THREADS,
+                      WIDE_MIN_BLOCKS)
 
 
 def wide_blocks_per_sm(plan: SitePlan, ch: int) -> int:

@@ -18,7 +18,8 @@ Phases, each fatal on failure:
    with a second rpe table whose bias dominates the scores; times of
    kernel, plain version and a library yardstick (profiler device time),
    and the least time the card could take (bytes or operations over the
-   H100's published peaks);
+   H100's published peaks); the fused site's plan at each shape
+   (``fused_site.site_plan``: strip, blocks, blocks an SM, waves);
 5. a small 2-stage model at float32 through the kernels and through
    plain PyTorch that rounds as the kernels do: the renders must agree to
    RENDER_TOL;
@@ -31,10 +32,11 @@ Phases, each fatal on failure:
    the top device operations;
 7. the same steps with ``fused_bwd=True`` (the fused site's own backward
    kernel at head widths 4 and 8);
-8. the backward kernels (bias backward, fused site with logsumexp, fused
-   site backward) against their plain versions, and the site backward also
-   against ``site_bwd_online`` (its own roundings in PyTorch), at every
-   shape a training step gives them and at two table scales; the bias
+8. the backward kernels (bias backward, fused site with logsumexp and its
+   plan, fused site backward) against their plain versions, and the site
+   backward also against ``site_bwd_online`` (its own roundings in
+   PyTorch), at every shape a training step gives them and at two table
+   scales; the bias
    forward kernel against its plain version at those training shapes too;
    the bias backward's plan and blocks per SM at each shape, two runs of it
    equal bit for bit, its dtable equal to ``lattice_bias_bwd_ordered``
@@ -395,9 +397,9 @@ def queued_ms(fn, iters: int) -> float:
 # fused_site_fold_heads launch one instance kernel of csrc/site_whole.cuh,
 # which the profiler names by its arguments, the launch bounds last:
 # (160, 4) in fused_site_wide_prefetch.cu, (256, 2) in
-# fused_site_fold_heads.cu. Every other kernel, fused_site_wide's and
-# fused_site_fold_rows' instances of the template among them, is named
-# "<counter>_kernel".
+# fused_site_fold_heads.cu. Every other kernel, fused_site's,
+# fused_site_wide's and fused_site_fold_rows' instances of the template
+# among them, is named "<counter>_kernel".
 WHOLE_INSTANCES = {"fused_site_wide_prefetch": ", 160, 4>",
                    "fused_site_fold_heads": ", 256, 2>"}
 
@@ -651,7 +653,12 @@ def site_errors(da, kernel_mod, seed, B, G, ch, N, Wt, table_std):
 
 
 def check_site(da, kernel_mod) -> dict:
+    """Phase 4: ``fused_site`` at the flagship's serving shapes against its
+    plain version and ``site_consumer_online`` at both table scales; its
+    plan (``site_plan``), time, plain, SDPA and bound a shape."""
     import torch
+
+    from bevrender_tpu_torch.ops import kernels
 
     rows, worst, worst_online, bad = [], 0.0, 0.0, []
     for i, (name, B, G, ch, N, Wt, per_fwd) in enumerate(SITE_SITES):
@@ -670,6 +677,7 @@ def check_site(da, kernel_mod) -> dict:
             if std == SITE_TABLE_STDS[0]:
                 kept = e
         table, k_pos, q, k, v, tb, kargs, scale = kept["inputs"]
+        plan = site_plan(kernels, "fused_site", B, G, ch, Wt)
         launch = lambda: kernel_mod.fused_site_cuda(*kargs, H, W, scale)  # noqa: E731
         ms = queued_ms(launch, 20)
         ev = events_ms(launch, 20)
@@ -682,10 +690,11 @@ def check_site(da, kernel_mod) -> dict:
                          library_ms=lib,
                          bound_ms=bound, bound_by=by, per_forward=per_fwd,
                          max_abs_err=kept["err"], rel_err=kept["rel"],
-                         max_abs_err_online=kept["err_online"]))
+                         max_abs_err_online=kept["err_online"], plan=plan))
         print(f"fused_site {name}: kernel {ms:.4f} ms (events {ev:.4f}) "
               f"plain {plain:.4f} ms sdpa+mask {lib:.4f} ms bound "
-              f"{bound:.4f} ms ({by}) x{per_fwd}/forward", flush=True)
+              f"{bound:.4f} ms ({by}) x{per_fwd}/forward; "
+              f"{site_plan_text(plan)}", flush=True)
     if bad:
         fail(f"fused_site beyond tolerance at {bad}")
     return dict(rows=rows, worst=worst, worst_online=worst_online)
@@ -1063,8 +1072,9 @@ def fwd_plan_text(plan: dict) -> str:
 
 
 def site_plan(kernels, kernel: str, B, G, ch, Wt, side=H) -> dict:
-    """The plan of a whole-table site kernel (``fused_site_wide`` and its
-    logsumexp instance: ``fused_site_wide.wide_plan``;
+    """The plan of a whole-table site kernel (``fused_site`` and its
+    logsumexp instance: ``fused_site.site_plan``; ``fused_site_wide`` and
+    its logsumexp instance: ``fused_site_wide.wide_plan``;
     ``fused_site_fold_rows``: ``fused_site_fold.rows_plan``) at a shape of
     BEV side x side on this card, with the blocks one SM holds of it (the
     library's occupancy query) beside the blocks an SM the plan counts
@@ -1075,7 +1085,11 @@ def site_plan(kernels, kernel: str, B, G, ch, Wt, side=H) -> dict:
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     Ht = 2 * side - 1
-    if kernel == "fused_site_fold_rows":
+    if kernel in ("fused_site", "fused_site_lse"):
+        fs = kernels.fused_site
+        p = fs.site_plan(B, G, HPG, Ht, padded_width(Wt), side, side, ch, sms)
+        on_card = fs.site_blocks_per_sm(p, ch)
+    elif kernel == "fused_site_fold_rows":
         fold = kernels.fused_site_fold
         p = fold.rows_plan(B, G, HPG, Ht, padded_width(Wt), side, side, ch,
                            sms)
@@ -1353,6 +1367,7 @@ def check_site_train(da, kernels) -> tuple:
         (table, k_pos, q, k, v, kargs, scale, dout, lse, dsum, ref_out,
          leaves) = kept["keep"]
         bf = torch.bfloat16
+        plan = site_plan(kernels, "fused_site_lse", B, G, ch, Wt)
         fwd = lambda: kernels.fused_site.fused_site_lse_cuda(  # noqa: E731
             *kargs, H, W, scale)
         bwd = lambda: kernels.fused_site_bwd.fused_site_bwd_cuda(  # noqa: E731
@@ -1403,7 +1418,7 @@ def check_site_train(da, kernels) -> tuple:
                 (rows_l, ms_l, plain_l, lib_l,
                  site_bound(B, G, ch, N, Wt, lse=True),
                  dict(max_abs_err=kept["lse_err"],
-                      max_abs_err_online=kept["lse_err_online"])),
+                      max_abs_err_online=kept["lse_err_online"], plan=plan)),
                 (rows_b, ms_b, plain_b, lib_b, bound_b,
                  dict(events_ms=ev_b, max_abs_err=kept["abs_err"],
                       max_abs_err_online=kept["abs_err_online"],
@@ -1415,7 +1430,7 @@ def check_site_train(da, kernels) -> tuple:
         print(f"fused_site_lse {name}: kernel {ms_l:.4f} ms plain "
               f"{plain_l:.4f} ms sdpa+mask {lib_l:.4f} ms bound "
               f"{rows_l[-1]['bound_ms']:.4f} ms ({rows_l[-1]['bound_by']}) "
-              f"x{per_step}/step", flush=True)
+              f"x{per_step}/step; {site_plan_text(plan)}", flush=True)
         print(f"fused_site_bwd {name}: kernel {ms_b:.4f} ms (events "
               f"{ev_b:.4f}) plain {plain_b:.4f} ms sdpa+mask backward "
               f"{lib_b:.4f} ms bound {rows_b[-1]['bound_ms']:.4f} ms "

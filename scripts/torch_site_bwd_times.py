@@ -29,10 +29,13 @@ chip_smoke has it, ``PREFETCH_RING_SITE``): the window-prefetch site #10
 ``fused_site_lse``, #12) at ``TRAIN_SITE_SITES``; then #10, #7 and #13 at
 the SCA G=4 ch 8 shape for B*V = 2, 4, ... 12. Each line names the plans
 of #10 (``fused_site_wide.prefetch_plan``; the ring only in a checkout
-without it), #7 (``wide_plan``) and #13 (``fused_site_fold.rows_plan``;
-a checkout without them has their fixed blocks of 128 queries): path,
-heads and queries a block, shared memory, grid blocks, blocks an SM (the
-libraries' occupancy queries) and waves. A checkout with ``wide_plan``
+without it), #7 (``wide_plan``), #13 (``fused_site_fold.rows_plan``) and
+``fused_site`` (``fused_site.site_plan``; a checkout without them has
+their fixed blocks of 128 queries): path, heads and queries a block,
+shared memory, grid blocks, blocks an SM (the libraries' occupancy
+queries) and waves, and the run ends with each kernel's loss, launches x
+(time - bound) summed over a serving forward or a ``fused_bwd`` step. A
+checkout with ``wide_plan``
 also times #7 and #8-wide forced onto path "raw" and #11 and #12 at the
 strips ``fused_site_fold.wave_strip`` gives them. ``--kernel bias_bwd`` times both
 bias backwards (csrc/bias_bwd_rows.cuh) at phases 8, 12 and 18's shapes
@@ -357,30 +360,37 @@ def prefetch_plan(cs, wide, lib, n_sm, B, G, ch, Wt, side) -> dict:
 
 
 def site_plan(kernels, kernel, n_sm, B, G, Hpg, ch, Wt, side) -> dict:
-    """The plan of ``fused_site_wide`` (``kernel`` "wide") or
-    ``fused_site_fold_rows`` ("rows") at a site of BEV side x side: path,
-    heads and queries a block, grid blocks, blocks an SM (the card's
-    occupancy query) and waves. A checkout before they became instances of
-    csrc/site_whole.cuh (no ``wide_plan`` / ``rows_plan``) gets its fixed
-    128-query blocks: one head a block reading the raw table ("l1"), or
-    every head a block with the tables staged ("fold"), and for the latter
-    its library's occupancy where it has one."""
+    """The plan of ``fused_site`` and its logsumexp instance (``kernel``
+    "site"), ``fused_site_wide`` ("wide") or ``fused_site_fold_rows``
+    ("rows") at a site of BEV side x side: path, heads and queries a block,
+    grid blocks, blocks an SM (the card's occupancy query) and waves. A
+    checkout before they became instances of csrc/site_whole.cuh (no
+    ``site_plan`` / ``wide_plan`` / ``rows_plan``) gets its fixed 128-query
+    blocks: one head a block with the table staged ("whole") or reading the
+    raw table ("l1"), or every head a block with the tables staged
+    ("fold"), and for the latter its library's occupancy where it has
+    one."""
     from bevrender_tpu_torch.ops.kernels import build
     from bevrender_tpu_torch.ops.kernels._launch import padded_width
 
+    site = kernels.fused_site
     wide, fold = kernels.fused_site_wide, kernels.fused_site_fold
     Ht, M = 2 * side - 1, side * side
     Xp = padded_width(Wt)
+    if kernel == "site" and hasattr(site, "site_plan"):
+        p = site.site_plan(B, G, Hpg, Ht, Xp, side, side, ch, n_sm)
+        return dict(p._asdict(), per_sm=site.site_blocks_per_sm(p, ch))
     if kernel == "wide" and hasattr(wide, "wide_plan"):
         p = wide.wide_plan(Ht, Wt, side, side, ch, B * G * Hpg, n_sm)
         return dict(p._asdict(), per_sm=wide.wide_blocks_per_sm(p, ch))
     if kernel == "rows" and hasattr(fold, "rows_plan"):
         p = fold.rows_plan(B, G, Hpg, Ht, Xp, side, side, ch, n_sm)
         return dict(p._asdict(), per_sm=fold.rows_blocks_per_sm(p, ch))
-    heads = 1 if kernel == "wide" else Hpg
+    heads = Hpg if kernel == "rows" else 1
     blocks = -(-M // 128) * B * G * Hpg // heads
-    rec = dict(path="l1" if kernel == "wide" else "fold", heads=heads,
-               strip=128, blocks=blocks, per_sm=None, waves=None)
+    rec = dict(path=dict(site="whole", wide="l1", rows="fold")[kernel],
+               heads=heads, strip=128, blocks=blocks, per_sm=None,
+               waves=None)
     if kernel == "rows" and hasattr(fold, "rows_smem"):
         lib = build.load_library("fused_site_fold_rows")
         rec["per_sm"] = lib.fused_site_fold_rows_occupancy(
@@ -420,6 +430,12 @@ def wave_ms(best, kernels, which, args, B, G, Hpg, Ht, Wt, N, side, ch,
     return best(lambda: call(lib, fn, (*args, *outs, *tail))), S2
 
 
+# the kernel times of ``prefetch_times`` summed into losses: #7 or #8-wide
+# ("ms"), #10, #13, ``fused_site``, #11, ``fused_site_lse``, #12
+LOSS_KEYS = ("ms", "prefetch_ms", "fold_rows_ms", "fused_site_ms",
+             "fold_heads_ms", "fused_site_lse_ms", "fold_heads_lse_ms")
+
+
 def prefetch_times(cs, card: str, result: dict) -> None:
     """The site kernels of the whole-table template and their siblings:
     #10 (``fused_site_wide_prefetch``), #7 (``fused_site_wide``), #13
@@ -429,9 +445,12 @@ def prefetch_times(cs, card: str, result: dict) -> None:
     logsumexp instances #8-wide (``fused_site_wide_lse``),
     ``fused_site_lse`` and #12 (``fused_site_fold_heads_lse``) at the
     training shapes (TRAIN_SITE_SITES); #10, #7 and #13 at the SCA G=4 ch 8
-    shape for B*V = 2, 4, ... 12. Each line prints the plans of #10, #7
-    and #13 (path, heads and queries a block, blocks, blocks an SM, waves).
-    Where the checkout has ``wide_plan``, #7 and #8-wide are also timed on
+    shape for B*V = 2, 4, ... 12. Each line prints the plans of #10, #7,
+    #13 and ``fused_site`` (path, heads and queries a block, blocks,
+    blocks an SM, waves); the last sums each kernel's launches x (time -
+    bound) over a serving forward or a ``fused_bwd`` step (``LOSS_KEYS``,
+    ``forward_sums``). Where the checkout has ``wide_plan``, #7 and
+    #8-wide are also timed on
     path "raw" where they take "whole" (``raw_ms``), and #11 and #12 at the
     strips ``wave_strip`` would give them (``*_wave_ms``, with the strip)
     where those differ from their own."""
@@ -447,6 +466,7 @@ def prefetch_times(cs, card: str, result: dict) -> None:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     best = lambda fn: min(cs.queued_ms(fn, 5) for _ in range(3))  # noqa: E731
     new = hasattr(wide, "wide_plan")
+    sums = collections.defaultdict(float)
     Hpg = cs.HPG
     _, B4, G4, ch4, N4, Wt4, _ = cs.SITE_SITES[2]
     ring = getattr(cs, "PREFETCH_RING_SITE", None)
@@ -475,6 +495,8 @@ def prefetch_times(cs, card: str, result: dict) -> None:
             if new and rec["wide"]["path"] == "whole":
                 rec["raw_ms"] = best(lambda: wide.fused_site_wide_lse_cuda(
                     *geo, *qkv, side, side, scale, path="raw"))
+            rec["site"] = site_plan(kernels, "site", n_sm, B, G, Hpg, ch,
+                                    Wt, side)
             rec["fused_site_lse_ms"] = best(
                 lambda: kernels.fused_site.fused_site_lse_cuda(
                     *kargs, side, side, scale))
@@ -504,6 +526,8 @@ def prefetch_times(cs, card: str, result: dict) -> None:
                         *kargs, side, side, scale))
             if tag == "serve":
                 if fits:
+                    rec["site"] = site_plan(kernels, "site", n_sm, B, G, Hpg,
+                                            ch, Wt, side)
                     rec["fused_site_ms"] = best(
                         lambda: kernels.fused_site.fused_site_cuda(
                             *kargs, side, side, scale))
@@ -522,6 +546,12 @@ def prefetch_times(cs, card: str, result: dict) -> None:
             rec["sdpa_ms"] = min(cs.sdpa_ms(q, k, v, bias, scale, 5)
                                  for _ in range(3))
             del bias
+        if per:  # launches x (time - bound) over a forward or a step
+            bound = cs.site_bound(B, G, ch, N, Wt, lse=tag == "lse",
+                                  side=side)[0]
+            for key in LOSS_KEYS:
+                if key in rec:
+                    sums[f"{tag} {key} loss"] += per * (rec[key] - bound)
         result["ms"][f"{tag} {name}"] = rec
         print(f"{tag} {name} (x{per}): "
               + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
@@ -529,6 +559,11 @@ def prefetch_times(cs, card: str, result: dict) -> None:
                           for k, v in rec.items()) + f" [{card}]", flush=True)
         del table, k_pos, q, k, v, kargs, geo, qkv
         torch.cuda.empty_cache()
+    result["forward_sums"] = dict(sums)
+    print("losses, launches x (time - bound) over a serving forward (serve) "
+          "or a fused_bwd step (lse): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sums.items()) + f" [{card}]",
+          flush=True)
 
 
 def bias_bwd_plan(cs, bwd, lib, n_sm, wide, B, G, N, Wt, H) -> dict:

@@ -650,6 +650,120 @@ def test_wide_raw_path_takes_an_oversized_table(cuda_device, ch):
     assert float((out_lse - ref_lse).abs().max()) <= 1e-5
 
 
+# (batch, G, ch, N, table width) of chip_smoke's serving and training
+# sites of the flagship (SITE_SITES, TRAIN_SITE_SITES; BEV 28, two heads a
+# group)
+FLAGSHIP_SITES = [(4, 4, 8, 196, 55), (4, 8, 4, 784, 55), (12, 4, 8, 1960, 279),
+                  (12, 8, 4, 1960, 279), (2, 4, 8, 196, 55),
+                  (2, 8, 4, 784, 55), (6, 4, 8, 1960, 279),
+                  (6, 8, 4, 1960, 279)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_std", [0.01, 1.0])
+@pytest.mark.parametrize("B,G,ch,N,Wt", FLAGSHIP_SITES)
+def test_fused_site_equals_the_template_instances(cuda_device, B, G, ch, N,
+                                                  Wt, table_std):
+    """``fused_site`` and its logsumexp instance, one launch each on
+    ``site_plan``'s plan, equal ``fused_site_wide`` and
+    ``fused_site_wide_lse`` on path "whole" (output and logsumexp) and
+    ``fused_site_fold_rows`` bit for bit: every site of the flagship's main
+    path, at both table scales."""
+    H = W = 28
+    wide, fold = kernels.fused_site_wide, kernels.fused_site_fold
+    table, k_pos, q, k, v = _inputs(30, B, G, 2, H, W, Wt, N, ch,
+                                    cuda_device, table_std)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, W)
+    geo, qkv = kargs[:7], kargs[8:]
+    before = kernels.counts()
+    with torch.no_grad():
+        out = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
+        out_l, lse = kernels.fused_site.fused_site_lse_cuda(*kargs, H, W,
+                                                            scale)
+        sib = wide.fused_site_wide_cuda(*geo, *qkv, H, W, scale, path="whole")
+        sib_l, sib_lse = wide.fused_site_wide_lse_cuda(*geo, *qkv, H, W,
+                                                       scale, path="whole")
+        rows = fold.fused_site_fold_rows_cuda(*kargs, H, W, scale)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"fused_site": 1, "fused_site_lse": 1, "fused_site_wide": 1,
+            "fused_site_wide_lse": 1, "fused_site_fold_rows": 1}
+    assert torch.equal(out, sib) and torch.equal(out, rows)
+    assert torch.equal(out_l, out) and torch.equal(out_l, sib_l)
+    assert torch.equal(lse, sib_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_std", [0.01, 1.0])
+@pytest.mark.parametrize("ch,N,Wt", [(4, 1960, 279), (8, 196, 55),
+                                     (8, 45, 15)])
+def test_fused_site_instances_match_online_mirror(cuda_device, ch, N, Wt,
+                                                  table_std):
+    """Both instances stand within chip_smoke's ONLINE_TOL (2^-15 of the
+    p-weighted |v|) of ``site_consumer_online`` in output, the logsumexp
+    within LSE_ONLINE_TOL of its, and within SITE_P_ROUND of the plain
+    version; a table of std 1 makes the bias outweigh q . k."""
+    H = W = 28 if Wt != 15 else 8
+    table, k_pos, q, k, v = _inputs(31, 2, 4, 2, H, W, Wt, N, ch,
+                                    cuda_device, table_std)
+    scale = ch ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, W)
+    with torch.no_grad():
+        out = kernels.fused_site.fused_site_cuda(*kargs, H, W, scale)
+        out_l, lse = kernels.fused_site.fused_site_lse_cuda(*kargs, H, W,
+                                                            scale)
+        bias = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, W,
+                                      torch.float32)
+        online, on_lse = tda.site_consumer_online(q, k, v, bias, scale,
+                                                  return_lse=True)
+        ref = tda.site_consumer(q, k, v, bias, scale)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+    torch.cuda.synchronize()
+    for x in (out, out_l):
+        assert bool(((x - online).abs() <= 2.0 ** -15 * wabs + 1e-7).all())
+        assert bool(((x - ref).abs() <= 2.0 ** -7 * wabs + 1e-5).all())
+    assert float((lse - on_lse).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [4, 8])
+def test_fused_site_occupancy_holds_the_plan(cuda_device, ch):
+    """At the flagship's serving SCA (B*V=12, G=8 / 4) the card holds at
+    least the blocks an SM ``site_plan`` counts on (four, by the launch
+    bounds and the 57 KB a block)."""
+    fs = kernels.fused_site
+    G = 4 if ch == 8 else 8
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fs.site_plan(12, G, 2, 55, tda.padded_width(279), 28, 28, ch, sms)
+    assert plan.per_sm == 4
+    assert fs.site_blocks_per_sm(plan, ch) >= plan.per_sm
+
+
+@pytest.mark.cuda
+def test_fused_site_refuses_misaligned_k_and_v(cuda_device):
+    """The template copies each key's K and V row as one 2 ch-byte vector:
+    both instances refuse a k or v that does not start on such a boundary
+    before launching, and count no launch."""
+    table, k_pos, q, k, v = _inputs(32, 1, 1, 2, 10, 10, 39, 40, 4,
+                                    cuda_device)
+    kargs = _site_kargs(table, k_pos, q, k, v, 10, 10)
+    head, (q, k, v) = kargs[:8], kargs[8:]
+    for i in (0, 1):
+        x = (k, v)[i]
+        off = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=x.device)[1:].view(x.shape)
+        off.copy_(x)
+        qkv = (q, off, v) if i == 0 else (q, k, off)
+        for call in (kernels.fused_site.fused_site_cuda,
+                     kernels.fused_site.fused_site_lse_cuda):
+            before = kernels.counts()
+            with pytest.raises(ValueError, match="8-byte boundary"):
+                call(*head, *qkv, 10, 10, 0.5)
+            assert kernels.counts() == before
+
+
 @pytest.mark.cuda
 def test_fold_options_reach_the_fold_kernels(cuda_device):
     """A flagship SCA site through ``streamed_deform_attention`` takes the

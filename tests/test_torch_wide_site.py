@@ -30,7 +30,11 @@ from bevrender_tpu_torch.inference.register import RegistrationPipeline
 from bevrender_tpu_torch.models.attention import _Site, set_site_options
 from bevrender_tpu_torch.ops import deform_attn as tda
 from bevrender_tpu_torch.ops import kernels
-from bevrender_tpu_torch.ops.kernels import fused_site_wide, lattice_bias
+from bevrender_tpu_torch.ops.kernels import (
+    fused_site,
+    fused_site_wide,
+    lattice_bias,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -699,3 +703,120 @@ def test_chip_smoke_reads_whole_table_launches_by_launch_bounds():
     assert chip_smoke.seen_launches(avgs, "lattice_bias_wide") == 64
     for name in ("fused_site_wide.cu", "fused_site_fold_rows.cu"):
         assert name[:-3] + "_kernel(" in (csrc / name).read_text()
+
+
+# ---- fused_site's plan and route (csrc/fused_site.cu on site_whole.cuh) ----
+
+# (batch, G, ch, table width) -> (strip, blocks, waves) of ``fused_site`` and
+# its logsumexp instance on a 132-SM card at chip_smoke's serving and
+# training shapes (BEV 28, two heads a group): one head a block, four
+# blocks an SM; at the serving SCA G=4, 5 strips of 160 queries, 480
+# blocks in one wave
+SITE_PLANS = {(4, 4, 8, 55): (128, 224, 1), (4, 8, 4, 55): (160, 320, 1),
+              (12, 4, 8, 279): (160, 480, 1), (12, 8, 4, 279): (160, 960, 2),
+              (2, 4, 8, 55): (128, 112, 1), (2, 8, 4, 55): (128, 224, 1),
+              (6, 4, 8, 279): (160, 240, 1), (6, 8, 4, 279): (160, 480, 1)}
+
+
+@pytest.mark.parametrize(
+    "site", chip_smoke.SITE_SITES + chip_smoke.TRAIN_SITE_SITES,
+    ids=[f"serve_{s[0]}" for s in chip_smoke.SITE_SITES]
+    + [f"train_{s[0]}" for s in chip_smoke.TRAIN_SITE_SITES])
+def test_site_plan_follows_the_shapes(site):
+    """``fused_site`` stages one head's padded table a block, at most 160
+    threads (a multiple of 32) and the shared memory of ``whole_smem`` at
+    one head, in the strips ``wave_strip`` gives: the plan of the template's
+    other one-head instance on its staged path (``wide_plan``, "whole")."""
+    name, B, G, ch, N, Wt, _ = site
+    H, Hpg = chip_smoke.H, chip_smoke.HPG
+    Ht, Xp = 2 * H - 1, tda.padded_width(Wt)
+    plan = fused_site.site_plan(B, G, Hpg, Ht, Xp, H, H, ch, 132)
+    assert (plan.strip, plan.blocks, plan.waves) == SITE_PLANS[(B, G, ch, Wt)]
+    assert plan.path == "whole" and plan.heads == 1 and plan.per_sm == 4
+    assert plan.threads == plan.strip and plan.threads % 32 == 0
+    assert plan.threads <= fused_site.SITE_THREADS == 160
+    fold = kernels.fused_site_fold
+    assert plan.smem == fold.whole_smem(1, Ht, Xp, ch)
+    assert plan.smem <= fused_site.SMEM_PER_BLOCK
+    assert plan.strip == fold.wave_strip(1, H * H, B * G * Hpg, 4, 132, 160)
+    assert plan.blocks == -(-(H * H) // plan.strip) * B * G * Hpg
+    assert plan == fused_site_wide.wide_plan(Ht, Wt, H, H, ch, B * G * Hpg,
+                                             132)
+
+
+def test_fused_site_is_an_instance_of_the_template():
+    """csrc/fused_site.cu launches ``site_whole::site_block`` at one head a
+    block on the staged table, under launch bounds (160, 4) that
+    ``site_plan`` counts on, in a kernel still named ``fused_site_kernel``
+    for both instances: chip_smoke counts its launches by that name, apart
+    from the other instances' kernels."""
+    src = (ROOT / "bevrender_tpu_torch" / "ops" / "kernels" / "csrc"
+           / "fused_site.cu").read_text()
+    assert '#include "site_whole.cuh"' in src
+    assert "site_whole::site_block<CH, 1, site_whole::WHOLE>" in src
+    assert "constexpr int THREADS = 160;" in src
+    assert "constexpr int MIN_BLOCKS = 4;" in src
+    assert "fused_site_kernel(SITE_WHOLE_PARAMS)" in src
+    assert src.count("launch_kernel<") == 2  # one launch a head width
+    assert "stage_kv" not in src and "float* sk" not in src
+    assert (fused_site.SITE_THREADS, fused_site.SITE_MIN_BLOCKS) == (160, 4)
+    Event = collections.namedtuple("Event", "key count")
+    avgs = [
+        Event("void (anonymous namespace)::fused_site_kernel<8>(", 12),
+        Event("void (anonymous namespace)::fused_site_kernel<4>(", 6),
+        Event("void (anonymous namespace)::fused_site_wide_kernel<8, 0>(", 4),
+        Event("void (anonymous namespace)::fused_site_fold_rows_kernel<8>(",
+              2)]
+    assert chip_smoke.seen_launches(avgs, "fused_site") == 18
+    assert chip_smoke.seen_launches(avgs, "fused_site_wide") == 4
+    assert chip_smoke.seen_launches(avgs, "fused_site_fold_rows") == 2
+
+
+def test_site_plan_refuses_a_table_over_a_block():
+    """A head of BEV 64 at depth 5 (127 x 639) overflows a block: the plan
+    raises and names the kernel that takes such a site, never launching."""
+    with pytest.raises(ValueError, match="takes fused_site_wide"):
+        fused_site.site_plan(1, 1, 2, 127, tda.padded_width(639), 64, 64, 4,
+                             132)
+
+
+def test_site_route_is_the_template_fit():
+    """``site_route`` sends a narrow-head site to ``fused_site`` exactly
+    where ``site_plan`` launches it (``whole_smem`` at one head within a
+    block): every shipped site, and never a table of BEV 64 at depth 5."""
+    fold = kernels.fused_site_fold
+    sites = list(_shipped_sites()) + [(4, (1, 2, 127, 639), 64, 64),
+                                      (8, (1, 2, 127, 639), 64, 64)]
+    for ch, t, H, W in sites:
+        fits = fold.whole_smem(1, t[2], tda.padded_width(t[3]),
+                               ch) <= fused_site.SMEM_PER_BLOCK
+        assert tda.site_route(t, H, W, ch) == ("whole" if fits else "wide")
+    assert [tda.site_route(t, H, W, ch) for ch, t, H, W in sites].count(
+        "whole") == 28
+
+
+# (ch, BEV side, table width): a table whose padded rows and the float32
+# key tile of the kernel before the template fit a block while the
+# template's key stages, 640 bytes more, do not
+MARGIN_TABLES = [(4, 32, 1075), (8, 32, 1071)]
+
+
+@pytest.mark.parametrize("ch,H,Wt", MARGIN_TABLES)
+def test_a_table_inside_the_margin_takes_the_wide_site(ch, H, Wt):
+    """Such a table takes ``fused_site_wide`` on its path "raw" by the
+    shapes alone, on either route, without raising; ``fused_site``'s plan
+    refuses it."""
+    Ht, Xp = 2 * H - 1, tda.padded_width(Wt)
+    old = (Ht + 2 * tda.PAD) * Xp * 2 + fused_site.KEY_TILE * (2 * ch + 3) * 4
+    new = kernels.fused_site_fold.whole_smem(1, Ht, Xp, ch)
+    assert new - old == 640
+    assert old <= fused_site.SMEM_PER_BLOCK < new
+    table = (1, 2, Ht, Wt)
+    assert tda.site_route(table, H, H, ch) == "wide"
+    for route in ("auto", "wide"):
+        opts = tda.SiteOptions(lattice_route=route)
+        assert tda.site_kernels((1, 1, 2, H * H, ch), table, H, H, opts,
+                                training=False) == ("fused_site_wide",)
+    assert fused_site_wide.wide_plan(Ht, Wt, H, H, ch, 2, 132).path == "raw"
+    with pytest.raises(ValueError, match="takes fused_site_wide"):
+        fused_site.site_plan(1, 1, 2, Ht, Xp, H, H, ch, 132)
