@@ -45,7 +45,12 @@ class ModelConfig:
     imu_to_rgb: Optional[Dict[int, List[Any]]] = None
     intrinsic_k: Optional[Dict[int, List[Any]]] = None
 
-    norm: str = "batch"
+    norm: str = "batch"  # batch | group (AdaptiveGroupNorm)
+    # retrieval embedding: 0 flattens the render (the reference's); > 0 a
+    # trained Siamese conv head of that output dimension embeds renders and
+    # map tiles alike (models/retrieval.py)
+    retrieval_embed_dim: int = 0
+    retrieval_head_widths: Tuple[int, ...] = (32, 64, 128, 256)
 
     # The port's own kernel choice, in place of the JAX package's trace-time
     # environment knobs (ops.deform_attn.site_kernels). "auto": each site's

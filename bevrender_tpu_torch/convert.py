@@ -12,7 +12,9 @@ which follow the flax names:
   transposed conv reads the kernel flipped against PyTorch's
   (``models.layers.ConvTranspose``);
 * dense kernels (in, out) -> weight (out, in);
-* LayerNorm / BatchNorm ``scale`` -> ``weight``;
+* LayerNorm / BatchNorm / GroupNorm ``scale`` -> ``weight`` (the
+  retrieval head's and ``AdaptiveGroupNorm``'s modules carry flax's names,
+  ``Conv_0``, ``GroupNorm_0``, ``Dense_0``, so they map as they are);
 * ``batch_stats`` mean / var -> ``running_mean`` / ``running_var``, with a
   zero ``num_batches_tracked``;
 * the leading depth axis of ``stage{s}/layers/*`` (the flax scan stack)

@@ -7,6 +7,12 @@ pass on the current frame, and the render decoder. Public layout is NHWC:
 images (B, T, V, H, W, 3) in, render (B, 224, 224, 3) out. The per-stage
 voxel->camera reference points are computed once with numpy and kept as
 buffers (not in the state_dict).
+
+Streaming serving carries the BEV state from frame to frame instead:
+``encode_step`` runs one encoder pass on a frame with the carried BEV, and
+``decode`` renders a BEV. ``embed`` is the retrieval embedding of renders
+and map tiles: the flatten, or the trained head
+(``ModelConfig.retrieval_embed_dim > 0``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from bevrender_tpu_torch.geometry.projection import (
 from bevrender_tpu_torch.models.decoder import BEVImageRenderDecoder
 from bevrender_tpu_torch.models.encoder import BEVEncoder
 from bevrender_tpu_torch.models.layers import compute_dtype, make_norm
+from bevrender_tpu_torch.models.retrieval import RetrievalHead
 
 
 def reference_points(cfg: ModelConfig) -> list:
@@ -54,9 +61,17 @@ class BEVRenderNet(nn.Module):
         self.decoder = BEVImageRenderDecoder(
             cfg.bev_shapes[-1], cfg.embed_dims[-1], cfg.decoder_hid_dim,
             make_norm(cfg.norm), compute_dtype(cfg.dtype))
+        if cfg.retrieval_embed_dim > 0:
+            self.retrieval_head = RetrievalHead(cfg.retrieval_embed_dim,
+                                                cfg.retrieval_head_widths)
         for s, rp in enumerate(reference_points(cfg)):
             self.register_buffer(f"ref_points{s}", torch.from_numpy(rp),
                                  persistent=False)
+
+    def _bev_query(self, batch: int, dtype: torch.dtype) -> torch.Tensor:
+        H0 = self.cfg.bev_shapes[0]
+        return self.bev_embedding.reshape(1, H0, H0, -1).expand(
+            batch, -1, -1, -1).to(dtype)
 
     def _ref_pts(self, vehicle_type: torch.Tensor) -> list:
         # the vehicle type is constant within a batch (element [0, 0])
@@ -72,21 +87,15 @@ class BEVRenderNet(nn.Module):
         """images (B, T, V, H, W, 3); vehicle_pose (B, T, 3) rows (x_pix,
         y_pix, heading); vehicle_type (B, 1) -> render (B, 224, 224, 3)."""
         B, T = images.shape[:2]
-        H0 = self.cfg.bev_shapes[0]
-        bev_query = self.bev_embedding.reshape(1, H0, H0, -1).expand(
-            B, -1, -1, -1).to(images.dtype)
+        bev_query = self._bev_query(B, images.dtype)
         ref_pts = self._ref_pts(vehicle_type)
 
         prev_bev = None
-        if T > 1:
-            was_training = self.training
-            self.eval()
-            with torch.no_grad():
-                for t in range(T - 1):
-                    prev_bev = self.encoder(
-                        bev_query, images[:, t], prev_bev,
-                        vehicle_pose[:, t:t + 2], ref_pts, align_history=True)
-            self.train(was_training)
+        with torch.no_grad():
+            for t in range(T - 1):
+                prev_bev = self._history_pass(
+                    bev_query, images[:, t], prev_bev,
+                    vehicle_pose[:, t:t + 2], ref_pts)
 
         if T == 1:
             pose_pair = torch.cat([vehicle_pose, vehicle_pose], dim=1)
@@ -95,3 +104,37 @@ class BEVRenderNet(nn.Module):
         bev = self.encoder(bev_query, images[:, -1], prev_bev, pose_pair,
                            ref_pts, align_history=not self.training)
         return self.decoder(bev)
+
+    def _history_pass(self, bev_query: torch.Tensor, frame: torch.Tensor,
+                      prev_bev, pose_pair: torch.Tensor,
+                      ref_pts: list) -> torch.Tensor:
+        """One encoder pass in eval semantics with the history warp: a
+        history pass of ``forward`` and a step of ``encode_step``."""
+        was_training = self.training
+        self.eval()
+        try:
+            return self.encoder(bev_query, frame, prev_bev, pose_pair, ref_pts,
+                                align_history=True)
+        finally:
+            self.train(was_training)
+
+    def encode_step(self, frame: torch.Tensor, prev_bev, pose_pair: torch.Tensor,
+                    vehicle_type: torch.Tensor) -> torch.Tensor:
+        """One encoder pass of streaming serving (bevrender.py:159-172):
+        frame (B, V, H, W, 3), the carried BEV (or None on the first frame),
+        pose_pair (B, 2, 3) (previous, current) -> the BEV (B, h, w, C)."""
+        return self._history_pass(
+            self._bev_query(frame.shape[0], frame.dtype), frame, prev_bev,
+            pose_pair, self._ref_pts(vehicle_type))
+
+    def decode(self, bev: torch.Tensor) -> torch.Tensor:
+        """The render of a BEV (bevrender.py:174-175)."""
+        return self.decoder(bev)
+
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """Retrieval embedding of renders or map tiles (bevrender.py:
+        177-189): the flattened images with ``retrieval_embed_dim`` 0 (not
+        normalised), else the head's unit vectors in float32."""
+        if self.cfg.retrieval_embed_dim <= 0:
+            return images.reshape(images.shape[0], -1)
+        return self.retrieval_head(images)

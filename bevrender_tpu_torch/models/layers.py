@@ -9,7 +9,10 @@ Norms compute in float32 and return float32, as flax's do for a bf16 input.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
+
+import numpy as np
 
 import torch
 import torch.nn as nn
@@ -110,12 +113,58 @@ class BatchNorm(nn.BatchNorm2d):
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on NHWC (``scale`` and ``bias`` as ``weight``
+    and ``bias``): statistics over H, W and the group's channels in at
+    least float32, the variance E[x^2] - E[x]^2 clipped at 0 as flax's
+    fast variance, eps 1e-6, at least float32 out."""
+
+    def __init__(self, num_groups: int, dim: int, eps: float = 1e-6):
+        super().__init__()
+        if dim % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {dim} channels")
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        G, C = self.num_groups, x.shape[-1]
+        xg = x.reshape(x.shape[0], -1, G, C // G)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True)
+                          - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G)
+        y = (xg - mean) * mul + self.bias.reshape(G, C // G)
+        return y.reshape(x.shape)
+
+
+class AdaptiveGroupNorm(nn.Module):
+    """``AdaptiveGroupNorm`` (layers.py:66-80): groups of gcd(C, 8)
+    channels. The inner module is named as flax names it, so the flax path
+    ``.../GroupNorm_0/{scale,bias}`` maps through ``convert``."""
+
+    def __init__(self, dim: int, max_group_size: int = 8):
+        super().__init__()
+        self.GroupNorm_0 = GroupNorm(dim // math.gcd(dim, max_group_size), dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.GroupNorm_0(x)
+
+
 def make_norm(norm: str):
-    """Factory of the conv-net norm (``make_norm``, layers.py:37). Only
-    ``batch`` is on the render+register path of the port so far."""
-    if norm != "batch":
-        raise NotImplementedError(f"norm={norm!r} is not ported yet")
-    return BatchNorm
+    """Factory of the conv-net norm (``make_norm``, layers.py:37): ``batch``
+    (flax BatchNorm) or ``group`` (``AdaptiveGroupNorm``, the same in
+    training and eval); called with the channel count."""
+    if norm == "batch":
+        return BatchNorm
+    if norm == "group":
+        return AdaptiveGroupNorm
+    raise ValueError(f"unknown norm: {norm}")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -190,6 +239,24 @@ class ConvMLP(nn.Module):
         return self.drop(self.linear2(gelu(x)))
 
 
+def _init_module(mod: nn.Module, gen: torch.Generator) -> None:
+    if isinstance(mod, Conv):
+        nn.init.kaiming_normal_(mod.weight, mode="fan_out",
+                                nonlinearity="relu", generator=gen)
+    elif isinstance(mod, Dense):
+        nn.init.xavier_uniform_(mod.weight, generator=gen)
+    elif isinstance(mod, ConvTranspose):
+        # truncated at 2 std and rescaled, as jax's variance_scaling
+        fan_in = mod.weight[:, 0].numel()  # in * kh * kw
+        std = fan_in ** -0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=gen)
+    if isinstance(mod, (Conv, Dense, ConvTranspose)) and mod.bias is not None:
+        mod.bias.zero_()
+    if isinstance(mod, (LayerNorm, BatchNorm, GroupNorm)):
+        mod.reset_parameters()
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, seed: int) -> nn.Module:
     """Seeded initialisation following the JAX package's initialisers
@@ -198,25 +265,12 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
     trunc-normal(0.01) rpe table, a uniform [0, 1) BEV embedding, and flax's
     default LeCun normal (fan_in) for the transposed convs. The
     numbers differ from JAX's for the same seed; only the distributions
-    match."""
+    match. The retrieval head, where there is one, draws from a generator
+    of its own."""
     gen = torch.Generator().manual_seed(seed)
     for name, mod in module.named_modules():
-        if isinstance(mod, Conv):
-            nn.init.kaiming_normal_(mod.weight, mode="fan_out",
-                                    nonlinearity="relu", generator=gen)
-        elif isinstance(mod, Dense):
-            nn.init.xavier_uniform_(mod.weight, generator=gen)
-        elif isinstance(mod, ConvTranspose):
-            # truncated at 2 std and rescaled, as jax's variance_scaling
-            fan_in = mod.weight[:, 0].numel()  # in * kh * kw
-            std = fan_in ** -0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=gen)
-        if (isinstance(mod, (Conv, Dense, ConvTranspose))
-                and mod.bias is not None):
-            mod.bias.zero_()
-        if isinstance(mod, (LayerNorm, BatchNorm)):
-            mod.reset_parameters()
+        if not name.startswith("retrieval_head"):
+            _init_module(mod, gen)
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "rpe_table":
@@ -224,4 +278,13 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
             p.mul_(0.01)
         elif leaf == "bev_embedding":
             p.uniform_(0.0, 1.0, generator=gen)
+    head = getattr(module, "retrieval_head", None)
+    if head is not None:
+        # a generator of its own, so that a seed gives the rest of the model
+        # the same numbers with or without the head
+        head_seed = np.random.SeedSequence([seed, 1]).generate_state(
+            1, np.uint64)[0] >> np.uint64(1)
+        head_gen = torch.Generator().manual_seed(int(head_seed))
+        for mod in head.modules():
+            _init_module(mod, head_gen)
     return module

@@ -18,8 +18,12 @@ What differs from the JAX package, and why:
 * ``TrainConfig.steps_per_dispatch`` > 1 selects a ``lax.scan`` over k steps
   in one dispatch there; here it runs k plain steps, which is the same
   arithmetic;
-* the retrieval embedding is the flattened render or a caller's
-  ``embed_fn``; the trained retrieval head is not ported yet;
+* the retrieval embedding is chosen as there: a caller's ``embed_fn``,
+  else the model's trained retrieval head when
+  ``ModelConfig.retrieval_embed_dim > 0`` (``use_embed_head``; its
+  parameters train through autograd from both sides of the pair), else the
+  flattened render; ``_embed(net, images)`` takes the live model, as
+  ``_embed(variables, images)`` does there;
 * kernel choice comes from ``TrainConfig.fused_bwd``, ``site_remat`` and
   ``fused_fwd_fold`` and from ``ModelConfig.site_options()``, not from
   environment variables.
@@ -138,6 +142,8 @@ class Trainer:
         self.dataset = train_val_dataset
         self.logger = logger or get_logger()
         self.metrics = MetricsLogger(self.tc.use_wandb, self.logger)
+        self.use_embed_head = (embed_fn is None
+                               and config.model.retrieval_embed_dim > 0)
         self.embed_fn = embed_fn or (lambda out: out.reshape(out.shape[0], -1))
         (self.image_rendering, self.image_retrieval, self.render_fn,
          self.retrieval_fn) = select_losses(self.tc.loss_type)
@@ -187,7 +193,15 @@ class Trainer:
                     ).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
-    def _forward_losses(self, out, batch):
+    def _embed(self, net: BEVRenderNet, images: torch.Tensor) -> torch.Tensor:
+        """Retrieval embedding of renders or tiles (trainer.py:203-209):
+        ``net``'s head (``use_embed_head``), else ``embed_fn``. Inside a
+        step, gradients reach the head."""
+        if self.use_embed_head:
+            return net.embed(images)
+        return self.embed_fn(images)
+
+    def _forward_losses(self, net: BEVRenderNet, out, batch):
         parts = {}
         total = 0.0
         if self.image_rendering:
@@ -195,13 +209,13 @@ class Trainer:
             total = total + parts["render"]
         if self.image_retrieval:
             parts["retrieval"] = self.retrieval_fn(
-                self.embed_fn(out), self.embed_fn(batch["map"]))
+                self._embed(net, out), self._embed(net, batch["map"]))
             total = total + parts["retrieval"]
         return total, parts
 
     def _step_with(self, state: TrainState, batch, rng: int, losses_fn):
         """One optimizer step with a caller-chosen loss
-        ``losses_fn(out, batch) -> (total, parts)``: forward in train mode
+        ``losses_fn(net, out, batch) -> (total, parts)``: forward in train mode
         (the history passes run in eval mode without gradient), backward,
         global-norm clip, AdamW. ``rng`` is the epoch's key; the step
         counter is mixed into it for the dropout stream."""
@@ -210,7 +224,7 @@ class Trainer:
         net.train()
         self._gen.manual_seed(_mix(rng, state.step))
         out = net(batch["camera"], batch["vehicle_pose"], batch["vehicle_type"])
-        total, parts = losses_fn(out, batch)
+        total, parts = losses_fn(net, out, batch)
         opt.zero_grad(set_to_none=True)
         total.backward()
         params = list(net.parameters())
@@ -240,11 +254,12 @@ class Trainer:
         state.net.eval()
         out = state.net(batch["camera"], batch["vehicle_pose"],
                         batch["vehicle_type"])
-        total, parts = self._forward_losses(out, batch)
+        total, parts = self._forward_losses(state.net, out, batch)
         metrics = {"val_batch_loss": total}
         for k, v in parts.items():
             metrics[f"val_batch_{k}_loss"] = v
-        return metrics, self.embed_fn(out), self.embed_fn(batch["map"]), out
+        return (metrics, self._embed(state.net, out),
+                self._embed(state.net, batch["map"]), out)
 
     # ------------------------------------------------------------------
     def _run_epoch(self, state: TrainState, epoch: int, fold: int,

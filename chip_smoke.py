@@ -134,7 +134,27 @@ Phases, each fatal on failure:
     plain, library and bound times; then the pyramid serving with
     ``bias_forward="windows"`` (PYR_WINDOWS_REQUESTS requests): 88
     ``lattice_windows`` per forward, the render equal to its plain-windows
-    render.
+    render;
+26. registering through the retrieval head: the flagship of phase 3 with
+    ``retrieval_embed_dim=256`` (widths 32-256; the trunk draws phase 3's
+    seeded weights, the head its own), B=4, T=2, against HEAD_TILES seeded
+    tiles made a batch at a time, with phase 3's renders inserted at
+    HEAD_ROWS: the database's bytes and tiles per second, the head's own
+    time; one warm-up and HEAD_REQUESTS requests with phase 3's launch
+    counts, the render equal to phase 3's (max abs 0), each render's
+    embedding with TF32 enabled globally within HEAD_REL_TOL of the same
+    head in float64 on the CPU, the inserted renders back as top-1 at
+    distance at most HEAD_SELF_DIST; ms/request, host CPU, peak memory;
+27. streaming and replay on the same pipeline and database: a seeded
+    sequence of STREAM_FRAMES frames whose first two are phase 3's window;
+    the streaming step over those two frames (the JAX package's pose-pair
+    rule) gives phase 3's render (max abs 0); over the whole sequence,
+    exactly 12 ``fused_site`` and 32 ``lattice_bias`` launches a frame,
+    ms a frame beside phase 3's ms a request; ``make_replay_scan`` over it
+    returns the chain's tile indices and final BEV bit for bit; after a
+    first replay (its host synchronisations printed) STREAM_RUNS timed
+    replays with ``torch.cuda.set_sync_debug_mode("error")``: none may
+    synchronise the host; their ms a sequence.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -257,6 +277,26 @@ WINDOWS_TRAIN_COUNTS = {WINDOW_NAMES.get(k, k): v
                         for k, v in TRAIN_COUNTS[(False, "nothing")].items()}
 PYR_WINDOWS_REQUESTS = 3
 PYR_WINDOWS_PER_FORWARD = dict(lattice_windows=sum(PYR_PER_FORWARD.values()))
+# the retrieval head (phase 26): the shipped head on the flagship, a tile
+# database made from a seed, phase 3's renders inserted at known rows (one
+# a request item)
+HEAD_DIM = 256
+HEAD_WIDTHS = (32, 64, 128, 256)
+HEAD_TILES = 4096
+HEAD_TILE_BATCH = 256
+HEAD_REQUESTS = 10
+HEAD_ROWS = (17, 1031, 2222, 4000)
+# the head on the card, TF32 enabled globally, against its float64 run on
+# the CPU: largest difference over largest entry
+HEAD_REL_TOL = 1e-5
+# an inserted render's distance to its own row (2 - 2 cos of two float32
+# embeddings of one image, made in batches of 256 and of 4)
+HEAD_SELF_DIST = 1e-5
+# streaming (phase 27): one encoder pass a frame
+STREAM_FRAMES = 8
+STREAM_RUNS = 3
+STREAM_PER_FRAME = dict(fused_site=FUSED_PER_FORWARD // 2,
+                        lattice_bias=BIAS_PER_FORWARD // 2)
 BIAS_ULP = 2.0 ** -7   # one bf16 ulp of x is at most |x| * 2^-7
 # windowed bias against the bias kernels, as a share of the largest entry a
 # of the bf16 table: the windowed bias lerps in bf16, each operation rounded
@@ -2158,6 +2198,296 @@ def check_windows(da, kernels) -> tuple:
             rec_bias)
 
 
+class SeededTiles:
+    """``n`` map tiles (224 x 224 x 3, uniform in [0, 1), float32) drawn
+    from ``seed`` ``batch`` at a time, so that no array of all of them is
+    ever built; the rows of ``inserted`` ({row: image}) replaced."""
+
+    def __init__(self, n: int, seed: int, inserted: dict, batch: int):
+        self.n, self.seed, self.inserted, self.batch = n, seed, inserted, batch
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        import numpy as np
+
+        rng = np.random.default_rng(self.seed)
+        for start in range(0, self.n, self.batch):
+            block = rng.random((min(self.batch, self.n - start), 224, 224, 3),
+                               dtype=np.float32)
+            for i, tile in enumerate(block):
+                yield self.inserted.get(start + i, tile)
+
+
+def per_call_text(ms: list) -> str:
+    q = statistics.quantiles(ms, n=20)
+    return (f"min {min(ms):.3f} median {statistics.median(ms):.3f} p95 "
+            f"{q[-1]:.3f} max {max(ms):.3f}")
+
+
+def head_phase(card: str, auto_render) -> tuple:
+    """Phase 26: render+register through the retrieval head. Returns the
+    record, the pipeline and its database (phase 27 streams on them)."""
+    import copy
+
+    import torch
+
+    from bevrender_tpu_torch.config import flagship_config
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.inference.register import RegistrationPipeline
+    from bevrender_tpu_torch.models.retrieval import tf32
+    from bevrender_tpu_torch.ops import kernels
+
+    t_start = time.perf_counter()
+    cfg = flagship_config(dtype="bfloat16", retrieval_embed_dim=HEAD_DIM,
+                          retrieval_head_widths=HEAD_WIDTHS)
+    pipe = RegistrationPipeline(cfg, device="cuda", seed=0)
+    ds = SyntheticDataset(n_items=SERVE_B, num_views=cfg.model.num_views,
+                          window_num_imgs=1, img_height=224, img_width=224)
+    batch = {k: torch.as_tensor(v) for k, v in ds.batch(SERVE_B).items()}
+    tiles = SeededTiles(HEAD_TILES, 2, dict(zip(HEAD_ROWS,
+                                                auto_render.numpy())),
+                        HEAD_TILE_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = pipe.build_tile_database(tiles, batch_size=HEAD_TILE_BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    db_bytes = db.numel() * db.element_size()
+    norms = torch.linalg.vector_norm(db, dim=-1)
+    if (tuple(db.shape) != (HEAD_TILES, HEAD_DIM) or db.dtype != torch.float32
+            or not bool(torch.isfinite(db).all())
+            or float((norms - 1).abs().max()) > 1e-5):
+        fail(f"head database: shape {tuple(db.shape)}, dtype {db.dtype}, "
+             f"norms {float(norms.min())}-{float(norms.max())}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand(HEAD_TILE_BATCH, 224, 224, 3, device="cuda", generator=gen)
+    with torch.no_grad():
+        head_batch_ms = queued_ms(lambda: pipe.net.embed(x), 5)
+        head_request_ms = queued_ms(lambda: pipe.net.embed(x[:SERVE_B]), 20)
+    del x
+    print(f"head database: {HEAD_TILES} tiles -> {tuple(db.shape)} float32, "
+          f"{db_bytes} bytes ({db_bytes / 2 ** 20:.3f} MiB), built in "
+          f"{build_s:.3f} s, {HEAD_TILES / build_s:.1f} tiles/s (the host's "
+          f"seeded tiles and copies included); the head alone on "
+          f"{HEAD_TILE_BATCH} tiles {head_batch_ms:.3f} ms on the card, "
+          f"{HEAD_TILE_BATCH / head_batch_ms * 1e3:.1f} tiles/s; on a "
+          f"request's {SERVE_B} renders {head_request_ms:.4f} ms [{card}]",
+          flush=True)
+
+    pipe.register(batch, top_k=10)  # warm-up request
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(HEAD_REQUESTS + 1)]
+    cpu0 = time.process_time()
+    marks[0].record()
+    for i in range(HEAD_REQUESTS):
+        render, idx, dist = pipe.register(batch, top_k=10)
+        marks[i + 1].record()
+    marks[-1].synchronize()
+    host_cpu_ms = (time.process_time() - cpu0) * 1e3 / HEAD_REQUESTS
+    counts = kernels.counts()
+    req_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    ms = marks[0].elapsed_time(marks[-1]) / HEAD_REQUESTS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = expected(fused_site=FUSED_PER_FORWARD * HEAD_REQUESTS,
+                    lattice_bias=BIAS_PER_FORWARD * HEAD_REQUESTS)
+    print(f"head serving launches over {HEAD_REQUESTS} requests: {counts} "
+          f"(expected {want})", flush=True)
+    if counts != want:
+        fail(f"head serving: launch counts {counts} != {want}")
+    render_diff = float((render.float().cpu() - auto_render).abs().max())
+    rows = torch.tensor(HEAD_ROWS)
+    top1 = idx[:, 0].cpu()
+    self_dist = dist[:, 0].float().cpu()
+    margin = (dist[:, 1] - dist[:, 0]).float().cpu()
+    with torch.no_grad():
+        ref = copy.deepcopy(pipe.net.retrieval_head).cpu().double()(
+            render.double().cpu())
+        with tf32(True):
+            emb = pipe.net.embed(render)
+    head_rel = float((emb.double().cpu() - ref).abs().max()
+                     / ref.abs().max())
+    print(f"render+register through the head, flagship bf16 B={SERVE_B} T=2: "
+          f"{HEAD_REQUESTS} requests, {ms:.3f} ms/request, "
+          f"{SERVE_B / ms * 1e3:.2f} frames/s; per request "
+          f"{per_call_text(req_ms)} ms; host CPU {host_cpu_ms:.3f} "
+          f"ms/request; peak {peak_gb:.3f} GiB [{card}]", flush=True)
+    print(f"head: render against phase 3's (max abs) {render_diff}; top-1 "
+          f"{top1.tolist()} (inserted at {list(HEAD_ROWS)}), distance "
+          f"{self_dist.tolist()} (limit {HEAD_SELF_DIST}), to the second "
+          f"{margin.tolist()}; embedding with TF32 enabled against float64 "
+          f"on the CPU {head_rel:.3g} of its largest entry (limit "
+          f"{HEAD_REL_TOL})", flush=True)
+    if render_diff != 0.0:
+        fail(f"head serving: render differs from phase 3's by {render_diff}")
+    if not torch.equal(top1, rows) or float(self_dist.max()) > HEAD_SELF_DIST:
+        fail(f"head serving: inserted renders at {list(HEAD_ROWS)} came back "
+             f"as {top1.tolist()} at {self_dist.tolist()}")
+    if not head_rel <= HEAD_REL_TOL:
+        fail(f"head serving: the head is {head_rel} from float64")
+    wall_s = time.perf_counter() - t_start
+    print(f"phase 26: {wall_s:.1f} s", flush=True)
+    record = dict(requests=HEAD_REQUESTS, request_ms=ms,
+                  request_ms_min=min(req_ms),
+                  request_ms_median=statistics.median(req_ms),
+                  request_ms_p95=statistics.quantiles(req_ms, n=20)[-1],
+                  host_cpu_ms=host_cpu_ms, peak_gib=peak_gb, counts=counts,
+                  db_tiles=HEAD_TILES, db_bytes=db_bytes, db_build_s=build_s,
+                  head_batch_ms=head_batch_ms,
+                  head_request_ms=head_request_ms, render_diff=render_diff,
+                  self_dist_max=float(self_dist.max()),
+                  margin_min=float(margin.min()), head_rel_err=head_rel,
+                  wall_s=wall_s)
+    return record, pipe, db
+
+
+def streaming_phase(card: str, pipe, db, auto_render, serve: dict) -> dict:
+    """Phase 27: the streaming step and the replay on phase 26's pipeline
+    and database."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.ops import kernels
+
+    t_start = time.perf_counter()
+    views = pipe.config.model.num_views
+    seq = SyntheticDataset(n_items=SERVE_B, num_views=views,
+                           window_num_imgs=STREAM_FRAMES - 1, img_height=224,
+                           img_width=224).batch(SERVE_B)
+    window = SyntheticDataset(n_items=SERVE_B, num_views=views,
+                              window_num_imgs=1, img_height=224,
+                              img_width=224).batch(SERVE_B)
+    if not all(np.array_equal(seq[k][:, :2], window[k])
+               for k in ("camera", "vehicle_pose")):
+        fail("streaming: the sequence's first two frames are not phase 3's "
+             "window")
+    cam = torch.as_tensor(seq["camera"]).cuda()
+    pose = torch.as_tensor(seq["vehicle_pose"]).cuda()
+    vt = torch.as_tensor(seq["vehicle_type"]).cuda()
+    # frame t warps with pose[:, lo:lo + 2], lo = min(t, T - 2) (the JAX
+    # package's rule, tests/test_inference.py:87-114)
+    lo = [min(t, STREAM_FRAMES - 2) for t in range(STREAM_FRAMES)]
+    pairs = [pose[:, i:i + 2] for i in lo]
+    step, replay = pipe.make_streaming_step(), pipe.make_replay_scan()
+
+    # the first two frames under the two-frame window's rule: phase 3's render
+    bev, _, _ = step(cam[:, 0], None, pose[:, 0:2], vt, db)
+    _, out, _ = step(cam[:, 1], bev, pose[:, 0:2], vt, db)
+    two_diff = float((out.float().cpu() - auto_render).abs().max())
+
+    def chain(marks):
+        bev, idx = None, []
+        marks[0].record()
+        for t in range(STREAM_FRAMES):
+            bev, _, i = step(cam[:, t], bev, pairs[t], vt, db)
+            idx.append(i)
+            marks[t + 1].record()
+        return bev, torch.stack(idx)
+
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    frame_ms, chains = [], []
+    cpu0 = time.process_time()
+    for _ in range(STREAM_RUNS):
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(STREAM_FRAMES + 1)]
+        chains.append(chain(marks))
+        marks[-1].synchronize()
+        frame_ms += [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    host_cpu_ms = (time.process_time() - cpu0) * 1e3 / len(frame_ms)
+    counts = kernels.counts()
+    want = expected(**{k: v * STREAM_FRAMES * STREAM_RUNS
+                       for k, v in STREAM_PER_FRAME.items()})
+    print(f"streaming launches over {STREAM_RUNS} sequences of "
+          f"{STREAM_FRAMES} frames: {counts} (expected {want})", flush=True)
+    if counts != want:
+        fail(f"streaming: launch counts {counts} != {want}")
+
+    frames = cam.transpose(0, 1)
+    pose_pairs = torch.stack(pairs)
+    # a first replay, untimed, where a first use may copy a cached constant
+    # to the card: its host synchronisations are printed with their place
+    # (the mode's own notice on first use, "Synchronization debug mode is a
+    # prototype feature ...", is not one)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            replays = [replay(frames, pose_pairs, vt, db)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    first_syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                   if "called a synchronizing" in str(w.message)]
+    # the timed replays raise on any host synchronisation
+    kernels.reset_counts()
+    replay_ms = []
+    for _ in range(STREAM_RUNS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a.record()
+            replays.append(replay(frames, pose_pairs, vt, db))
+            b.record()
+        except RuntimeError as e:
+            fail(f"replay: a warm replay synchronised the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        b.synchronize()
+        replay_ms.append(a.elapsed_time(b))
+    counts_replay = kernels.counts()
+    chain_bev, chain_idx = chains[0]
+    same = [torch.equal(r[1], chain_idx) and torch.equal(r[0], chain_bev)
+            for r in replays]
+    same_chains = all(torch.equal(c[1], chain_idx)
+                      and torch.equal(c[0], chain_bev) for c in chains)
+    finite = bool(torch.isfinite(chain_bev.float()).all()) and bool(
+        torch.isfinite(replays[0][2]).all())
+    print(f"streaming flagship bf16 B={SERVE_B}, one encoder pass a frame: "
+          f"{len(frame_ms)} frames ({STREAM_RUNS} sequences of "
+          f"{STREAM_FRAMES}), per frame {per_call_text(frame_ms)} ms, host "
+          f"CPU {host_cpu_ms:.3f} ms/frame; phase 3's T=2 window (two "
+          f"encoder passes) {serve['request_ms']:.3f} ms/request, per "
+          f"request min {serve['request_ms_min']:.3f} median "
+          f"{serve['request_ms_median']:.3f} p95 {serve['request_ms_p95']:.3f}"
+          f" [{card}]", flush=True)
+    print(f"replay of {STREAM_FRAMES} frames: "
+          f"{[round(m, 3) for m in replay_ms]} ms a sequence "
+          f"({min(replay_ms) / STREAM_FRAMES:.3f} ms a frame at the least); "
+          f"launches {counts_replay} (expected {want}); host "
+          f"synchronisations: none in the timed replays, {first_syncs} in "
+          f"the first; indices "
+          f"{chain_idx.cpu().tolist()}; equal to the chain's (indices and "
+          f"final BEV, bit for bit) {same}, the chains to each other "
+          f"{same_chains}; two-frame render against phase 3's (max abs) "
+          f"{two_diff} [{card}]", flush=True)
+    if two_diff != 0.0:
+        fail(f"streaming: two-frame render differs from phase 3's by "
+             f"{two_diff}")
+    if counts_replay != want:
+        fail(f"replay: launch counts {counts_replay} != {want}")
+    if not (all(same) and same_chains and finite):
+        fail("replay: indices or final BEV differ from the chain's, or are "
+             "not finite")
+    wall_s = time.perf_counter() - t_start
+    print(f"phase 27: {wall_s:.1f} s", flush=True)
+    return dict(frames=len(frame_ms), frame_ms_min=min(frame_ms),
+                frame_ms_median=statistics.median(frame_ms),
+                frame_ms_p95=statistics.quantiles(frame_ms, n=20)[-1],
+                host_cpu_ms=host_cpu_ms, counts=counts, replay_ms=replay_ms,
+                first_replay_syncs=first_syncs, two_frame_diff=two_diff,
+                wall_s=wall_s)
+
+
 def train_phase(card: str, tag: str, cfg, fused_bwd: bool, site_remat: str,
                 steps: int, profile_step: bool, per_step: dict) -> dict:
     """``steps`` optimizer steps of a bf16 model (``cfg``) on a fixed batch
@@ -2705,6 +3035,14 @@ def main() -> None:
           f"{pyr_serve['request_ms']:.3f}, busy {pyr_serve['busy_ms']:.3f}) "
           f"[{card}]", flush=True)
 
+    stamp("phases 26-27")
+    # ---- the retrieval head (ModelConfig.retrieval_embed_dim) on the
+    # flagship, then streaming and replay on the same pipeline ----
+    head, head_pipe, head_db = head_phase(card, auto_render)
+    stream = streaming_phase(card, head_pipe, head_db, auto_render, serve)
+    del head_pipe, head_db
+    torch.cuda.empty_cache()
+
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
         top = max(data["rows"], key=lambda r: r[per] * r["ms"])
@@ -2721,6 +3059,8 @@ def main() -> None:
                if "worst_online" in data else {}),
         }
 
+    # the streamed frames' measured launches, a frame
+    stream_frame = {k: n // stream["frames"] for k, n in stream["counts"].items()}
     record = {"kernels": [
         entry("lattice_bias", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias.cu",
@@ -2730,6 +3070,8 @@ def main() -> None:
               launches_train_fused_bwd=train_fused["counts"]["lattice_bias"],
               launches_pyramid_serving=pyr_serve["counts"]["lattice_bias"],
               launches_pyramid_train=pyr_train["counts"]["lattice_bias"],
+              launches_head_serving=head["counts"]["lattice_bias"],
+              launches_streaming_frame=stream_frame["lattice_bias"],
               per_shape_train=bias_bwd["fwd_rows"],
               per_shape_pyramid=pyr_bias["lattice_bias"]["rows"]),
         entry("fused_site", "cuda",
@@ -2737,7 +3079,9 @@ def main() -> None:
               "bevrender_tpu/ops/pallas/fused_attn.py:637", site,
               counts["fused_site"],
               launches_train=train_default["counts"]["fused_site"],
-              launches_train_fused_bwd=train_fused["counts"]["fused_site"]),
+              launches_train_fused_bwd=train_fused["counts"]["fused_site"],
+              launches_head_serving=head["counts"]["fused_site"],
+              launches_streaming_frame=stream_frame["fused_site"]),
         entry("lattice_bias_bwd", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_bwd.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:829", bias_bwd,
@@ -2831,6 +3175,7 @@ def main() -> None:
                  "render_diff": fold_diff},
         "windows": {"serving": windows_serve, "train": windows_train,
                     "pyramid_serving": pyr_windows, "bias": win_bias},
+        "retrieval_head": head, "streaming": stream,
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}

@@ -48,6 +48,11 @@ FOLD_MODULES = ("ops/kernels/fused_site_fold.py",)
 WINDOWS_MODULES = ("ops/kernels/lattice_windows.py",)
 
 
+# the retrieval head, and the model that wires it in with streaming serving
+# (the pipeline and the trainer that use them are named above)
+RETRIEVAL_MODULES = ("models/retrieval.py", "models/bevrender.py")
+
+
 def _port_files():
     return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -80,7 +85,7 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + PYRAMID_MODULES
                          + WIDE_ROUTE_MODULES + FOLD_MODULES
-                         + WINDOWS_MODULES)
+                         + WINDOWS_MODULES + RETRIEVAL_MODULES)
 def test_training_module_imports_no_jax(module):
     path = ROOT / "bevrender_tpu_torch" / module
     assert path.exists()

@@ -1175,6 +1175,44 @@ def test_windowed_bias_runs_on_the_window_kernels(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_retrieval_head_is_float32_with_tf32_enabled(cuda_device,
+                                                      monkeypatch):
+    """The retrieval head (no kernel of its own) on the card with TF32
+    enabled globally, PyTorch's cuDNN default: within 1e-5 of its largest
+    entry of the same head in float64 on the CPU, because the head pins
+    IEEE float32 itself. Without that pin the same run departs by more, so
+    TF32 really was on."""
+    import contextlib
+    import copy
+
+    from bevrender_tpu_torch.models import retrieval
+    from bevrender_tpu_torch.models.layers import init_params
+
+    head = init_params(retrieval.RetrievalHead(256, (32, 64, 128, 256)), 0)
+    x = torch.rand(4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = copy.deepcopy(head).double()(x.double())
+    card = head.to(cuda_device)
+    xc = x.to(cuda_device)
+
+    def rel():
+        with torch.no_grad():
+            got = card(xc)
+        return float((got.double().cpu() - ref).abs().max()
+                     / ref.abs().max())
+
+    with retrieval.tf32(True):
+        pinned = rel()
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+        monkeypatch.setattr(retrieval, "tf32",
+                            lambda enabled: contextlib.nullcontext())
+        unpinned = rel()
+    assert pinned <= 1e-5, pinned
+    assert unpinned > 1e-5, unpinned
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ch", [1, 2, 6])
 def test_narrow_head_site_takes_the_bias_route(cuda_device, ch):
     """A site whose head width has no fused-site instance (the flagship at
