@@ -3,7 +3,8 @@ bevrender_tpu/data/prefetch.py): ``collate``, ``group_batches`` and the
 map-style ``DataLoader`` are numpy only and behave as there (same seeded
 shuffle, sampler, ``drop_last``, ``set_epoch``); ``device_prefetch`` moves
 finished batches to the model's device from pinned memory while the
-previous step computes."""
+previous step computes, and applies the device-side preprocessing stage
+(``data.preprocess``) to them there."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import collections
 import concurrent.futures
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -95,11 +96,13 @@ class DataLoader:
 
 
 def device_prefetch(it: Iterator[Dict[str, np.ndarray]], device,
-                    size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                    size: int = 2, preprocess: Optional[Callable] = None
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
     """Keep ``size`` batches in flight on ``device``. A feeder thread turns
     each numpy batch into tensors; for a CUDA device it pins them and
-    copies on a side stream, and the consumer's stream waits for that copy
-    only when it takes the batch. Errors of the dataset surface in the
+    copies on a side stream, then runs ``preprocess`` (a device batch to a
+    device batch) on that stream, and the consumer's stream waits for the
+    batch only when it takes it. Errors of the dataset surface in the
     consumer."""
     device = torch.device(device)
     on_gpu = device.type == "cuda"
@@ -111,10 +114,12 @@ def device_prefetch(it: Iterator[Dict[str, np.ndarray]], device,
         host = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in batch.items()}
         if not on_gpu:
-            return host, None
+            return (preprocess(host) if preprocess else host), None
         with torch.cuda.stream(stream):
             out = {k: t.pin_memory().to(device, non_blocking=True)
                    for k, t in host.items()}
+            if preprocess is not None:
+                out = preprocess(out)
             done = torch.cuda.Event()
             done.record(stream)
         return out, done

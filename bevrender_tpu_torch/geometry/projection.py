@@ -1,16 +1,19 @@
 """BEV voxel grid and camera projection (numpy, run once at model build).
 
 Own copy of bevrender_tpu/geometry/projection.py (``sample_3d_points``
-:26, ``BEV2CameraProjector`` :65, ``reference_points_all_types`` :174 and
-``default_camera_rig`` :219), without the gray-calibration mask, which the
-render+register path does not use.
+:26, ``BEV2CameraProjector`` :65 with its gray-calibration mask
+``_in_bound_mask`` :150, ``reference_points_all_types`` :174 and
+``default_camera_rig`` :219). The calibration PNGs are decoded by the
+port's native library (``data/native.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from bevrender_tpu_torch.data.native import decode_png
 
 
 def sample_3d_points(bev_bound: Dict[str, float], bev_feat_shape: int,
@@ -36,16 +39,34 @@ def sample_3d_points(bev_bound: Dict[str, float], bev_feat_shape: int,
     return pts
 
 
+def _in_bound_mask(points_2d: np.ndarray, img_width: int, img_height: int,
+                   gray_img_path: Optional[str] = None) -> np.ndarray:
+    """Points whose int-cast pixel lies inside the image; with
+    ``gray_img_path``, also not on a gray (128, 128, 128) pixel of that
+    view's calibration image."""
+    pts = points_2d.astype(np.int32)
+    mask = ((pts[1] >= 0) & (pts[1] < img_height - 1)
+            & (pts[0] >= 0) & (pts[0] < img_width - 1))
+    if gray_img_path is not None:
+        ref_img = decode_png(gray_img_path)  # (H, W, 3)
+        pts = np.where(mask[None, :], pts, 0)
+        values = ref_img[pts[1], pts[0]]
+        mask = mask & ~((values == 128).sum(axis=-1) == 3)
+    return mask
+
+
 def _project_views(points_3d, extrinsics, intrinsics, img_width, img_height,
-                   ori_img_width, ori_img_height):
+                   ori_img_width, ori_img_height,
+                   gray_img_paths: Optional[List[str]] = None):
     """Per-view (2, h, w, z) normalized (x, y) pixel coordinates; points
-    outside the image are zeroed before normalization."""
+    outside the image (or on the view's gray calibration pixels) are
+    zeroed before normalization."""
     _, h, w, z = points_3d.shape
     flat = points_3d.reshape(4, -1).astype(np.float64)
     sx = img_width / ori_img_width
     sy = img_height / ori_img_height
     views = []
-    for ext, k in zip(extrinsics, intrinsics):
+    for view, (ext, k) in enumerate(zip(extrinsics, intrinsics)):
         k = np.asarray(k, dtype=np.float64).copy()
         k[0, 0] *= sx
         k[0, 2] *= sx
@@ -54,9 +75,9 @@ def _project_views(points_3d, extrinsics, intrinsics, img_width, img_height,
         pts_cam = np.linalg.inv(np.asarray(ext, dtype=np.float64)) @ flat
         pts_2d = k[:3, :3] @ pts_cam[:3]
         pts_2d = (pts_2d / pts_2d[-1])[:2]
-        pi = pts_2d.astype(np.int32)
-        mask = ((pi[1] >= 0) & (pi[1] < img_height - 1)
-                & (pi[0] >= 0) & (pi[0] < img_width - 1))
+        mask = _in_bound_mask(
+            pts_2d, img_width, img_height,
+            gray_img_paths[view] if gray_img_paths else None)
         pts_2d = np.where(mask[None, :], pts_2d, 0.0)
         pts_2d[0] = pts_2d[0] / (img_width - 1)
         pts_2d[1] = pts_2d[1] / (img_height - 1)
@@ -69,13 +90,20 @@ def reference_points_all_types(
     imu_to_rgb, K, vehicle_types: Sequence[int], bev_bound, bev_feat_shape: int,
     bev_depth_dim: int, z_shift: float, img_width: int, img_height: int,
     ori_img_width: int, ori_img_height: int,
+    remove_ref_in_gray: bool = False,
+    bound_check_img_paths: Optional[List[str]] = None,
 ) -> np.ndarray:
-    """(n_types, n_views, h2, w * depth, 2) float32 (x, y) in [-1, 1]."""
+    """(n_types, n_views, h2, w * depth, 2) float32 (x, y) in [-1, 1]. With
+    ``remove_ref_in_gray`` and one calibration image a view in
+    ``bound_check_img_paths``, points on its gray pixels are dropped."""
     pts3d = sample_3d_points(bev_bound, bev_feat_shape, bev_depth_dim, z_shift)
+    gray = (bound_check_img_paths
+            if remove_ref_in_gray and bound_check_img_paths else None)
     out = []
     for vt in vehicle_types:
         views = _project_views(pts3d, imu_to_rgb[vt], K[vt], img_width,
-                               img_height, ori_img_width, ori_img_height)
+                               img_height, ori_img_width, ori_img_height,
+                               gray)
         out.append(np.stack(
             [v.transpose(1, 2, 3, 0).reshape(v.shape[1], -1, 2) for v in views],
             axis=0,

@@ -46,6 +46,8 @@ def reference_points(cfg: ModelConfig) -> list:
             bev_depth_dim=cfg.bev_depth_dim, z_shift=cfg.sample_z_shift,
             img_width=cfg.img_width, img_height=cfg.img_height,
             ori_img_width=cfg.ori_img_width, ori_img_height=cfg.ori_img_height,
+            remove_ref_in_gray=cfg.remove_ref_in_gray,
+            bound_check_img_paths=cfg.bound_check_img_paths,
         )
         for shape in cfg.bev_shapes[: cfg.n_stages]
     ]

@@ -26,7 +26,12 @@ What differs from the JAX package, and why:
   ``_embed(variables, images)`` does there;
 * kernel choice comes from ``TrainConfig.fused_bwd``, ``site_remat`` and
   ``fused_fwd_fold`` and from ``ModelConfig.site_options()``, not from
-  environment variables.
+  environment variables;
+* ``DataConfig.on_device_preprocess`` selects the device-side stage of
+  ``data.preprocess`` (``self.preprocess``), which ``device_prefetch`` runs
+  on every batch after its copy, as there;
+* validation renders are written with the port's own PNG encoder and the
+  log image is resized by the native library: the port needs no PIL.
 """
 
 from __future__ import annotations
@@ -43,7 +48,10 @@ import torch
 
 from bevrender_tpu_torch import resolve_device
 from bevrender_tpu_torch.config import Config
+from bevrender_tpu_torch.data import native
+from bevrender_tpu_torch.data.png import encode_png
 from bevrender_tpu_torch.data.prefetch import DataLoader, device_prefetch
+from bevrender_tpu_torch.data.preprocess import make_preprocessor
 from bevrender_tpu_torch.losses import metric as metric_losses
 from bevrender_tpu_torch.losses import rendering as render_losses
 from bevrender_tpu_torch.losses.recall import recall_at_k
@@ -158,6 +166,9 @@ class Trainer:
             Path(ckpt_dir) / str(int(time.time())))
         Path(self.work_dir).mkdir(parents=True, exist_ok=True)
         self._gen = torch.Generator(device=self.device)
+        # True: resize, split and normalise raw uint8 frames on the
+        # device; "cast": uint8 -> float only; False: None
+        self.preprocess = make_preprocessor(config.data)
 
     # ------------------------------------------------------------------
     def create_state(self, seed: int = 0, state_dict=None) -> TrainState:
@@ -277,8 +288,8 @@ class Trainer:
         # logging cadence, so the launches stay ahead of the device
         tr_losses: list = []
         log_every = max(self.tc.log_every_steps, 1)
-        for idx, batch in enumerate(device_prefetch(iter(train_loader),
-                                                    self.device)):
+        for idx, batch in enumerate(device_prefetch(
+                iter(train_loader), self.device, preprocess=self.preprocess)):
             state, metrics, render = self.train_step(state, batch, rng)
             tr_losses.append(metrics["train_batch_loss"])
             want_img = (self.image_rendering and self.metrics.run is not None
@@ -310,8 +321,9 @@ class Trainer:
             cam_embs: List[torch.Tensor] = []
             map_embs: List[torch.Tensor] = []
             n_val = max(len(val_loader), 1)
-            for idx, batch in enumerate(device_prefetch(iter(val_loader),
-                                                        self.device)):
+            for idx, batch in enumerate(device_prefetch(
+                    iter(val_loader), self.device,
+                    preprocess=self.preprocess)):
                 metrics, cam_e, map_e, val_out = self.eval_step(state, batch)
                 val_loss += float(metrics["val_batch_loss"]) / n_val
                 if self.image_retrieval:
@@ -417,24 +429,23 @@ class Trainer:
 
     def save_val_images(self, state: TrainState, val_loader, epoch: int) -> None:
         """Write the best epoch's validation renders as PNGs."""
-        from PIL import Image
-
         out_dir = Path(self.work_dir) / "best_epoch_val"
         out_dir.mkdir(parents=True, exist_ok=True)
-        for batch in device_prefetch(iter(val_loader), self.device):
+        for batch in device_prefetch(iter(val_loader), self.device,
+                                     preprocess=self.preprocess):
             _, _, _, out = self.eval_step(state, batch)
             for render, ts in zip(out.float().cpu().numpy(),
                                   np.asarray(batch["timestamp"].cpu())):
                 img = (np.clip(render, 0, 1) * 255).astype(np.uint8)
-                Image.fromarray(img).save(out_dir / f"{int(ts)}.png")
+                encode_png(out_dir / f"{int(ts)}.png", img)
         self.logger.info("val images saved at epoch %d -> %s", epoch, out_dir)
 
     @staticmethod
     def get_log_image(render: np.ndarray, map_tile: np.ndarray,
                       cameras: np.ndarray) -> np.ndarray:
         """Composite: the camera views in one row above [map | zeros |
-        render]. All inputs NHWC float."""
-        from PIL import Image
+        render]. All inputs NHWC float; the camera row is resized by the
+        native triangle filter (PIL's BILINEAR within 2 levels)."""
 
         def norm(x):
             lo, hi = x.min(), x.max()
@@ -445,8 +456,6 @@ class Trainer:
             [norm(map_tile), np.zeros_like(map_tile), np.clip(render, 0, 1)],
             axis=1)
         wide = np.concatenate(list(norm(cameras)), axis=1)
-        wide = np.asarray(
-            Image.fromarray((wide * 255).astype(np.uint8)).resize(
-                (bottom.shape[1], h), Image.BILINEAR),
-            dtype=np.float32) / 255.0
+        wide = native.resize_u8((wide * 255).astype(np.uint8), h,
+                                bottom.shape[1]).astype(np.float32) / 255.0
         return np.concatenate([wide, bottom], axis=0)

@@ -154,7 +154,22 @@ Phases, each fatal on failure:
     returns the chain's tile indices and final BEV bit for bit; after a
     first replay (its host synchronisations printed) STREAM_RUNS timed
     replays with ``torch.cuda.set_sync_debug_mode("error")``: none may
-    synchronise the host; their ms a sequence.
+    synchronise the host; their ms a sequence;
+28. the file-fed trainer: a GPS trace of FEED_FRAMES frames with a gap
+    (two sequences), wide camera PNGs at the flagship's source size (512 x
+    1920), map tiles and the full map PNG, written under ``build/`` by the
+    port's encoder; the feed alone (ms a sample and samples/s with the
+    cache off, cold and warm, and for raw uint8 frames; the loader's
+    samples/s; the bytes a batch crosses to the device); then
+    ``train.main --config ... --epochs 2`` (one epoch) on the flagship
+    bf16, B=2, T=2, two folds with validation, on the host route and with
+    ``on_device_preprocess``: every step launches phase 6's counts, every
+    loss finite, a checkpoint and config.yaml written; ms/step (host
+    clock), host CPU and device idle share beside phase 6's; the device
+    route's camera tensor within ROUTE_TOL of the host route's on the same
+    window; ``MapLoader.iter_tiles`` over the map PNG (81 tiles equal to
+    their slices of the world) embedded by the trained checkpoint and a
+    file-fed window registered with a valid top-5.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -165,6 +180,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2766,6 +2782,435 @@ def small_model_grads(da, kernels, fused_bwd: bool, wide: bool = False) -> dict:
     return dict(worst=errs[worst], at=worst, used=used, run_to_run=noise)
 
 
+# The file-fed trainer (phase 28): a smooth seeded world of FEED_WORLD
+# pixels square saved as the full map PNG; a trace of FEED_FRAMES frames at
+# 4 Hz with a 5 s gap after frame FEED_GAP_AT (two sequences); a frame is a
+# wide camera PNG at the flagship's source size (three 512 x 640 views side
+# by side, each a world crop around the pose with noise) and the 224 x 224
+# map tile at its pose. Windows: T=2 from overlapping 2 s windows, 14 a
+# sequence; half train (7 steps at B=2), half validate.
+FEED_WORLD = 2048
+FEED_FRAMES = 32
+FEED_GAP_AT = 16
+FEED_SRC = (512, 640)
+FEED_TILE = 224
+FEED_CACHE_MB = 256
+# the device route against the host route on the same window (cache off,
+# float32 throughout on both), normalised values: the device resize takes
+# its sample positions in float32 as jax.image.resize does, rounded near
+# x = 1920 to ~2^-13 of a pixel, which moves a tap weight by ~6e-5 (1e-4
+# measured on a random 512 x 1920 frame on the CPU); a wrong filter or
+# rounding to uint8 shows as a level, 1/255/0.225 = 0.017
+ROUTE_TOL = 5e-4
+
+
+def feed_world(rng):
+    """(FEED_WORLD, FEED_WORLD, 3) uint8: two octaves of seeded noise
+    upsampled bilinearly, as ``SyntheticGeoDataset`` makes its world."""
+    import numpy as np
+
+    def octave(res):
+        low = rng.standard_normal((res, res, 3)).astype(np.float32)
+        s = np.linspace(0, res - 1, FEED_WORLD, dtype=np.float32)
+        i0 = np.floor(s).astype(int)
+        i1 = np.minimum(i0 + 1, res - 1)
+        w = (s - i0)[:, None, None]
+        rows = low[i0] * (1 - w) + low[i1] * w
+        w = w[None, :, :, 0]
+        return rows[:, i0] * (1 - w) + rows[:, i1] * w
+
+    up = octave(FEED_WORLD // 16) + 0.5 * octave(FEED_WORLD // 4)
+    up = (up - up.min()) / (up.max() - up.min())
+    return (up * 255).round().astype(np.uint8)
+
+
+def write_feed(root: Path, seed: int = 0) -> dict:
+    """The trace's files under ``root``, written by the port's encoder
+    (frames in parallel: zlib and numpy release the GIL): rgb/<ts>.png,
+    map/<ts>.png, world.png, gps.csv. Returns the paths, the world and the
+    per-frame poses."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from bevrender_tpu_torch.data.png import encode_png
+
+    rng = np.random.default_rng(seed)
+    world = feed_world(rng)
+    (root / "rgb").mkdir(parents=True)
+    (root / "map").mkdir()
+    t = np.arange(FEED_FRAMES) / (FEED_FRAMES - 1)
+    px = np.round(600 + 850 * t).astype(int)
+    py = np.round(FEED_WORLD / 2 + 300 * np.sin(3 * t)).astype(int)
+    yaw = 0.5 * t
+    ts, stamp = [], 1_700_000_000_000_000
+    for i in range(FEED_FRAMES):
+        stamp += 5_000_000 if i == FEED_GAP_AT else 0
+        ts.append(stamp)
+        stamp += 250_000
+    vh, vw = FEED_SRC
+
+    def frame(i):
+        r = np.random.default_rng([seed, i])
+        views = []
+        for v in range(3):
+            cy, cx = py[i] + 64 * (v - 1), px[i] + 160 * (v - 1)
+            crop = world[cy - vh // 2:cy + vh // 2, cx - vw // 2:cx + vw // 2]
+            noisy = crop + r.normal(0.0, 12.75, crop.shape)
+            views.append(np.clip(noisy, 0, 255).round().astype(np.uint8))
+        encode_png(root / "rgb" / f"{ts[i]}.png", np.concatenate(views, 1))
+        h = FEED_TILE // 2
+        encode_png(root / "map" / f"{ts[i]}.png",
+                   world[py[i] - h:py[i] + h, px[i] - h:px[i] + h])
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        jobs = [pool.submit(frame, i) for i in range(FEED_FRAMES)]
+        jobs.append(pool.submit(encode_png, root / "world.png", world))
+        for j in jobs:
+            j.result()
+    rows = [[ts[i], 0, px[i], FEED_WORLD - py[i], -10.0, 0.0, 0.0, yaw[i]]
+            for i in range(FEED_FRAMES)]
+    np.savetxt(root / "gps.csv", np.asarray(rows, np.float64), delimiter=",")
+    return dict(root=root, world=world, csv=root / "gps.csv",
+                map=root / "world.png")
+
+
+def feed_config(feed: dict, on_device_preprocess):
+    """The flagship bf16 trainer on the trace: B=2, T=2 (window_num_imgs
+    1, overlapping windows), MSE, two folds, one epoch a fold,
+    validation on."""
+    from bevrender_tpu_torch.config import flagship_config
+
+    cfg = flagship_config(dtype="bfloat16")
+    dc = cfg.data
+    root = feed["root"]
+    dc.gps_file_path = str(feed["csv"])
+    dc.rgb_img_dir, dc.map_img_dir = str(root / "rgb"), str(root / "map")
+    dc.map_jgw_info = (1.0, 0.0, 0.0, -1.0, 0.0, float(FEED_WORLD))
+    dc.map_width = dc.map_height = FEED_WORLD
+    dc.map_path, dc.map_month = {"feed": str(feed["map"])}, "feed"
+    dc.window_num_imgs, dc.overlap = 1, True
+    dc.frame_cache_mb = FEED_CACHE_MB
+    dc.on_device_preprocess = on_device_preprocess
+    tc = cfg.train
+    tc.batch_size, tc.loss_type = TRAIN_B, "MSE"
+    tc.k_fold, tc.epoch_per_fold = 2, 1
+    tc.ckpt_dir = str(root / f"ckpt_{int(bool(on_device_preprocess))}")
+    return cfg
+
+
+def feed_dataset(cfg, **kw):
+    """The trace's windows in a ``GPSDeniedDataset``, as ``train.main``
+    builds it, with ``kw`` overriding its arguments."""
+    from bevrender_tpu_torch.data.dataset import GPSDeniedDataset
+    from bevrender_tpu_torch.train import build_dataset
+    from bevrender_tpu_torch.training.metrics import get_logger
+
+    ds = build_dataset(cfg, get_logger())
+    if not kw:
+        return ds
+    dc = cfg.data
+    args = dict(mode="train", num_views=dc.num_views,
+                window_num_imgs=dc.window_num_imgs,
+                resize_img_height=dc.resize_img_height,
+                resize_img_width=dc.resize_img_width,
+                img_norm_mean=dc.camera_norm_mean,
+                img_norm_std=dc.camera_norm_std, seed=cfg.train.seed,
+                raw_uint8=bool(dc.on_device_preprocess),
+                cache_mb=dc.frame_cache_mb)
+    args.update(kw)
+    return GPSDeniedDataset(ds.datalist, **args)
+
+
+def feed_timing(cfg) -> dict:
+    """The feed alone on the host: ms a sample over every window, one
+    thread, with the cache off (one native call a frame), cold and warm
+    through the cache, and for the device route's raw frames; samples/s of
+    the loader (``num_workers`` threads, cache off); the bytes a batch of
+    each route crosses to the device."""
+    from bevrender_tpu_torch.data.prefetch import DataLoader, collate
+
+    def per_sample(ds) -> float:
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        return (time.perf_counter() - t0) * 1e3 / len(ds)
+
+    off = feed_dataset(cfg, cache_mb=0, raw_uint8=False)
+    cached = feed_dataset(cfg, cache_mb=FEED_CACHE_MB, raw_uint8=False)
+    raw = feed_dataset(cfg, cache_mb=0, raw_uint8=True)
+    out = dict(samples=len(off), ms_cache_off=per_sample(off),
+               ms_cache_cold=per_sample(cached),
+               ms_cache_warm=per_sample(cached),
+               ms_raw_uint8=per_sample(raw),
+               cache_hits=cached.cache.hits, cache_misses=cached.cache.misses)
+    loader = DataLoader(off, TRAIN_B, num_workers=cfg.train.num_workers)
+    t0 = time.perf_counter()
+    n = sum(len(b["timestamp"]) for b in loader)
+    out["loader_samples_s"] = n / (time.perf_counter() - t0)
+    out["loader_workers"] = cfg.train.num_workers
+    for name, ds in (("host", off), ("raw_uint8", raw)):
+        out[f"batch_bytes_{name}"] = sum(
+            v.nbytes for v in collate([ds[0], ds[1]]).values())
+    out["samples_s_cache_off"] = 1e3 / out["ms_cache_off"]
+    out["samples_s_cache_warm"] = 1e3 / out["ms_cache_warm"]
+    return out
+
+
+@contextlib.contextmanager
+def step_probe(n_steps: int, profile_last: bool):
+    """While ``train.main`` runs: per ``Trainer.train_step``, the kernels'
+    launch counts, CUDA events around it, the host clock and the process's
+    CPU time at its entry, the calling thread's CPU time and the loss; with
+    ``profile_last``, the device time of the last step (the profiler,
+    device activity only, as phase 6 profiles one step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    rec = dict(counts=[], events=[], entry=[], cpu=[], thread_cpu=[],
+               losses=[], busy_ms=None)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    orig = Trainer.train_step
+
+    def probed(self, state, batch, rng=0):
+        profiled = profile_last and len(rec["counts"]) == n_steps - 1
+        if profiled:
+            torch.cuda.synchronize()
+            prof.start()
+        rec["entry"].append(time.perf_counter())
+        rec["cpu"].append(time.process_time())
+        before = kernels.counts()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        c0 = time.thread_time()
+        a.record()
+        out = orig(self, state, batch, rng)
+        b.record()
+        rec["thread_cpu"].append((time.thread_time() - c0) * 1e3)
+        after = kernels.counts()
+        rec["counts"].append({k: after[k] - before[k] for k in after})
+        rec["events"].append((a, b))
+        rec["losses"].append(out[1]["train_batch_loss"])
+        if profiled:
+            torch.cuda.synchronize()
+            prof.stop()
+            rec["busy_ms"] = sum(e.self_device_time_total
+                                 for e in prof.key_averages()) / 1e3
+        return out
+
+    Trainer.train_step = probed
+    try:
+        yield rec
+    finally:
+        Trainer.train_step = orig
+
+
+def feed_train(card: str, tag: str, cfg, n_steps: int,
+               profile_last: bool) -> dict:
+    """``train.main`` on ``cfg`` (one epoch: ``--epochs 2``) under
+    ``step_probe``: every step's launches equal phase 6's, every loss
+    finite, a checkpoint and config.yaml written. Steps 2 to n-1 are
+    timed (the first warms up, the last may be profiled). Returns the
+    step measurements and the checkpoint."""
+    import torch
+
+    from bevrender_tpu_torch import train as train_mod
+
+    path = Path(cfg.train.ckpt_dir).with_suffix(".json")
+    path.write_text(cfg.to_json())
+    t0 = time.perf_counter()
+    with step_probe(n_steps, profile_last) as rec:
+        state = train_mod.main(["--config", str(path), "--epochs", "2"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    want = expected(**TRAIN_COUNTS[(False, "nothing")])
+    steps = len(rec["counts"])
+    bad = [i for i, c in enumerate(rec["counts"]) if c != want]
+    print(f"{tag}: {steps} steps, launches a step {rec['counts'][0]} "
+          f"(expected {want}, phase 6's)", flush=True)
+    if steps != n_steps or bad or state.step != n_steps:
+        fail(f"{tag}: {steps} steps (want {n_steps}), steps {bad} launched "
+             f"other counts than phase 6's: "
+             f"{[rec['counts'][i] for i in bad][:2]}")
+    losses = [float(x) for x in rec["losses"]]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{tag}: a loss is not finite: {losses}")
+    (work,) = Path(cfg.train.ckpt_dir).iterdir()
+    ckpts = sorted(p.name for p in work.glob("*.pt"))
+    if not ckpts or not (work / "config.yaml").is_file():
+        fail(f"{tag}: no checkpoint or config.yaml in {work}: "
+             f"{sorted(p.name for p in work.iterdir())}")
+    timed = range(1, steps - 1)
+    wall = [(rec["entry"][i + 1] - rec["entry"][i]) * 1e3
+            for i in timed[:-1]]
+    dev = [rec["events"][i][0].elapsed_time(rec["events"][i][1])
+           for i in timed]
+    out = dict(steps=steps, run_s=run_s, losses=losses, checkpoints=ckpts,
+               counts_per_step=rec["counts"][0],
+               step_ms_median=statistics.median(wall),
+               step_ms_min=min(wall), step_ms_max=max(wall),
+               device_span_ms_median=statistics.median(dev),
+               host_cpu_ms=statistics.median(rec["thread_cpu"][1:-1]),
+               process_cpu_ms=(rec["cpu"][timed[-1]] - rec["cpu"][1]) * 1e3
+               / len(wall),
+               checkpoint=str(work / ckpts[-1]))
+    busy = ""
+    if rec["busy_ms"] is not None:
+        out.update(busy_ms=rec["busy_ms"], idle_share=max(
+            0.0, 1 - rec["busy_ms"] / out["step_ms_median"]))
+        busy = (f"; device busy {out['busy_ms']:.3f} ms in step {steps} "
+                f"(profiler), idle share {out['idle_share']:.3f} of the "
+                f"median step")
+    print(f"{tag}: loss per step {[round(x, 6) for x in losses]}; "
+          f"checkpoints {ckpts} and config.yaml in {work.name}; "
+          f"{out['step_ms_median']:.3f} ms/step median over steps "
+          f"2-{steps - 1} (host clock, step entry to entry; min "
+          f"{out['step_ms_min']:.3f} max {out['step_ms_max']:.3f}); device "
+          f"span of a step {out['device_span_ms_median']:.3f} ms; host CPU "
+          f"{out['host_cpu_ms']:.3f} ms/step in the training thread, "
+          f"{out['process_cpu_ms']:.3f} ms/step in the process (loader "
+          f"threads included){busy}; whole run {run_s:.1f} s [{card}]",
+          flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def file_feed_phase(card: str, train_default: dict) -> dict:
+    """Phase 28: the flagship trained by ``train.main`` from a GPS trace
+    and PNG frames the phase writes, on the host route and the device
+    route; the feed timed alone; the two routes' camera tensors compared;
+    render+register served from the map PNG's tiles with the trained
+    checkpoint."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bevrender_tpu_torch.data.maploader import MapLoader
+    from bevrender_tpu_torch.data.prefetch import collate
+    from bevrender_tpu_torch.data.preprocess import make_preprocessor
+    from bevrender_tpu_torch.inference.register import RegistrationPipeline
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.training.trainer import kfold_indices
+
+    t_start = time.perf_counter()
+    (HERE / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_feed_", dir=HERE / "build"))
+    try:
+        feed = write_feed(root)
+        write_s = time.perf_counter() - t_start
+        host_cfg = feed_config(feed, False)
+        timing = feed_timing(host_cfg)
+        n_windows = timing["samples"]
+        train_idx, _ = next(kfold_indices(n_windows, host_cfg.train.k_fold,
+                                          host_cfg.train.seed))
+        n_steps = len(train_idx) // TRAIN_B
+        print(f"file feed: {FEED_FRAMES} frames (wide PNG "
+              f"{FEED_SRC[0]} x {3 * FEED_SRC[1]}, map tile {FEED_TILE}), "
+              f"{n_windows} windows, written in {write_s:.1f} s; one "
+              f"thread: cache off {timing['ms_cache_off']:.3f} ms/sample "
+              f"({timing['samples_s_cache_off']:.2f} samples/s), cache cold "
+              f"{timing['ms_cache_cold']:.3f}, warm "
+              f"{timing['ms_cache_warm']:.3f} ms/sample "
+              f"({timing['samples_s_cache_warm']:.2f} samples/s), raw uint8 "
+              f"{timing['ms_raw_uint8']:.3f} ms/sample; loader "
+              f"({timing['loader_workers']} threads, cache off) "
+              f"{timing['loader_samples_s']:.2f} samples/s; bytes a batch "
+              f"of {TRAIN_B} crosses to the device: host route "
+              f"{timing['batch_bytes_host']}, raw uint8 "
+              f"{timing['batch_bytes_raw_uint8']} [{card}]", flush=True)
+
+        host = feed_train(card, "file-fed train (host route)", host_cfg,
+                          n_steps, profile_last=True)
+        dev_cfg = feed_config(feed, True)
+        device = feed_train(card, "file-fed train (device route)", dev_cfg,
+                            n_steps, profile_last=False)
+        print(f"file-fed training against phase 6 (a fixed batch on the "
+              f"card): {host['step_ms_median']:.3f} (host route) and "
+              f"{device['step_ms_median']:.3f} (device route) ms/step "
+              f"median on the host clock, device span "
+              f"{host['device_span_ms_median']:.3f} / "
+              f"{device['device_span_ms_median']:.3f} ms, phase 6 "
+              f"{train_default['step_ms_median']:.3f} ms (events); host "
+              f"CPU {host['host_cpu_ms']:.3f} / {device['host_cpu_ms']:.3f} "
+              f"ms/step in the training thread, phase 6 "
+              f"{train_default['host_cpu_ms']:.3f}; idle share "
+              f"{host['idle_share']:.3f} (host route), phase 6 "
+              f"{train_default['idle_share']:.3f} [{card}]",
+              flush=True)
+
+        # the same window through both routes
+        s_host = feed_dataset(host_cfg, cache_mb=0, raw_uint8=False)[0]
+        s_raw = feed_dataset(dev_cfg, cache_mb=0)[0]
+        if not np.array_equal(s_host["vehicle_pose"], s_raw["vehicle_pose"]):
+            fail("file feed: the two routes drew different frames")
+        stage = make_preprocessor(dev_cfg.data)
+        with torch.no_grad():
+            dev = stage({k: torch.from_numpy(np.asarray(v)[None]).cuda()
+                         for k, v in s_raw.items()})
+        route_diff = float((dev["camera"][0].cpu()
+                            - torch.from_numpy(s_host["camera"])).abs().max())
+        map_diff = float((dev["map"][0].cpu()
+                          - torch.from_numpy(s_host["map"])).abs().max())
+        print(f"file feed: device-route camera tensor against the host "
+              f"route's on the same window (cache off), max abs {route_diff:.3g} "
+              f"(bound {ROUTE_TOL}); map max abs {map_diff:.3g}", flush=True)
+        if not (route_diff <= ROUTE_TOL and map_diff <= 2.0 ** -24):
+            fail(f"file feed: device route departs from the host route: "
+                 f"camera {route_diff}, map {map_diff}")
+
+        # serving from the map PNG's tiles with the trained checkpoint
+        loader = MapLoader(host_cfg.data.map_path, host_cfg.data.map_month)
+        tiles = list(loader.iter_tiles(FEED_TILE, stride=FEED_TILE))
+        world = feed["world"].astype(np.float32) / 255.0
+        n_side = (FEED_WORLD - FEED_TILE) // FEED_TILE + 1
+        bad = [(y, x) for (y, x), t in tiles
+               if not np.array_equal(t, world[y:y + FEED_TILE,
+                                              x:x + FEED_TILE])]
+        if len(tiles) != n_side ** 2 or bad:
+            fail(f"file feed: {len(tiles)} tiles (want {n_side ** 2}), "
+                 f"{len(bad)} differ from the world's slices")
+        pipe = RegistrationPipeline.from_checkpoint(host_cfg,
+                                                    host["checkpoint"],
+                                                    device="cuda")
+        db = pipe.build_tile_database([t for _, t in tiles])
+        served = feed_dataset(host_cfg, cache_mb=0)
+        window = collate([served[i] for i in range(SERVE_B)])
+        kernels.reset_counts()
+        render, idx, dist = pipe.register(window, top_k=5)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        want = expected(fused_site=FUSED_PER_FORWARD,
+                        lattice_bias=BIAS_PER_FORWARD)
+        ok = (tuple(idx.shape) == (SERVE_B, 5)
+              and bool(((idx >= 0) & (idx < len(tiles))).all())
+              and bool(torch.isfinite(dist).all())
+              and bool((dist[:, 1:] >= dist[:, :-1]).all())
+              and bool(torch.isfinite(render).all()) and counts == want)
+        print(f"file feed serving: {len(tiles)} tiles of the map PNG "
+              f"({db.shape[1]}-D), a file-fed window of {SERVE_B} registered "
+              f"with the trained checkpoint: top-5 {idx.tolist()}, distances "
+              f"{[[round(float(d), 5) for d in r] for r in dist]}; launches "
+              f"{counts}", flush=True)
+        if not ok:
+            fail(f"file feed serving: top-k {idx.tolist()} {dist.tolist()}, "
+                 f"launches {counts} (expected {want})")
+        del pipe, db
+        torch.cuda.empty_cache()
+        phase_s = time.perf_counter() - t_start
+        print(f"phase 28: {phase_s:.1f} s", flush=True)
+        return dict(feed=timing, host=host, device=device,
+                    route_diff=route_diff, tiles=len(tiles),
+                    write_s=write_s, phase_s=phase_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -3043,6 +3488,12 @@ def main() -> None:
     del head_pipe, head_db
     torch.cuda.empty_cache()
 
+    stamp("phase 28")
+    # ---- the host data feed and the training CLI: the flagship trained by
+    # train.main from a GPS trace and PNG frames, host and device routes,
+    # and served from the map PNG's tiles ----
+    feed = file_feed_phase(card, train_default)
+
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
         top = max(data["rows"], key=lambda r: r[per] * r["ms"])
@@ -3072,6 +3523,8 @@ def main() -> None:
               launches_pyramid_train=pyr_train["counts"]["lattice_bias"],
               launches_head_serving=head["counts"]["lattice_bias"],
               launches_streaming_frame=stream_frame["lattice_bias"],
+              launches_file_fed_step=feed["host"]["counts_per_step"][
+                  "lattice_bias"],
               per_shape_train=bias_bwd["fwd_rows"],
               per_shape_pyramid=pyr_bias["lattice_bias"]["rows"]),
         entry("fused_site", "cuda",
@@ -3081,13 +3534,17 @@ def main() -> None:
               launches_train=train_default["counts"]["fused_site"],
               launches_train_fused_bwd=train_fused["counts"]["fused_site"],
               launches_head_serving=head["counts"]["fused_site"],
-              launches_streaming_frame=stream_frame["fused_site"]),
+              launches_streaming_frame=stream_frame["fused_site"],
+              launches_file_fed_step=feed["host"]["counts_per_step"][
+                  "fused_site"]),
         entry("lattice_bias_bwd", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_bwd.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:829", bias_bwd,
               train_default["counts"]["lattice_bias_bwd"],
               launches_train_fused_bwd=train_fused["counts"]["lattice_bias_bwd"],
               launches_pyramid_train=pyr_train["counts"]["lattice_bias_bwd"],
+              launches_file_fed_step=feed["host"]["counts_per_step"][
+                  "lattice_bias_bwd"],
               per_step_ms=bias_bwd["per_step_ms"],
               per_step_ms_pyramid=pyr_bias["lattice_bias_bwd"]["per_step_ms"],
               per_shape_pyramid=pyr_bias["lattice_bias_bwd"]["rows"]),
@@ -3175,7 +3632,7 @@ def main() -> None:
                  "render_diff": fold_diff},
         "windows": {"serving": windows_serve, "train": windows_train,
                     "pyramid_serving": pyr_windows, "bias": win_bias},
-        "retrieval_head": head, "streaming": stream,
+        "retrieval_head": head, "streaming": stream, "file_feed": feed,
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}

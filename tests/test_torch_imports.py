@@ -9,7 +9,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
-             "bevrender_tpu")
+             "bevrender_tpu", "PIL")
 # the modules of the training slice, each checked by name so that a moved
 # or missing one is noticed
 TRAINING_MODULES = (
@@ -53,6 +53,16 @@ WINDOWS_MODULES = ("ops/kernels/lattice_windows.py",)
 RETRIEVAL_MODULES = ("models/retrieval.py", "models/bevrender.py")
 
 
+# the host data feed and the training CLI (config.py and data/prefetch.py
+# are named above): PNG, resize and preprocessing without PIL, the
+# processor, the dataset, the map loader, the gray mask's geometry
+DATA_MODULES = (
+    "data/processor.py", "data/native.py", "data/png.py", "data/dataset.py",
+    "data/maploader.py", "data/preprocess.py", "geometry/projection.py",
+    "train.py",
+)
+
+
 def _port_files():
     return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -85,15 +95,16 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + PYRAMID_MODULES
                          + WIDE_ROUTE_MODULES + FOLD_MODULES
-                         + WINDOWS_MODULES + RETRIEVAL_MODULES)
+                         + WINDOWS_MODULES + RETRIEVAL_MODULES
+                         + DATA_MODULES)
 def test_training_module_imports_no_jax(module):
     path = ROOT / "bevrender_tpu_torch" / module
     assert path.exists()
     names = list(_imported(path))
     assert names, module
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN]
-    # optional packages (wandb, PIL) are imported inside the functions that
-    # need them, never at module level
+    # the optional package (wandb) is imported inside the functions that
+    # need it, never at module level
     tree = ast.parse(path.read_text())
     top = [a.name for node in tree.body if isinstance(node, ast.Import)
            for a in node.names] + [node.module for node in tree.body

@@ -1391,3 +1391,25 @@ def test_library_path_follows_the_sources():
     b = build._lib_path("fused_site")
     assert a.parent != b.parent and a.name == "liblattice_bias.so"
     assert a.parent.parent == build.BUILD_ROOT
+
+
+@pytest.mark.cuda
+def test_preprocess_batch_on_card_equals_cpu(cuda_device):
+    """The device-side data stage (plain PyTorch, float64 contractions) at
+    the flagship's shape, 512 x 1920 -> 224 x 672, equal to its CPU run
+    within 1e-5 on normalised values."""
+    from bevrender_tpu_torch.data.preprocess import preprocess_batch
+
+    rng = np.random.default_rng(0)
+    cam = torch.from_numpy(rng.integers(0, 256, (2, 2, 512, 1920, 3),
+                                        dtype=np.uint8))
+    mp = torch.from_numpy(rng.integers(0, 256, (2, 224, 224, 3),
+                                       dtype=np.uint8))
+    kw = dict(num_views=3, resize_h=224, resize_w=672,
+              cam_mean=(0.485, 0.456, 0.406), cam_std=(0.229, 0.224, 0.225))
+    cpu = preprocess_batch(cam, mp, **kw)
+    gpu = preprocess_batch(cam.to(cuda_device), mp.to(cuda_device), **kw)
+    assert gpu["camera"].shape == (2, 2, 3, 224, 224, 3)
+    assert gpu["camera"].is_cuda and gpu["camera"].dtype == torch.float32
+    assert float((gpu["camera"].cpu() - cpu["camera"]).abs().max()) <= 1e-5
+    assert torch.equal(gpu["map"].cpu(), cpu["map"])
