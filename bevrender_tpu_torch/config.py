@@ -143,9 +143,7 @@ class TrainConfig:
     """Own copy of ``TrainConfig`` (bevrender_tpu/config.py:126-164), same
     names and defaults. ``data_axis`` and ``model_axis`` (mesh axis names of
     the JAX package's GSPMD sharding) are left out: nothing in the port reads
-    them. ``steps_per_dispatch`` stays: the trainer accepts it and runs k
-    plain steps, since the one-dispatch ``lax.scan`` it selects in the JAX
-    package is a device of TPU dispatch. ``fused_bwd``, ``site_remat`` and
+    them. ``fused_bwd``, ``site_remat`` and
     ``fused_fwd_fold`` are the port's own: they replace the JAX package's
     trace-time environment knobs BEVRENDER_FUSED_BWD, BEVRENDER_SITE_REMAT
     and BEVRENDER_TRAIN_FWD_V2."""
@@ -177,12 +175,19 @@ class TrainConfig:
     split_inf_set: bool = False
     inf_set_ratio: float = 0.1
     log_every_steps: int = 10
+    # k > 1: the epoch loop groups k batches a dispatch, copies a group to
+    # the device once, logs once a dispatch and sums the group's losses, as
+    # the JAX package's lax.scan over k steps; on the card each sub-step is
+    # one replay of a captured CUDA graph of the step (training.graph_step),
+    # on the CPU a plain step. k = 1: one eager step a batch
     steps_per_dispatch: int = 1
     # final-pass sites of head width <= 8 take the fused site with its fused
     # backward kernel instead of bias kernel + plain consumer
     fused_bwd: bool = False
     # "nothing": a plain-consumer site saves its inputs only and recomputes
-    # bias, scores and softmax in the backward; "none": autograd keeps all
+    # bias, scores and softmax in the backward; "dots": it also saves the
+    # scores and AV products and recomputes the bias and the elementwise
+    # tail; "none": autograd keeps all
     site_remat: str = "nothing"
     # a fused_bwd site's forward folds the heads as ModelConfig.
     # site_fold_heads does (BEVRENDER_TRAIN_FWD_V2); None follows that field

@@ -19,7 +19,10 @@ which follow the flax names:
   zero ``num_batches_tracked``;
 * the leading depth axis of ``stage{s}/layers/*`` (the flax scan stack)
   -> ``stage{s}.layers.{i}.*``;
-* ``bev_embedding`` and ``rpe_table`` as they are.
+* ``bev_embedding`` and ``rpe_table`` as they are; so do the module names
+  of ``ResnetFPN`` (a bottleneck's ``conv3`` / ``bn3``, an FPN level's
+  ``lateral``, ``top_proj`` and ``out_conv`` with their biases) and of
+  ``SimpleDecoder``.
 
 ``train_state_to_torch`` does the same for a whole training state: the
 optax AdamW moments have the shapes of the parameters and map as they do.
@@ -112,10 +115,15 @@ def train_state_to_torch(params, batch_stats, opt_state):
 def load_adamw_state(optimizer: torch.optim.Optimizer, net: torch.nn.Module,
                      adamw) -> None:
     """Fill ``optimizer`` (AdamW over ``net.parameters()``) with the moments
-    and step count from ``train_state_to_torch``."""
+    and step count from ``train_state_to_torch``. The step count lies where
+    ``torch.optim`` keeps it: on the parameter's device for a capturable
+    (or fused) AdamW, on the CPU otherwise."""
+    group = optimizer.param_groups[0]
+    on_device = group.get("capturable", False) or group.get("fused", False)
     for name, p in net.named_parameters():
         optimizer.state[p] = {
-            "step": torch.tensor(float(adamw["step"])),
+            "step": torch.tensor(float(adamw["step"]),
+                                 device=p.device if on_device else "cpu"),
             "exp_avg": adamw["exp_avg"][name].to(p.device, p.dtype),
             "exp_avg_sq": adamw["exp_avg_sq"][name].to(p.device, p.dtype),
         }

@@ -1,16 +1,24 @@
 """Image backbones on NHWC (counterpart of bevrender_tpu/models/backbone.py:
-``BasicBlock`` :25, ``ResNetTrunk`` :87, ``ResNet18WoFPN`` :122,
-``PatchProjection`` :146). Module names follow the flax tree."""
+``BasicBlock`` :25, ``BottleNeck`` :55, ``ResNetTrunk`` :87,
+``ResNet18WoFPN`` :122, ``PatchProjection`` :146, ``FPNBlock`` :167,
+``ResnetFPN`` :186). Module names follow the flax tree.
+
+``ResnetFPN`` returns four maps (P2-P5); the encoder takes one feature map,
+so, as in the JAX package (encoder.py:278-281), no model runs it: it is
+held to the JAX module on its own.
+"""
 
 from __future__ import annotations
 
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bevrender_tpu_torch.models.layers import Conv, LayerNorm, gelu
+from bevrender_tpu_torch.models.layers import Conv, LayerNorm, gelu, upsample
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, in_ch: int, out_ch: int, stride: int, is_first: bool,
                  norm, cd=None):
         super().__init__()
@@ -31,30 +39,69 @@ class BasicBlock(nn.Module):
         return F.relu(y + identity)
 
 
-class ResNetTrunk(nn.Module):
-    """Stem + four stages of basic blocks (img_backbone.py:164-282)."""
+class BottleNeck(nn.Module):
+    """ResNet bottleneck block, expansion 4 (img_backbone.py:11-92): the
+    first block of a stage always projects its identity."""
 
-    def __init__(self, n_blocks, out_channels, strides, norm, cd=None):
+    expansion = 4
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int, is_first: bool,
+                 norm, cd=None):
+        super().__init__()
+        wide = out_ch * self.expansion
+        self.conv1 = Conv(in_ch, out_ch, 1, compute_dtype=cd)
+        self.bn1 = norm(out_ch)
+        self.conv2 = Conv(out_ch, out_ch, 3, stride=stride, padding=1,
+                          compute_dtype=cd)
+        self.bn2 = norm(out_ch)
+        self.conv3 = Conv(out_ch, wide, 1, compute_dtype=cd)
+        self.bn3 = norm(wide)
+        self.has_down = is_first
+        if is_first:
+            self.down_conv = Conv(in_ch, wide, 1, stride=stride,
+                                  compute_dtype=cd)
+            self.down_bn = norm(wide)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        identity = self.down_bn(self.down_conv(x)) if self.has_down else x
+        return F.relu(y + identity)
+
+
+class ResNetTrunk(nn.Module):
+    """Stem + four stages of ``block`` (img_backbone.py:164-282): the last
+    stage's map, or with ``return_stages`` all four (for the FPN)."""
+
+    def __init__(self, n_blocks, out_channels, strides, norm, cd=None,
+                 block=BasicBlock, return_stages: bool = False):
         super().__init__()
         self.stem_conv = Conv(3, 64, 3, stride=2, padding=1, compute_dtype=cd)
         self.stem_bn = norm(64)
-        self.block_names = []
+        self.return_stages = return_stages
+        self.stages = []
         c_in = 64
         for si, (n, c, s) in enumerate(zip(n_blocks, out_channels, strides)):
+            names = []
             for bi in range(n):
                 name = f"layer{si + 2}_block{bi}"
-                self.add_module(name, BasicBlock(c_in, c, s if bi == 0 else 1,
-                                                 bi == 0, norm, cd))
-                self.block_names.append(name)
-                c_in = c
+                self.add_module(name, block(c_in, c, s if bi == 0 else 1,
+                                            bi == 0, norm, cd))
+                names.append(name)
+                c_in = c * block.expansion
+            self.stages.append(names)
 
     def forward(self, x):
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         # max pool 3x3 / 2, padded with -inf like flax
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
-        for name in self.block_names:
-            x = getattr(self, name)(x)
-        return x
+        outs = []
+        for names in self.stages:
+            for name in names:
+                x = getattr(self, name)(x)
+            outs.append(x)
+        return tuple(outs) if self.return_stages else x
 
 
 class ResNet18WoFPN(nn.Module):
@@ -95,10 +142,63 @@ class PatchProjection(nn.Module):
         return x
 
 
+class FPNBlock(nn.Module):
+    """Lateral 1x1, plus the upper level upsampled x2 (``upsample``)
+    through a 1x1 unless this is the highest level, then a 3x3 out
+    (img_backbone.py:285-326). Returns
+    (the merged lateral, which feeds the level below, and the output)."""
+
+    def __init__(self, in_ch: int, out_ch: int, top_ch=None, cd=None):
+        super().__init__()
+        self.lateral = Conv(in_ch, out_ch, 1, compute_dtype=cd)
+        if top_ch is not None:
+            self.top_proj = Conv(top_ch, out_ch, 1, compute_dtype=cd)
+        self.out_conv = Conv(out_ch, out_ch, 3, padding=1, compute_dtype=cd)
+
+    def forward(self, x, top=None):
+        x = self.lateral(x)
+        if top is not None:
+            x = x + self.top_proj(upsample(top, 2))
+        return x, self.out_conv(x)
+
+
+class ResnetFPN(nn.Module):
+    """ResNet-18/34/50/101/152 with an FPN returning P2-P5
+    (img_backbone.py:384-426), each level at its stage's width."""
+
+    ARCHS = {"18": (BasicBlock, (2, 2, 2, 2)),
+             "34": (BasicBlock, (3, 4, 6, 3)),
+             "50": (BottleNeck, (3, 4, 6, 3)),
+             "101": (BottleNeck, (3, 4, 23, 3)),
+             "152": (BottleNeck, (3, 8, 36, 3))}
+
+    def __init__(self, norm, resnet_arch: str = "18", cd=None):
+        super().__init__()
+        block, n_blocks = self.ARCHS[resnet_arch]
+        self.resnet = ResNetTrunk(n_blocks, (64, 128, 256, 512),
+                                  (1, 2, 2, 2), norm, cd, block=block,
+                                  return_stages=True)
+        c2, c3, c4, c5 = (c * block.expansion for c in (64, 128, 256, 512))
+        self.P5 = FPNBlock(c5, c5, cd=cd)
+        self.P4 = FPNBlock(c4, c4, c5, cd)
+        self.P3 = FPNBlock(c3, c3, c4, cd)
+        self.P2 = FPNBlock(c2, c2, c3, cd)
+
+    def forward(self, x):
+        c2, c3, c4, c5 = self.resnet(x)
+        x5, p5 = self.P5(c5)
+        x4, p4 = self.P4(c4, x5)
+        x3, p3 = self.P3(c3, x4)
+        _, p2 = self.P2(c2, x3)
+        return p2, p3, p4, p5
+
+
 def build_backbone(backbone: str, embed_dim: int, bev_dim: int,
                    img_height: int, norm, cd=None) -> nn.Module:
     if backbone == "ResNet18":
         return ResNet18WoFPN(bev_dim, norm, cd)
     if backbone == "PatchProjection":
         return PatchProjection(embed_dim, max(2, img_height // bev_dim), cd)
-    raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
+    if backbone == "ResnetFPN":
+        return ResnetFPN(norm, cd=cd)
+    raise ValueError(f"unknown backbone: {backbone}")

@@ -1,8 +1,10 @@
 """BEV -> aerial RGB render decoder (counterpart of
-bevrender_tpu/models/decoder.py:36-132). Module names follow the flax tree.
+bevrender_tpu/models/decoder.py:36-148), and ``SimpleDecoder``, the
+minimal alternative the default wiring does not use. Module names follow
+the flax tree.
 
-The x2 upsample is ``jax.image.resize(method="bilinear")``, which for an
-upsample equals ``F.interpolate(mode="bilinear", align_corners=False)``.
+The upsamples are ``jax.image.resize(method="bilinear")``
+(``layers.upsample``).
 """
 
 from __future__ import annotations
@@ -11,13 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bevrender_tpu_torch.models.layers import Conv
-
-
-def _upsample2x(x: torch.Tensor) -> torch.Tensor:
-    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
-                      align_corners=False)
-    return y.permute(0, 2, 3, 1)
+from bevrender_tpu_torch.models.layers import Conv, upsample
 
 
 class DecoderConvBlock(nn.Module):
@@ -51,7 +47,7 @@ class UpsampleBlock(nn.Module):
         self.bn1 = norm(out_ch)
 
     def forward(self, x):
-        x = self.bn0(self.conv0(_upsample2x(x)))
+        x = self.bn0(self.conv0(upsample(x, 2)))
         return F.relu(self.bn1(self.conv1(x)))
 
 
@@ -64,7 +60,7 @@ class UpsampleHead(nn.Module):
         self.conv1 = Conv(hidden, 3, 1, bias=False, compute_dtype=cd)
 
     def forward(self, x):
-        x = self.bn0(self.conv0(_upsample2x(x)))
+        x = self.bn0(self.conv0(upsample(x, 2)))
         return torch.sigmoid(self.conv1(x))
 
 
@@ -98,3 +94,18 @@ class BEVImageRenderDecoder(nn.Module):
         for i in range(self.n_up):
             x = getattr(self, f"up{i}")(x)
         return self.head(x)
+
+
+class SimpleDecoder(nn.Module):
+    """x4 bilinear upsample, 3x3 conv (64, no bias), norm, 1x1 conv to RGB
+    (no bias), ReLU (decoder_img_render.py:219-232)."""
+
+    def __init__(self, in_ch: int, norm, cd=None):
+        super().__init__()
+        self.conv0 = Conv(in_ch, 64, 3, padding=1, bias=False,
+                          compute_dtype=cd)
+        self.bn0 = norm(64)
+        self.conv1 = Conv(64, 3, 1, bias=False, compute_dtype=cd)
+
+    def forward(self, x):
+        return F.relu(self.conv1(self.bn0(self.conv0(upsample(x, 4)))))

@@ -117,6 +117,11 @@ class BEVEncoder(nn.Module):
         n = cfg.n_stages
         cd = compute_dtype(cfg.dtype)
         self.n_stages = n
+        if cfg.backbone == "ResnetFPN":
+            raise ValueError(
+                "backbone ResnetFPN returns four feature maps (P2-P5) and the "
+                "encoder takes one feature map, as in the JAX package "
+                "(encoder.py:278-281)")
         self.img_backbone = build_backbone(
             cfg.backbone, cfg.embed_dims[0], cfg.bev_shapes[0], cfg.img_height,
             make_norm(cfg.norm), cd)

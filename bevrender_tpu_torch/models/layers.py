@@ -49,6 +49,16 @@ class Conv(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+def upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Bilinear upsample of an NHWC map by ``factor``:
+    ``jax.image.resize(method="bilinear")``, which for an upsample equals
+    ``F.interpolate(mode="bilinear", align_corners=False)`` (half-pixel
+    centres)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=factor,
+                      mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1)
+
+
 class ConvTranspose(nn.ConvTranspose2d):
     """flax ``nn.ConvTranspose`` with kernel 2, stride 2 and its default
     SAME padding on NHWC: ``out[2i + a, 2j + b] = x[i, j] . K[1 - a, 1 - b]``

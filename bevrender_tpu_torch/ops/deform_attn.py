@@ -56,7 +56,11 @@ import functools
 import numpy as np
 import torch
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from bevrender_tpu_torch.ops.kernels import fused_site as _fused_site_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_bwd as _site_bwd_kernel
@@ -373,7 +377,7 @@ def _site_bwd_fits(table_shape, W: int, ch: int) -> bool:
     return need <= SMEM_PER_BLOCK
 
 
-SITE_REMAT_MODES = ("nothing", "none")
+SITE_REMAT_MODES = ("nothing", "dots", "none")
 LATTICE_ROUTES = ("auto", "wide")
 BIAS_FORWARDS = ("kernel", "prefetch", "windows")
 
@@ -436,8 +440,8 @@ def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
     instance and the site backward where ``fused_site_bwd.cu``'s shared
     memory holds one head's table and its float32 gradient
     (``_site_bwd_fits``). Every other site takes the bias (and, training,
-    the bias again in the backward under ``site_remat="nothing"``, and the
-    bias backward) with the plain consumer: other head widths, dropout, a
+    the bias again in the backward under ``site_remat`` "nothing" or
+    "dots", and the bias backward) with the plain consumer: other head widths, dropout, a
     training site without ``fused_bwd``, and a ``fused_bwd`` site whose
     table the site backward cannot hold, which so trains on the route it
     takes without ``fused_bwd``. These are routes of the shapes, not
@@ -492,7 +496,9 @@ def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
         fwd, bwd = "lattice_bias", "lattice_bias_bwd"
     if not training:
         return (fwd,)
-    return (fwd, fwd, bwd) if options.site_remat == "nothing" else (fwd, bwd)
+    # "nothing" and "dots" both recompute the bias in the backward: the
+    # bias's autograd Function is not a matrix product
+    return (fwd, bwd) if options.site_remat == "none" else (fwd, fwd, bwd)
 
 
 def _bias_forward(kernel: str, tb, ys, ms, wy, f, u0, g, Xp: int, H: int,
@@ -691,17 +697,39 @@ def fused_site_train(q, k, v, k_pos, table, H: int, W: int, scale: float,
                                    H, W, float(scale), kernel)
 
 
+# the operations a matrix product on the plain consumer reaches once
+# ``torch.matmul`` has decomposed (a trace of ``site_consumer`` and
+# ``_dense_chunk``: expand, view, bmm, _unsafe_view; mm for 2-d operands)
+_DOT_OPS = (torch.ops.aten.bmm.default, torch.ops.aten.mm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _maybe_remat(fn, site_remat: str, *tensors):
-    """Run ``fn(*tensors)``; with ``site_remat="nothing"`` and a gradient to
-    take, save only the inputs and recompute the rest in the backward
-    (``jax.checkpoint(nothing_saveable)``, deform_attn.py:810-834)."""
+    """Run ``fn(*tensors)`` under ``site_remat`` when there is a gradient to
+    take (``_site_remat``, deform_attn.py:810-834): "nothing" saves only
+    the inputs and recomputes the rest in the backward
+    (``jax.checkpoint(nothing_saveable)``); "dots" also saves the outputs
+    of the matrix products (``_DOT_OPS``: the scores and AV of the plain
+    consumer) and recomputes the elementwise tail and the bias, whose
+    autograd Function is no product (``jax.checkpoint(dots_saveable)``);
+    "none" lets autograd keep what it wants. The recompute draws nothing
+    at random: a dropout mask is drawn outside (``_keep_mask``)."""
     if site_remat not in SITE_REMAT_MODES:
         raise ValueError(f"site_remat must be one of {SITE_REMAT_MODES}, "
                          f"got {site_remat!r}")
-    if (site_remat == "nothing" and torch.is_grad_enabled()
+    if (site_remat != "none" and torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors)):
+        kw = {"context_fn": _dots_contexts} if site_remat == "dots" else {}
         return checkpoint(fn, *tensors, use_reentrant=False,
-                          preserve_rng_state=False)
+                          preserve_rng_state=False, **kw)
     return fn(*tensors)
 
 
@@ -734,7 +762,9 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     bias kernels, or the windowed bias under ``bias_forward="windows"``)
     and the plain consumer does the rest, under ``site_remat``: "nothing"
     saves the site's inputs only and recomputes bias, scores and softmax
-    in the backward, "none" lets autograd keep what it wants. Attention dropout
+    in the backward, "dots" also saves the scores and AV products and
+    recomputes the bias and the elementwise tail, "none" lets autograd
+    keep what it wants (``_maybe_remat``). Attention dropout
     (``dropout_rate`` > 0, drawn from ``generator``) always takes the plain
     consumer."""
     use_dropout = dropout_rate > 0.0

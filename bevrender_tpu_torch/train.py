@@ -8,11 +8,14 @@ Usage::
     python -m bevrender_tpu_torch.train --config cfg.json       # a trace
     python -m bevrender_tpu_torch.train --synthetic --epochs 2  # smoke run
     python -m bevrender_tpu_torch.train --tiny --device cpu     # on the CPU
+    python -m bevrender_tpu_torch.train --config cfg.json --steps-per-dispatch 4
 
 It runs on the GPU unless ``--device`` names another device, and raises
 when there is none. ``cfg.json`` is ``Config.to_json`` output, the port's
 or the JAX package's. ``Trainer.train`` trains while the epoch count plus
 one is below ``--epochs``, so ``--epochs 2`` trains one epoch.
+``--steps-per-dispatch K`` (K > 1) groups K batches a dispatch; on the card
+each of its steps replays one captured CUDA graph of the training step.
 """
 
 from __future__ import annotations
@@ -101,7 +104,10 @@ def main(argv=None):
     ap.add_argument("--restore", help="checkpoint path to resume from")
     ap.add_argument("--distributed", action="store_true")
     ap.add_argument("--steps-per-dispatch", type=int, default=None,
-                    metavar="K", help="TrainConfig.steps_per_dispatch")
+                    metavar="K",
+                    help="TrainConfig.steps_per_dispatch: k > 1 trains k "
+                         "steps a dispatch, each a CUDA graph replay on the "
+                         "card")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu only on request)")
     args = ap.parse_args(argv)

@@ -15,7 +15,13 @@ def save_model(save_path: str, state: Dict[str, Any], epoch: int,
                best: bool = False) -> str:
     """Write ``state`` plus the epoch; ``best`` chooses the name."""
     name = f"best_epoch_{epoch}.pt" if best else "last_epoch.pt"
-    path = Path(save_path) / name
+    return write_model(Path(save_path) / name, state, epoch)
+
+
+def write_model(path, state: Dict[str, Any], epoch: int) -> str:
+    """Write ``state`` plus the epoch to the file ``path``, whole or not
+    at all (through a temporary file and a rename)."""
+    path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(".tmp")
     torch.save({**state, "epoch": int(epoch)}, tmp)

@@ -16,8 +16,11 @@ What differs from the JAX package, and why:
 * the K-fold split is written with numpy and gives the folds of
   ``sklearn.model_selection.KFold(n_splits, shuffle=True, random_state=seed)``;
 * ``TrainConfig.steps_per_dispatch`` > 1 selects a ``lax.scan`` over k steps
-  in one dispatch there; here it runs k plain steps, which is the same
-  arithmetic;
+  in one dispatch there; here ``train_step_multi`` runs k steps over the
+  group, each on the card one replay of a captured CUDA graph of the step
+  (``training.graph_step``) and on the CPU a plain step: the same
+  arithmetic as k ``train_step`` calls, with the epoch loop's grouping,
+  logging and loss sums of the JAX package;
 * the retrieval embedding is chosen as there: a caller's ``embed_fn``,
   else the model's trained retrieval head when
   ``ModelConfig.retrieval_embed_dim > 0`` (``use_embed_head``; its
@@ -50,7 +53,11 @@ from bevrender_tpu_torch import resolve_device
 from bevrender_tpu_torch.config import Config
 from bevrender_tpu_torch.data import native
 from bevrender_tpu_torch.data.png import encode_png
-from bevrender_tpu_torch.data.prefetch import DataLoader, device_prefetch
+from bevrender_tpu_torch.data.prefetch import (
+    DataLoader,
+    device_prefetch,
+    group_batches,
+)
 from bevrender_tpu_torch.data.preprocess import make_preprocessor
 from bevrender_tpu_torch.losses import metric as metric_losses
 from bevrender_tpu_torch.losses import rendering as render_losses
@@ -59,6 +66,7 @@ from bevrender_tpu_torch.models.attention import set_site_options
 from bevrender_tpu_torch.models.bevrender import BEVRenderNet
 from bevrender_tpu_torch.models.layers import init_params, set_generator
 from bevrender_tpu_torch.training import checkpoint as ckpt
+from bevrender_tpu_torch.training.graph_step import GraphedStep, signature
 from bevrender_tpu_torch.training.metrics import MetricsLogger, get_logger
 from bevrender_tpu_torch.training.schedule import warmup_cosine_lambda
 
@@ -126,6 +134,14 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
     return norm
 
 
+def adamw(net: torch.nn.Module, tc) -> torch.optim.AdamW:
+    """AdamW over all of ``net``'s parameters with ``TrainConfig`` ``tc``'s
+    rate, eps and weight decay (``optax.adamw``'s betas)."""
+    return torch.optim.AdamW(net.parameters(), lr=tc.learning_rate,
+                             betas=(0.9, 0.999), eps=tc.eps,
+                             weight_decay=tc.weight_decay)
+
+
 def _mix(*ints: int) -> int:
     """One 63-bit seed out of several integers."""
     return int(np.random.SeedSequence([int(i) for i in ints]).generate_state(
@@ -166,6 +182,11 @@ class Trainer:
             Path(ckpt_dir) / str(int(time.time())))
         Path(self.work_dir).mkdir(parents=True, exist_ok=True)
         self._gen = torch.Generator(device=self.device)
+        # k > 1 steps a dispatch on the card: each a CUDA graph replay, so
+        # AdamW is capturable with its learning rate on the device
+        self.graphed = (self.device.type == "cuda"
+                        and self.tc.steps_per_dispatch > 1)
+        self.step_graph: Optional[GraphedStep] = None
         # True: resize, split and normalise raw uint8 frames on the
         # device; "cast": uint8 -> float only; False: None
         self.preprocess = make_preprocessor(config.data)
@@ -185,17 +206,38 @@ class Trainer:
                          fused_fwd_fold=self.tc.fused_fwd_fold,
                          **self.config.model.site_options())
         set_generator(net, self._gen)
-        optimizer = torch.optim.AdamW(
-            net.parameters(), lr=self.tc.learning_rate, betas=(0.9, 0.999),
-            eps=self.tc.eps, weight_decay=self.tc.weight_decay)
+        optimizer = adamw(net, self.tc)
+        self._conform_optimizer(optimizer)
         return TrainState(net=net, optimizer=optimizer, step=0)
 
+    def _conform_optimizer(self, optimizer: torch.optim.Optimizer) -> None:
+        """AdamW as this trainer steps it: for graphed steps ``capturable``,
+        its learning rate a tensor on the device and its step counts on the
+        device (where ``torch.optim`` keeps a capturable step); else a
+        float rate and step counts on the CPU. Also run after loading a
+        state saved in the other mode."""
+        for group in optimizer.param_groups:
+            group["capturable"] = self.graphed
+            lr = float(group["lr"])
+            group["lr"] = (torch.tensor(lr, device=self.device)
+                           if self.graphed else lr)
+        where = self.device if self.graphed else "cpu"
+        for st in optimizer.state.values():
+            if "step" in st:
+                st["step"] = torch.as_tensor(st["step"]).to(
+                    device=where, dtype=torch.float32)
+
     def set_epoch_lr(self, state: TrainState, epoch: int) -> TrainState:
-        """Per-epoch warmup-cosine factor on the base learning rate."""
+        """Per-epoch warmup-cosine factor on the base learning rate (filled
+        in place where the rate is a device tensor, so a captured step
+        reads it)."""
         lr = self.tc.learning_rate * warmup_cosine_lambda(
             epoch, self.tc.warmup_epochs, self.tc.total_epochs)
         for group in state.optimizer.param_groups:
-            group["lr"] = lr
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
         return state
 
     # ------------------------------------------------------------------
@@ -231,9 +273,18 @@ class Trainer:
         global-norm clip, AdamW. ``rng`` is the epoch's key; the step
         counter is mixed into it for the dropout stream."""
         batch = self._to_device(batch)
-        net, opt = state.net, state.optimizer
-        net.train()
         self._gen.manual_seed(_mix(rng, state.step))
+        metrics, out = self._step_body(state.net, state.optimizer, batch,
+                                       losses_fn)
+        state.step += 1
+        return state, metrics, out
+
+    def _step_body(self, net: BEVRenderNet, opt: torch.optim.Optimizer,
+                   batch, losses_fn):
+        """The step's device work on a device batch, the dropout generator
+        already seeded: (metrics, render). No host synchronisation, so it
+        can be captured as a CUDA graph (``graph_step.GraphedStep``)."""
+        net.train()
         out = net(batch["camera"], batch["vehicle_pose"], batch["vehicle_type"])
         total, parts = losses_fn(net, out, batch)
         opt.zero_grad(set_to_none=True)
@@ -245,17 +296,57 @@ class Trainer:
         grad_norm = clip_by_global_norm_([p.grad for p in params],
                                          self.tc.grad_clip_norm)
         opt.step()
-        state.step += 1
         metrics = {"train_batch_loss": total.detach(),
                    "camera_encoder_grad_norm": grad_norm}
         for k, v in parts.items():
             metrics[f"train_batch_{k}_loss"] = v.detach()
-        return state, metrics, out.detach()
+        return metrics, out.detach()
 
     def train_step(self, state: TrainState, batch, rng: int = 0):
         """(state, metrics, render) after one optimizer step. Metrics are
         0-d tensors on the device: reading one synchronises."""
         return self._step_with(state, batch, rng, self._forward_losses)
+
+    def train_step_multi(self, state: TrainState, batches, rng: int = 0):
+        """k optimizer steps over a stacked (k, B, ...) super-batch
+        (``_train_step_multi_impl``, trainer.py:280-306): (state, metrics
+        stacked to (k,), render of the last sub-step). Each sub-step mixes
+        its own step count into ``rng``, so the k steps are k
+        ``train_step`` calls. On the card each sub-step is one replay of a
+        CUDA graph of the step (``graph_step.GraphedStep``, captured at the
+        first call for a batch shape and again when the state's tensors
+        change), which needs ``steps_per_dispatch`` > 1 (a capturable
+        AdamW); on the CPU each is a plain step."""
+        batches = self._to_device(batches)
+        k = next(iter(batches.values())).shape[0]
+        per_step = []
+        for i in range(k):
+            batch = {key: v[i] for key, v in batches.items()}
+            if self.device.type == "cuda":
+                state, metrics, render = self._graph_step(state, batch, rng)
+            else:
+                # a fresh tensor each, as ``train_step``'s batch is: a CPU
+                # kernel may sum in another order on a view at an offset
+                state, metrics, render = self._step_with(
+                    state, {key: v.clone() for key, v in batch.items()}, rng,
+                    self._forward_losses)
+            per_step.append(metrics)
+        metrics = {key: torch.stack([m[key] for m in per_step])
+                   for key in per_step[0]}
+        return state, metrics, render
+
+    def _graph_step(self, state: TrainState, batch, rng: int):
+        if not self.graphed:
+            raise ValueError("graphed steps need a capturable AdamW: set "
+                             "TrainConfig.steps_per_dispatch > 1")
+        graph = self.step_graph
+        if (graph is None or graph.key != GraphedStep.batch_key(batch)
+                or graph.signature != signature(state)):
+            self.step_graph = graph = None  # free the old graph's pool first
+            graph = self.step_graph = GraphedStep(self, state, batch)
+        metrics, render = graph(state, batch, _mix(rng, state.step))
+        state.step += 1
+        return state, metrics, render
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):
@@ -288,10 +379,26 @@ class Trainer:
         # logging cadence, so the launches stay ahead of the device
         tr_losses: list = []
         log_every = max(self.tc.log_every_steps, 1)
+        # k > 1: k host batches a dispatch, copied to the device once; the
+        # logging and image cadences then count dispatches, not steps
+        k_disp = max(self.tc.steps_per_dispatch, 1)
+        batch_it = iter(train_loader)
+        if k_disp > 1:
+            batch_it = group_batches(batch_it, k_disp)
         for idx, batch in enumerate(device_prefetch(
-                iter(train_loader), self.device, preprocess=self.preprocess)):
-            state, metrics, render = self.train_step(state, batch, rng)
-            tr_losses.append(metrics["train_batch_loss"])
+                batch_it, self.device, preprocess=self.preprocess)):
+            if k_disp > 1:
+                state, metrics, render = self.train_step_multi(state, batch,
+                                                               rng)
+                # metrics are (group,): the losses summed for the epoch
+                # mean, the last sub-step's values logged
+                tr_losses.append(metrics["train_batch_loss"].sum())
+                metrics = {k: v[-1] for k, v in metrics.items()}
+                last_map, last_cam = batch["map"][-1], batch["camera"][-1]
+            else:
+                state, metrics, render = self.train_step(state, batch, rng)
+                tr_losses.append(metrics["train_batch_loss"])
+                last_map, last_cam = batch["map"], batch["camera"]
             want_img = (self.image_rendering and self.metrics.run is not None
                         and idx % max(self.tc.wandb_log_img_freq_train, 1) == 0)
             if idx % log_every == 0 or want_img:
@@ -301,14 +408,14 @@ class Trainer:
                     m.get("train_batch_render_loss"),
                     m.get("train_batch_retrieval_loss"),
                     m.get("camera_encoder_grad_norm"))
-                lr = state.optimizer.param_groups[0]["lr"]
+                lr = float(state.optimizer.param_groups[0]["lr"])
                 self.metrics.log({**m, "learning_rate": lr, "epoch": epoch})
             if want_img:
                 # the render of the train step itself (drop path active)
                 img = self.get_log_image(
                     render[0].float().cpu().numpy(),
-                    np.asarray(batch["map"][0].cpu()),
-                    np.asarray(batch["camera"][0, -1].cpu()))
+                    np.asarray(last_map[0].cpu()),
+                    np.asarray(last_cam[0, -1].cpu()))
                 self.metrics.log_image("train_image", img,
                                        f"train epoch {epoch}", epoch)
         epoch_metrics["train_epoch_loss"] = (
@@ -410,7 +517,7 @@ class Trainer:
         path = ckpt.save_model(
             self.work_dir,
             {"model": state.net.state_dict(),
-             "optimizer": state.optimizer.state_dict()},
+             "optimizer": state.optimizer.state_dict(), "step": state.step},
             epoch, best=best)
         self.logger.info("model saved at epoch %d -> %s", epoch, path)
         return path
@@ -422,6 +529,7 @@ class Trainer:
         restored = ckpt.restore_model(path, map_location=self.device)
         state.net.load_state_dict(restored["model"], strict=True)
         state.optimizer.load_state_dict(restored["optimizer"])
+        self._conform_optimizer(state.optimizer)
         steps = [int(s["step"]) for s in state.optimizer.state.values()
                  if "step" in s]
         state.step = max(steps, default=0)

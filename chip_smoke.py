@@ -169,7 +169,26 @@ Phases, each fatal on failure:
     route's camera tensor within ROUTE_TOL of the host route's on the same
     window; ``MapLoader.iter_tiles`` over the map PNG (81 tiles equal to
     their slices of the world) embedded by the trained checkpoint and a
-    file-fed window registered with a valid top-5.
+    file-fed window registered with a valid top-5;
+29. grouped training (``TrainConfig.steps_per_dispatch``): the flagship as
+    phase 6 trains it, GRAPH_K steps a dispatch, each sub-step one replay
+    of a captured CUDA graph of the step (``training.graph_step``), on the
+    default route and with ``fused_bwd``: two eager runs of GRAPH_STEPS
+    steps and GRAPH_DISPATCHES dispatches from one seeded state on the same
+    batches, the graphed losses and final parameters within SPREAD_FACTOR
+    times the eager runs' spread (GRAPH_REL_FLOOR at least), step 1's loss
+    and a later step's (eager and graphed from one state) the same bits,
+    the captured step's launches those of phase 6 / 7 (counted at capture;
+    the replays' kernels by name from the profiler), falling loss, moved
+    BatchNorm statistics; graphed and eager ms/step by CUDA events and the
+    host clock, capture time, idle share and peak memory; ``Trainer.train``
+    through the loader and ``device_prefetch`` at GRAPH_K steps a dispatch
+    with a partial trailing group; one step under each ``site_remat``
+    ("nothing", "dots", "none"): launches, the first step's gradients
+    within the spread of two "nothing" runs, the three peak memories in
+    that order; ``utils``: ``device_bench`` of one graphed sub-step,
+    ``trace`` with an ``annotation``, ``device_memory_stats`` against
+    ``torch.cuda.max_memory_allocated``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -3211,6 +3230,529 @@ def file_feed_phase(card: str, train_default: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- phase 29: grouped, graph-replayed training and site_remat ----------
+GRAPH_K = 4              # steps a dispatch
+GRAPH_DISPATCHES = 2
+GRAPH_STEPS = GRAPH_K * GRAPH_DISPATCHES
+# graphed against eager: within SPREAD_FACTOR times the spread of two eager
+# runs of the same steps (float atomics in grid_sampler_2d_backward and
+# #9), and never tighter than GRAPH_REL_FLOOR of the eager value
+SPREAD_FACTOR = 4.0
+GRAPH_REL_FLOOR = 1e-5
+# site_remat "dots" recomputes the bias in the backward, as "nothing" does
+REMAT_COUNTS = {"nothing": TRAIN_COUNTS[(False, "nothing")],
+                "dots": TRAIN_COUNTS[(False, "nothing")],
+                "none": TRAIN_COUNTS[(False, "none")]}
+
+
+def release() -> None:
+    """Free a dropped trainer's card memory: its captured step refers back
+    to it, so the graph's pool goes with a garbage collection."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_config(fused_bwd: bool, site_remat: str = "nothing", k: int = 1):
+    """The flagship as phase 6 trains it (bf16, B=2, T=2, MSE, drop path
+    0.2, AdamW at 1e-3) with ``k`` steps a dispatch."""
+    import tempfile
+
+    from bevrender_tpu_torch.config import flagship_config
+
+    cfg = flagship_config(dtype="bfloat16")
+    tc = cfg.train
+    tc.batch_size, tc.loss_type, tc.learning_rate = TRAIN_B, "MSE", 1e-3
+    tc.fused_bwd, tc.site_remat, tc.steps_per_dispatch = fused_bwd, \
+        site_remat, k
+    tc.work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    return cfg
+
+
+def graph_batches(n: int) -> list:
+    """``n`` distinct seeded flagship batches on the card."""
+    import torch
+
+    from bevrender_tpu_torch.data.prefetch import collate
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(n_items=n * TRAIN_B, num_views=3,
+                          window_num_imgs=1, img_height=224, img_width=224)
+    return [{k: torch.as_tensor(v).cuda() for k, v in collate(
+        [ds[i * TRAIN_B + j] for j in range(TRAIN_B)]).items()}
+        for i in range(n)]
+
+
+def within_spread(got, ref, other) -> tuple:
+    """(worst ratio, name) over the tensors of the dicts of |got - ref|
+    against max(SPREAD_FACTOR x the card's spread, GRAPH_REL_FLOOR) x max
+    |ref|, where the spread is the largest relative difference of any
+    tensor between two eager runs ``ref`` and ``other`` (their
+    differences come from float atomics and grow through the steps alike
+    in every tensor, so one number for the state is steadier than a
+    tensor's own); a ratio above 1 fails."""
+    rel = max(float((other[n].float() - r.float()).abs().max())
+              / max(float(r.float().abs().max()), 1e-30)
+              for n, r in ref.items())
+    worst, at = 0.0, ""
+    for name, r in ref.items():
+        r = r.float()
+        tol = max(SPREAD_FACTOR * rel, GRAPH_REL_FLOOR) * max(
+            float(r.abs().max()), 1e-30)
+        ratio = float((got[name].float() - r).abs().max()) / tol
+        if not ratio <= worst:
+            worst, at = ratio, name
+    return worst, at
+
+
+def union_ms(events) -> float:
+    """Milliseconds covered by the union of the CUDA events' intervals of
+    a profile (``prof.events()``)."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def snapshot(state) -> list:
+    """Copies of what a training step changes in place: parameters,
+    buffers and AdamW's tensors, and the step count."""
+    import torch
+
+    tensors = (list(state.net.parameters()) + list(state.net.buffers())
+               + [v for st in state.optimizer.state.values()
+                  for v in st.values() if torch.is_tensor(v)])
+    return [(t, t.detach().clone()) for t in tensors] + [state.step]
+
+
+def restore(state, saved: list) -> None:
+    import torch
+
+    with torch.no_grad():
+        for t, c in saved[:-1]:
+            t.copy_(c)
+    state.step = saved[-1]
+
+
+def graph_route(card: str, fused_bwd: bool, batches: list) -> dict:
+    """Two eager runs of GRAPH_STEPS steps and GRAPH_DISPATCHES dispatches
+    of GRAPH_K graphed sub-steps, each from the same seeded state on the
+    same batches; the graphed losses and final parameters held to the
+    eager spread; times, capture, idle share, peak memory."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.training import graph_step
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    tag = f"phase 29 graphed fused_bwd={fused_bwd}"
+    per_step = TRAIN_COUNTS[(fused_bwd, "nothing")]
+    cfg = graph_config(fused_bwd, k=GRAPH_K)
+    try:
+        t_start = time.perf_counter()
+        trainer = Trainer(cfg, None, device="cuda")
+        if not trainer.graphed:
+            fail(f"{tag}: the trainer does not take graphed steps")
+        eager = []
+        for run in range(2):
+            state = trainer.create_state(seed=0)
+            losses, ev = [], []
+            for i in range(GRAPH_STEPS):
+                if i == 1:  # step 1 carries the first call's costs
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                state, m, _ = trainer.train_step(state, batches[i], rng=7)
+                b.record()
+                losses.append(m["train_batch_loss"])
+                ev.append((a, b))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            eager.append(dict(
+                losses=torch.stack(losses).float().cpu(),
+                params={n: p.detach().clone()
+                        for n, p in state.net.named_parameters()},
+                ms=statistics.mean(a.elapsed_time(b) for a, b in ev[1:]),
+                wall_ms=wall / (GRAPH_STEPS - 1)))
+            del state
+        torch.cuda.empty_cache()
+
+        t_eager = time.perf_counter()
+        state = trainer.create_state(seed=0)
+        bn_before = {n: b.clone() for n, b in state.net.named_buffers()
+                     if n.endswith("running_var")}
+        groups = [{k: torch.stack([b[k] for b in batches[d * GRAPH_K:
+                                                         (d + 1) * GRAPH_K]])
+                   for k in batches[0]} for d in range(GRAPH_DISPATCHES)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        losses = []
+        state, m, _ = trainer.train_step_multi(state, groups[0], rng=7)
+        torch.cuda.synchronize()
+        capture_counts = kernels.counts()
+        losses.append(m["train_batch_loss"])
+        graph = trainer.step_graph
+        ev = []
+        t0 = time.perf_counter()
+        for d in range(1, GRAPH_DISPATCHES):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m, render = trainer.train_step_multi(state, groups[d],
+                                                        rng=7)
+            b.record()
+            losses.append(m["train_batch_loss"])
+            ev.append((a, b))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / (
+            (GRAPH_DISPATCHES - 1) * GRAPH_K)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = statistics.mean(a.elapsed_time(b) for a, b in ev) / GRAPH_K
+        if trainer.step_graph is not graph:
+            fail(f"{tag}: the step was captured again between dispatches")
+        replay_counts = kernels.counts()
+        n_capture = graph_step.WARMUP_STEPS + 1
+        want = expected(**{k: v * n_capture for k, v in per_step.items()})
+        print(f"{tag}: launches counted while the step was warmed up "
+              f"({graph_step.WARMUP_STEPS} steps) and captured: "
+              f"{capture_counts} (expected {want}); counted over the "
+              f"replays after it: {replay_counts}", flush=True)
+        if capture_counts != want:
+            fail(f"{tag}: launches of the captured step {capture_counts} "
+                 f"!= {want}")
+        losses = torch.cat(losses).float().cpu()
+        params = {n: p.detach() for n, p in state.net.named_parameters()}
+        ratio_loss, _ = within_spread({"loss": losses},
+                                      {"loss": eager[0]["losses"]},
+                                      {"loss": eager[1]["losses"]})
+        ratio_par, worst_par = within_spread(params, eager[0]["params"],
+                                             eager[1]["params"])
+        spread = float((eager[0]["losses"] - eager[1]["losses"]).abs().max())
+        print(f"{tag}: losses graphed {[round(float(x), 6) for x in losses]}"
+              f"; eager {[round(float(x), 6) for x in eager[0]['losses']]}; "
+              f"eager spread {spread:.3g}; graphed against eager, worst "
+              f"share of the tolerance: losses {ratio_loss:.3g}, parameters "
+              f"{ratio_par:.3g} ({worst_par})", flush=True)
+        if not (ratio_loss <= 1.0 and ratio_par <= 1.0):
+            fail(f"{tag}: graphed steps part from the eager ones beyond "
+                 f"the eager spread (losses {ratio_loss}, parameters "
+                 f"{ratio_par} at {worst_par})")
+        if not bool(torch.isfinite(losses).all()) or not all(
+                bool(torch.isfinite(p).all()) for p in params.values()):
+            fail(f"{tag}: a non-finite loss or parameter")
+        if not losses[-1] < losses[0]:
+            fail(f"{tag}: loss did not fall: {losses[0]} -> {losses[-1]}")
+        moved = [n for n, b in state.net.named_buffers()
+                 if n in bn_before and not torch.equal(b, bn_before[n])]
+        if len(moved) != len(bn_before):
+            fail(f"{tag}: {len(bn_before) - len(moved)} BatchNorm buffers "
+                 f"did not move")
+        if tuple(render.shape) != (TRAIN_B, 224, 224, 3):
+            fail(f"{tag}: render shape {tuple(render.shape)}")
+
+        t_graph = time.perf_counter()
+        # a later step, eager and graphed from one state: the forward's
+        # loss, which no float atomic reaches, must be the same bits (the
+        # replay drew the eager step's masks from the reseeded generator
+        # and read the copied batch)
+        saved = snapshot(state)
+        state, m_e, _ = trainer.train_step(state, batches[1], rng=7)
+        restore(state, saved)
+        state, m_g, _ = trainer.train_step_multi(
+            state, {k: v[None] for k, v in batches[1].items()}, rng=7)
+        same = [float(m_e["train_batch_loss"]),
+                float(m_g["train_batch_loss"][0])]
+        print(f"{tag}: step {state.step} eager and graphed from one state, "
+              f"loss {same[0]!r} and {same[1]!r}; step 1 {float(losses[0])!r}"
+              f", eager {float(eager[0]['losses'][0])!r}", flush=True)
+        if same[0] != same[1] or float(losses[0]) != float(
+                eager[0]["losses"][0]):
+            fail(f"{tag}: a graphed step's forward differs from the eager "
+                 f"one's")
+
+        t_check = time.perf_counter()
+        # one replay under the profiler: its kernels, and its busy time
+        # (the union of the kernels' intervals: the profiler's per-kernel
+        # sums over a replay exceed its CUDA-event time) against the same
+        # replay's CUDA-event time
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            a.record()
+            state, _, _ = trainer.train_step_multi(
+                state, {k: v[None] for k, v in batches[0].items()}, rng=7)
+            b.record()
+            torch.cuda.synchronize()
+        prof_ms = a.elapsed_time(b)
+        avgs = prof.key_averages()
+        summed = sum(e.self_device_time_total for e in avgs) / 1e3
+        busy = union_ms(prof.events())
+        seen = {n: seen_launches(avgs, n) for n in per_step}
+        idle = max(0.0, 1 - busy / prof_ms) if busy > 0 else None
+        if busy > 0:
+            print(f"{tag}: a replay's kernels by name (profiler): {seen} "
+                  f"(expected {per_step}); busy {busy:.3f} ms (the union "
+                  f"of its kernels' intervals; their sum {summed:.3f}) of "
+                  f"{prof_ms:.3f} ms by events, idle share {idle:.3f} "
+                  f"[{card}]", flush=True)
+            # fused_site's kernel also runs the lse instance
+            want_seen = dict(per_step)
+            want_seen["fused_site"] = (per_step.get("fused_site", 0)
+                                       + per_step.get("fused_site_lse", 0))
+            # the profiler on the card's machine drops events over some
+            # windows (chip_smoke phases 6-25 time kernels by queued_ms for
+            # that reason), so fewer is printed and more fails; the counters
+            # at capture above are the check of the step's launches
+            names = [n for n in per_step if n != "fused_site_lse"]
+            over = {n: seen[n] for n in names if seen[n] > want_seen[n]}
+            same = all(seen[n] == want_seen[n] for n in names)
+            print(f"{tag}: the replays' kernels by name "
+                  f"{'match' if same else 'differ from'} phase "
+                  f"{7 if fused_bwd else 6}'s launches a step {want_seen}",
+                  flush=True)
+            if over:
+                fail(f"{tag}: a replay launched more than a step: {over}")
+        else:
+            print(f"{tag}: the profiler reported no kernel of the replays",
+                  flush=True)
+        t_end = time.perf_counter()
+        print(f"{tag}: seconds: eager runs {t_eager - t_start:.1f}, graphed "
+              f"run {t_graph - t_eager:.1f}, checks {t_check - t_graph:.1f}, "
+              f"profiled replay {t_end - t_check:.1f}", flush=True)
+        result = dict(
+            fused_bwd=fused_bwd, k=GRAPH_K, steps=GRAPH_STEPS,
+            graphed_ms_events=ms, graphed_ms_host=wall,
+            eager_ms_events=eager[0]["ms"], eager_ms_host=eager[0]["wall_ms"],
+            eager_ms_events_run2=eager[1]["ms"],
+            eager_ms_host_run2=eager[1]["wall_ms"],
+            captured_per_step={k: v // n_capture
+                               for k, v in capture_counts.items()},
+            capture_s=graph.capture_s, peak_gib=peak_gib, busy_ms=busy,
+            busy_sum_ms=summed, profiled_ms=prof_ms, idle_share=idle, launches_per_step=per_step,
+            replay_launches_seen=seen, loss_ratio=ratio_loss,
+            param_ratio=ratio_par, eager_loss_spread=spread,
+            losses=[float(x) for x in losses])
+        print(f"{tag}: graphed {ms:.3f} ms/step by CUDA events, {wall:.3f} "
+              f"ms/step by the host clock (dispatches 2-{GRAPH_DISPATCHES}); "
+              f"eager {eager[0]['ms']:.3f} / {eager[1]['ms']:.3f} ms/step by "
+              f"events, {eager[0]['wall_ms']:.3f} / {eager[1]['wall_ms']:.3f} "
+              f"by the host clock (two runs); capture {graph.capture_s:.2f} s "
+              f"({graph_step.WARMUP_STEPS} warm-up steps and the capture); "
+              f"peak {peak_gib:.3f} GiB [{card}]", flush=True)
+        result["trainer"], result["state"], result["batch"] = \
+            trainer, state, batches[0]
+        return result
+    finally:
+        shutil.rmtree(cfg.train.work_dir, ignore_errors=True)
+
+
+def graph_epoch(card: str) -> dict:
+    """``Trainer.train`` with GRAPH_K steps a dispatch through the loader
+    and ``device_prefetch`` (its feeder thread pins and copies batches
+    while the step is captured): one epoch of one fold, whose trailing
+    group is partial."""
+    import shutil
+
+    import torch
+
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    cfg = graph_config(False, k=GRAPH_K)
+    tc = cfg.train
+    tc.k_fold, tc.epoch_per_fold, tc.total_epochs = 2, 1, 2
+    tc.num_workers, tc.log_every_steps, tc.save_ckpt = 2, 1, False
+    n = 2 * TRAIN_B * (GRAPH_K + 2)  # a fold trains on GRAPH_K + 2 batches
+    try:
+        ds = SyntheticDataset(n_items=n, num_views=3, window_num_imgs=1,
+                              img_height=224, img_width=224)
+        trainer = Trainer(cfg, ds, device="cuda")
+        logged = []
+        log_batch = trainer.metrics.log_batch
+        trainer.metrics.log_batch = lambda idx, *a: (logged.append(
+            (idx, a[1])), log_batch(idx, *a))
+        t0 = time.perf_counter()
+        state = trainer.train(trainer.create_state(seed=0),
+                              apply_validation=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        capture_s = trainer.step_graph.capture_s
+        print(f"phase 29 Trainer.train, {GRAPH_K} steps a dispatch: "
+              f"{state.step} steps in {seconds:.2f} s (capture "
+              f"{capture_s:.2f} s), logged (dispatch, loss) {logged} "
+              f"[{card}]", flush=True)
+        if state.step != GRAPH_K + 2 or [i for i, _ in logged] != [0, 1]:
+            fail(f"phase 29: the epoch took {state.step} steps and logged "
+                 f"{logged}")
+        if not all(math.isfinite(x) for _, x in logged):
+            fail(f"phase 29: a non-finite loss in the epoch: {logged}")
+        del trainer, state
+        release()
+        return dict(steps=GRAPH_K + 2, seconds=seconds, capture_s=capture_s,
+                    logged=logged)
+    finally:
+        shutil.rmtree(tc.work_dir, ignore_errors=True)
+
+
+def remat_phase(card: str, batch: dict) -> dict:
+    """Two flagship steps under each ``site_remat``: the first step's
+    gradients of "dots" and "none" within the spread of two "nothing"
+    runs; the second step's launches and peak memory."""
+    import shutil
+
+    import torch
+
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    grads, peaks, counts = {}, {}, {}
+    for run, mode in (("nothing", "nothing"), ("nothing2", "nothing"),
+                      ("dots", "dots"), ("none", "none")):
+        cfg = graph_config(False, site_remat=mode)
+        try:
+            trainer = Trainer(cfg, None, device="cuda")
+            state = trainer.create_state(seed=0)
+            state, _, _ = trainer.train_step(state, batch, rng=7)
+            # the first step's gradients, from the one seeded state: they
+            # differ between runs by the float atomics alone
+            grads[run] = {n: p.grad.detach().clone()
+                          for n, p in state.net.named_parameters()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            state, _, _ = trainer.train_step(state, batch, rng=7)
+            torch.cuda.synchronize()
+            counts[run] = kernels.counts()
+            peaks[run] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del trainer, state
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(cfg.train.work_dir, ignore_errors=True)
+        want = expected(**REMAT_COUNTS[mode])
+        if counts[run] != want:
+            fail(f"phase 29 site_remat={mode}: launches {counts[run]} != "
+                 f"{want}")
+    ratios = {m: within_spread(grads[m], grads["nothing"], grads["nothing2"])
+              for m in ("dots", "none")}
+    print(f"phase 29 site_remat, flagship bf16 B={TRAIN_B} T=2, one step: "
+          f"launches as expected ({ {m: REMAT_COUNTS[m] for m in REMAT_COUNTS} }"
+          f"); peak nothing {peaks['nothing']:.3f} GiB, dots "
+          f"{peaks['dots']:.3f}, none {peaks['none']:.3f}; gradients "
+          f"against \"nothing\", worst share of the spread tolerance: "
+          f"{ {m: (round(r, 4), n) for m, (r, n) in ratios.items()} } "
+          f"[{card}]", flush=True)
+    for m, (r, n) in ratios.items():
+        if not r <= 1.0:
+            fail(f"phase 29 site_remat={m}: gradient {n} off \"nothing\"'s "
+                 f"by {r} of the tolerance")
+    if not peaks["nothing"] < peaks["dots"] < peaks["none"]:
+        fail(f"phase 29 site_remat peaks out of order: {peaks}")
+    return dict(peak_gib=peaks, counts={m: counts[m] for m in
+                                        ("nothing", "dots", "none")},
+                grad_ratio={m: r for m, (r, _) in ratios.items()})
+
+
+def utilities_phase(card: str, routed: dict) -> dict:
+    """``device_bench`` of one graphed sub-step beside the events' time,
+    ``trace`` with an ``annotation`` around eager work on the card,
+    ``device_memory_stats`` against ``torch.cuda.max_memory_allocated``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bevrender_tpu_torch.training.trainer import _mix
+    from bevrender_tpu_torch.utils.profiling import (
+        annotation,
+        device_memory_stats,
+        trace,
+    )
+    from bevrender_tpu_torch.utils.timing import device_bench
+
+    trainer, state, batch = (routed.pop(k) for k in ("trainer", "state",
+                                                       "batch"))
+    graph = trainer.step_graph
+    bench = device_bench(graph, state, batch, _mix(7, 0), target_s=0.5,
+                         reps=2)
+    print(f"phase 29 device_bench of one graphed sub-step "
+          f"(fused_bwd={routed['fused_bwd']}): {bench:.3f} ms; CUDA events "
+          f"over a dispatch {routed['graphed_ms_events']:.3f} ms/step "
+          f"[{card}]", flush=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        # eager work on the card: a profiler with CPU and CUDA activities
+        # around a graph replay ended the process with a segmentation fault
+        # once (chip_smoke, after device_bench), though the same trace had
+        # passed in a shorter process
+        x = torch.randn(1024, 1024, device="cuda")
+        with trace(out):
+            with annotation("chip_smoke_annotation"):
+                torch.relu(x @ x).sum()
+            torch.cuda.synchronize()
+        files = sorted(Path(out).glob("*.json"))
+        found = bool(files) and "chip_smoke_annotation" in \
+            files[0].read_text()
+        size = files[0].stat().st_size if files else 0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"phase 29 trace: {len(files)} file(s), {size} bytes, the "
+          f"annotation {'found' if found else 'MISSING'}", flush=True)
+    if not found:
+        fail("phase 29: the trace lacks the annotation")
+    stats = device_memory_stats("cuda")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 29 device_memory_stats: {stats}; "
+          f"torch.cuda.max_memory_allocated {peak}", flush=True)
+    if stats["peak_bytes_in_use"] != peak:
+        fail(f"phase 29: device_memory_stats peak {stats} != {peak}")
+    del graph, trainer, state
+    release()
+    return dict(device_bench_ms=bench, trace_bytes=size,
+                memory_stats=stats)
+
+
+def graph_phase(card: str) -> dict:
+    """Phase 29: graphed against eager training on both routes, the three
+    ``site_remat`` modes, the utilities on the card."""
+    t0 = time.perf_counter()
+    batches = graph_batches(GRAPH_STEPS)
+    default = graph_route(card, False, batches)
+    default.pop("trainer"), default.pop("state"), default.pop("batch")
+    release()
+    t1 = time.perf_counter()
+    fused = graph_route(card, True, batches)
+    t2 = time.perf_counter()
+    epoch = graph_epoch(card)
+    remat = remat_phase(card, batches[0])
+    t3 = time.perf_counter()
+    utils = utilities_phase(card, fused)
+    seconds = time.perf_counter() - t0
+    print(f"phase 29: {seconds:.1f} s (default route {t1 - t0:.1f}, "
+          f"fused_bwd {t2 - t1:.1f}, epoch and site_remat {t3 - t2:.1f}, "
+          f"utilities {seconds - (t3 - t0):.1f})", flush=True)
+    return dict(default=default, fused_bwd=fused, epoch=epoch, remat=remat,
+                utilities=utils, seconds=seconds)
+
+
 def main() -> None:
     import torch
 
@@ -3494,6 +4036,12 @@ def main() -> None:
     # and served from the map PNG's tiles ----
     feed = file_feed_phase(card, train_default)
 
+    stamp("phase 29")
+    # ---- grouped training: k steps a dispatch, each a CUDA graph replay,
+    # against eager steps on both routes; site_remat "dots"; the
+    # utilities ----
+    graphed = graph_phase(card)
+
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
         top = max(data["rows"], key=lambda r: r[per] * r["ms"])
@@ -3525,6 +4073,10 @@ def main() -> None:
               launches_streaming_frame=stream_frame["lattice_bias"],
               launches_file_fed_step=feed["host"]["counts_per_step"][
                   "lattice_bias"],
+              launches_graphed_step=graphed["default"]["captured_per_step"][
+                  "lattice_bias"],
+              launches_graphed_step_fused_bwd=graphed["fused_bwd"][
+                  "captured_per_step"]["lattice_bias"],
               per_shape_train=bias_bwd["fwd_rows"],
               per_shape_pyramid=pyr_bias["lattice_bias"]["rows"]),
         entry("fused_site", "cuda",
@@ -3536,6 +4088,8 @@ def main() -> None:
               launches_head_serving=head["counts"]["fused_site"],
               launches_streaming_frame=stream_frame["fused_site"],
               launches_file_fed_step=feed["host"]["counts_per_step"][
+                  "fused_site"],
+              launches_graphed_step=graphed["default"]["captured_per_step"][
                   "fused_site"]),
         entry("lattice_bias_bwd", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_bwd.cu",
@@ -3545,17 +4099,23 @@ def main() -> None:
               launches_pyramid_train=pyr_train["counts"]["lattice_bias_bwd"],
               launches_file_fed_step=feed["host"]["counts_per_step"][
                   "lattice_bias_bwd"],
+              launches_graphed_step=graphed["default"]["captured_per_step"][
+                  "lattice_bias_bwd"],
               per_step_ms=bias_bwd["per_step_ms"],
               per_step_ms_pyramid=pyr_bias["lattice_bias_bwd"]["per_step_ms"],
               per_shape_pyramid=pyr_bias["lattice_bias_bwd"]["rows"]),
         entry("fused_site_lse", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site.cu",
               "bevrender_tpu/ops/pallas/fused_attn.py:278", site_lse,
-              train_fused["counts"]["fused_site_lse"]),
+              train_fused["counts"]["fused_site_lse"],
+              launches_graphed_step_fused_bwd=graphed["fused_bwd"][
+                  "captured_per_step"]["fused_site_lse"]),
         entry("fused_site_bwd", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site_bwd.cu",
               "bevrender_tpu/ops/pallas/fused_attn.py:429", site_bwd,
-              train_fused["counts"]["fused_site_bwd"]),
+              train_fused["counts"]["fused_site_bwd"],
+              launches_graphed_step_fused_bwd=graphed["fused_bwd"][
+                  "captured_per_step"]["fused_site_bwd"]),
         entry("lattice_bias_wide", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_wide.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:422",
@@ -3633,6 +4193,7 @@ def main() -> None:
         "windows": {"serving": windows_serve, "train": windows_train,
                     "pyramid_serving": pyr_windows, "bias": win_bias},
         "retrieval_head": head, "streaming": stream, "file_feed": feed,
+        "graphed": graphed,
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}

@@ -7,11 +7,16 @@ JAX package's own tests do. The CUDA backward kernels themselves are held
 against the same plain versions in test_torch_kernels.py on the card.
 """
 
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from bevrender_tpu.geometry import ego_motion as jego
 from bevrender_tpu.ops import deform_attn as jda
@@ -286,20 +291,106 @@ def test_site_bwd_online_within_rounding_bound():
 
 @pytest.mark.parametrize("fused_bwd", [False, True])
 def test_remat_does_not_change_gradients(fused_bwd):
+    """The site's output and gradients are the same bits under each
+    ``site_remat`` mode ("dots" saves the products the other two recompute
+    or keep); an unknown mode raises."""
     arrays = _inputs(16, 2, 2, 2, 8, 8, 2, 4)
     ct = _t(_cotangent(17, arrays[0].shape))
     got = {}
-    for mode in ("nothing", "none"):
+    for mode in tda.SITE_REMAT_MODES:
         ts = [_t(a, True) for a in arrays]
         out = tda.streamed_deform_attention(
             *ts, 8, 8, scale=0.5, fuse_site=False, fused_bwd=fused_bwd,
             site_remat=mode)
         got[mode] = [out.detach()] + list(torch.autograd.grad(out, ts, ct))
-    for a, b in zip(got["nothing"], got["none"]):
-        assert torch.equal(a, b)
+    assert tda.SITE_REMAT_MODES == ("nothing", "dots", "none")
+    for mode in ("dots", "none"):
+        for a, b in zip(got["nothing"], got[mode]):
+            assert torch.equal(a, b), mode
     with pytest.raises(ValueError, match="site_remat"):
         tda.streamed_deform_attention(*map(_t, arrays), 8, 8, scale=0.5,
-                                      fuse_site=False, site_remat="dots")
+                                      fuse_site=False, site_remat="all")
+
+
+def _kept_bytes(fn):
+    """Bytes of the tensors that ``fn()`` makes and that outlive it, its
+    output's storage aside: what a forward keeps for its backward.
+    ``torch.utils.checkpoint`` packs what it saves under hooks of its own,
+    where an outer ``saved_tensors_hooks`` does not see it, so the count
+    follows every tensor the forward's operations return instead."""
+    made = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            made.extend(weakref.ref(t) for t in tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+            return out
+
+    with Record():
+        out = fn()
+    gc.collect()
+    own = out.untyped_storage().data_ptr()
+    alive = {}
+    for ref in made:
+        t = ref()
+        if t is not None and t.untyped_storage().data_ptr() != own:
+            alive[t.untyped_storage().data_ptr()] = \
+                t.untyped_storage().nbytes()
+    return out, sum(alive.values())
+
+
+def test_remat_modes_keep_more_in_order():
+    """"nothing" keeps (almost) nothing of the site for the backward,
+    "dots" the scores product (B G Hpg N M float32), "none" every residual
+    autograd wants; the gradients agree bit for bit."""
+    arrays = _inputs(24, 2, 2, 2, 8, 8, 2, 4)
+    kept, grads = {}, {}
+    for mode in tda.SITE_REMAT_MODES:
+        ts = [_t(a, True) for a in arrays]
+        out, kept[mode] = _kept_bytes(lambda: tda.streamed_deform_attention(
+            *ts, 8, 8, scale=0.5, fuse_site=False, site_remat=mode))
+        grads[mode] = torch.autograd.grad(out, ts, torch.ones_like(out))
+    scores = 2 * 2 * 2 * 64 * 64 * 4
+    assert kept["nothing"] < kept["dots"] < kept["none"], kept
+    # on the card "dots" recomputes the bias kernel as "nothing" does
+    q_shape, t_shape = arrays[0].shape, arrays[4].shape
+    launches = {m: tda.site_kernels(q_shape, t_shape, 8, 8,
+                                    tda.SiteOptions(site_remat=m), True)
+                for m in tda.SITE_REMAT_MODES}
+    assert launches == {
+        "nothing": ("lattice_bias", "lattice_bias", "lattice_bias_bwd"),
+        "dots": ("lattice_bias", "lattice_bias", "lattice_bias_bwd"),
+        "none": ("lattice_bias", "lattice_bias_bwd")}
+    assert kept["nothing"] < scores <= kept["dots"], kept
+    for mode in ("dots", "none"):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(grads["nothing"], grads[mode]))
+
+
+def test_dots_remat_matches_jax_dots(monkeypatch):
+    """The chunked (float32) path under "dots" against the JAX package's
+    under BEVRENDER_SITE_REMAT=dots (read at trace time; each eager call
+    traces afresh): output and every gradient to 1e-5."""
+    monkeypatch.setenv("BEVRENDER_SITE_REMAT", "dots")
+    arrays = _inputs(26, 2, 2, 2, 8, 8, 2, 4, pos_range=1.3)
+    q_pos = _q_pos(8, 8).numpy()
+    ct = _cotangent(27, arrays[0].shape)
+
+    def jfn(q, k, v, kp, tb):
+        return jda.streamed_deform_attention(
+            q, k, v, jnp.asarray(q_pos), kp, tb, scale=0.5, chunk=24)
+    ref, vjp = jax.vjp(jfn, *map(jnp.asarray, arrays))
+    jgrads = vjp(jnp.asarray(ct))
+    ts = [_t(a, True) for a in arrays]
+    out = tda.chunked_deform_attention(ts[0], ts[1], ts[2], _t(q_pos), ts[3],
+                                       ts[4], scale=0.5, chunk=24,
+                                       site_remat="dots")
+    grads = torch.autograd.grad(out, ts, _t(ct))
+    _assert_rel(out.detach(), ref, F32_REL, "out")
+    for name, g, jg in zip(("dq", "dk", "dv", "dk_pos", "dtable"), grads,
+                           jgrads):
+        _assert_rel(g, jg, F32_REL, name)
 
 
 def test_attention_dropout_is_seeded_and_remat_safe():

@@ -1413,3 +1413,113 @@ def test_preprocess_batch_on_card_equals_cpu(cuda_device):
     assert gpu["camera"].is_cuda and gpu["camera"].dtype == torch.float32
     assert float((gpu["camera"].cpu() - cpu["camera"]).abs().max()) <= 1e-5
     assert torch.equal(gpu["map"].cpu(), cpu["map"])
+
+
+def _graph_trainer(tmp_path, k=2, **model):
+    from bevrender_tpu_torch.config import Config, tiny_model_config
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    cfg = Config()
+    cfg.model = tiny_model_config(drop_path_rate=0.2, **model)
+    cfg.train.work_dir = str(tmp_path)
+    cfg.train.steps_per_dispatch = k
+    cfg.train.learning_rate = 1e-3
+    ds = SyntheticDataset(n_items=8, num_views=2, window_num_imgs=1,
+                          img_height=32, img_width=32, map_tile=32)
+    return Trainer(cfg, ds, device="cuda"), ds
+
+
+def _snapshot(state):
+    tensors = (list(state.net.parameters()) + list(state.net.buffers())
+               + [v for st in state.optimizer.state.values()
+                  for v in st.values() if torch.is_tensor(v)])
+    return [(t, t.detach().clone()) for t in tensors], state.step
+
+
+def _restore(state, saved):
+    with torch.no_grad():
+        for t, c in saved[0]:
+            t.copy_(c)
+    state.step = saved[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_bwd", [False, True])
+def test_graphed_sub_steps_equal_eager_steps(cuda_device, tmp_path,
+                                             fused_bwd):
+    """Each sub-step, eager and graphed from one state (drop path 0.2): the
+    forward's loss is the same bits (the replay reseeds the registered
+    generator and reads the copied batch); the step is captured once; the
+    learning rate is read from its device tensor at every replay."""
+    from bevrender_tpu_torch.data.prefetch import collate
+
+    trainer, ds = _graph_trainer(tmp_path)
+    trainer.tc.fused_bwd = fused_bwd
+    assert trainer.graphed
+    state = trainer.create_state(seed=0)
+    assert state.optimizer.param_groups[0]["capturable"]
+    batches = [collate([ds[2 * i], ds[2 * i + 1]]) for i in range(4)]
+    graph = None
+    for b in batches:
+        saved = _snapshot(state)
+        state, m_e, _ = trainer.train_step(state, b, rng=5)
+        _restore(state, saved)
+        state, m_g, render = trainer.train_step_multi(
+            state, {k: v[None] for k, v in b.items()}, rng=5)
+        assert graph is None or trainer.step_graph is graph
+        graph = trainer.step_graph
+        assert m_g["train_batch_loss"].shape == (1,)
+        assert float(m_e["train_batch_loss"]) == float(
+            m_g["train_batch_loss"][0])
+    assert state.step == 4 and render.shape == (2, 32, 32, 3)
+    # a group of 2 replays the same graph twice
+    state, m, _ = trainer.train_step_multi(state, collate(batches[:2]), rng=5)
+    assert trainer.step_graph is graph and state.step == 6
+    assert bool(torch.isfinite(m["train_batch_loss"]).all())
+    # with a rate of 0 (filled in place) AdamW leaves the weights as they are
+    before = [p.detach().clone() for p in state.net.parameters()]
+    trainer.set_epoch_lr(state, 0)
+    state.optimizer.param_groups[0]["lr"].fill_(0.0)
+    state, _, _ = trainer.train_step_multi(state, collate(batches[2:3]), rng=5)
+    assert all(torch.equal(a, p) for a, p in zip(before,
+                                                  state.net.parameters()))
+
+
+@pytest.mark.cuda
+def test_capturable_adamw_checkpoint_round_trip(cuda_device, tmp_path):
+    """A graphed trainer's checkpoint (capturable AdamW: step counts and the
+    learning rate on the device) restores into a graphed trainer, which
+    captures anew and continues with the same forward as the saved state,
+    and into an eager one (float rate, step counts on the CPU)."""
+    from bevrender_tpu_torch.data.prefetch import collate
+
+    trainer, ds = _graph_trainer(tmp_path / "a")
+    state = trainer.create_state(seed=0)
+    group = collate([collate([ds[0], ds[1]]), collate([ds[2], ds[3]])])
+    state, _, _ = trainer.train_step_multi(state, group, rng=5)
+    path = trainer.save_checkpoint(state, epoch=1)
+
+    again, _ = _graph_trainer(tmp_path / "b")
+    restored = again.restore_checkpoint(again.create_state(seed=1), path)
+    assert restored.step == state.step == 2
+    group0 = restored.optimizer.param_groups[0]
+    assert group0["capturable"] and group0["lr"].is_cuda
+    for p, q in zip(state.net.parameters(), restored.net.parameters()):
+        a, b = state.optimizer.state[p], restored.optimizer.state[q]
+        assert b["step"].is_cuda and float(b["step"]) == 2.0
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+        assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+    nxt = collate([collate([ds[4], ds[5]])])
+    state, m1, _ = trainer.train_step_multi(state, nxt, rng=5)
+    restored, m2, _ = again.train_step_multi(restored, nxt, rng=5)
+    assert float(m1["train_batch_loss"][0]) == float(m2["train_batch_loss"][0])
+
+    eager, _ = _graph_trainer(tmp_path / "c", k=1)
+    assert not eager.graphed
+    plain = eager.restore_checkpoint(eager.create_state(seed=1), path)
+    g = plain.optimizer.param_groups[0]
+    assert not g["capturable"] and isinstance(g["lr"], float)
+    assert all(not s["step"].is_cuda for s in plain.optimizer.state.values())
+    plain, m3, _ = eager.train_step(plain, collate([ds[4], ds[5]]), rng=5)
+    assert np.isfinite(float(m3["train_batch_loss"]))

@@ -20,6 +20,7 @@ from bevrender_tpu.models import backbone as jbb
 from bevrender_tpu.models import decoder as jdec
 from bevrender_tpu.models import encoder as jenc
 from bevrender_tpu.models import layers as jlay
+from bevrender_tpu_torch.config import tiny_model_config
 from bevrender_tpu_torch.convert import flax_to_state_dict
 from bevrender_tpu_torch.geometry import projection as tproj
 from bevrender_tpu_torch.models import attention as tatt
@@ -27,6 +28,7 @@ from bevrender_tpu_torch.models import backbone as tbb
 from bevrender_tpu_torch.models import decoder as tdec
 from bevrender_tpu_torch.models import encoder as tenc
 from bevrender_tpu_torch.models import layers as tlay
+from bevrender_tpu_torch.models.bevrender import BEVRenderNet
 
 # convolution stacks in float32: summation order differs, nothing else
 F32_TOL = 1e-4
@@ -115,6 +117,50 @@ def test_decoder_matches_flax():
         m := tdec.BEVImageRenderDecoder(8, 16, 8, tlay.BatchNorm), x)
     assert ref.shape == (2, 32, 32, 3)
     _close(m(_t(x)), ref)
+
+
+# the FPN levels and the simple decoder against flax at float32, as a share
+# of each output's largest entry
+FPN_REL = 1e-5
+
+
+@pytest.mark.parametrize("arch", ["18", "50"])
+def test_resnet_fpn_matches_flax(arch):
+    """ResNet-18 (basic blocks) and -50 (bottlenecks) with the FPN at 64 x 64
+    and group norm: P2-P5 (strides 4-32, the stages' widths) to FPN_REL."""
+    x = _x(4, 1, 64, 64, 3)
+    jmod = jbb.ResnetFPN(resnet_arch=arch, norm=jlay.make_norm("group"))
+    variables = jax.jit(lambda k, a: jmod.init(k, a))(jax.random.PRNGKey(4),
+                                                      jnp.asarray(x))
+    variables = _perturb(jax.tree_util.tree_map(np.asarray, dict(variables)),
+                         4)
+    refs = jax.jit(jmod.apply)(variables, jnp.asarray(x))
+    m = tbb.ResnetFPN(tlay.make_norm("group"), arch)
+    m.load_state_dict(flax_to_state_dict(variables), strict=True)
+    outs = m.eval()(_t(x))
+    wide = 4 if arch == "50" else 1
+    assert [tuple(r.shape) for r in refs] == [
+        (1, 64 // s, 64 // s, c * wide)
+        for s, c in ((4, 64), (8, 128), (16, 256), (32, 512))]
+    for out, ref in zip(outs, refs):
+        _close(out, np.asarray(ref), rel=FPN_REL)
+
+
+def test_simple_decoder_matches_flax():
+    x = _x(5, 2, 8, 8, 16)
+    ref = _bridge(jdec.SimpleDecoder(norm=jlay.make_norm("batch")),
+                  m := tdec.SimpleDecoder(16, tlay.BatchNorm), x)
+    assert ref.shape == (2, 32, 32, 3)
+    _close(m(_t(x)), ref, rel=FPN_REL)
+
+
+def test_build_backbone_and_the_model_on_resnet_fpn():
+    assert isinstance(tbb.build_backbone("ResnetFPN", 8, 8, 32,
+                                         tlay.BatchNorm), tbb.ResnetFPN)
+    with pytest.raises(ValueError, match="unknown backbone"):
+        tbb.build_backbone("VGG", 8, 8, 32, tlay.BatchNorm)
+    with pytest.raises(ValueError, match="one feature map"):
+        BEVRenderNet(tiny_model_config(backbone="ResnetFPN"))
 
 
 @pytest.mark.parametrize("n_heads,n_groups", [(4, 2), (1, 1)])

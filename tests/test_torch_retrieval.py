@@ -76,6 +76,11 @@ def f32_sites(monkeypatch):
     """Both frameworks' attention sites in float32 (the fixture of
     tests/test_torch_pyramid.py): the lattice bias with float32 lerps,
     scores, softmax and AV without bf16 casts."""
+    use_f32_sites(monkeypatch)
+
+
+def use_f32_sites(monkeypatch):
+    """``f32_sites`` on a ``pytest.MonkeyPatch`` of any scope."""
 
     def jsite(q, k, v, k_pos, rpe_table, H, W, *, scale, use_kernel,
               dropout_rate=0.0, dropout_key=None, bias_interpret=False):

@@ -320,7 +320,8 @@ def test_site_options_are_checked():
     with pytest.raises(ValueError, match="lattice_route"):
         tda.SiteOptions(lattice_route="resolve")
     with pytest.raises(ValueError, match="site_remat"):
-        tda.SiteOptions(site_remat="dots")
+        tda.SiteOptions(site_remat="all")
+    assert tda.SiteOptions(site_remat="dots").site_remat == "dots"
 
 
 # ---- the config fields, end to end on the CPU -------------------------------
