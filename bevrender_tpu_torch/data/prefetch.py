@@ -1,10 +1,10 @@
 """Host -> device input pipeline (counterpart of
 bevrender_tpu/data/prefetch.py): ``collate``, ``group_batches`` and the
 map-style ``DataLoader`` are numpy only and behave as there (same seeded
-shuffle, sampler, ``drop_last``, ``set_epoch``); ``device_prefetch`` moves
-finished batches to the model's device from pinned memory while the
-previous step computes, and applies the device-side preprocessing stage
-(``data.preprocess``) to them there."""
+shuffle, sampler, ``drop_last``, ``set_epoch``, ``process_shard``);
+``device_prefetch`` moves finished batches to the model's device from
+pinned memory while the previous step computes, and applies the
+device-side preprocessing stage (``data.preprocess``) to them there."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import collections
 import concurrent.futures
 import queue
 import threading
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,11 +39,18 @@ def group_batches(it: Iterator[Dict[str, np.ndarray]],
 class DataLoader:
     """Minimal map-style loader: seeded shuffling per epoch, batching,
     ``drop_last``, an index ``sampler`` (a K-fold split), and
-    ``__getitem__`` on a thread pool, ``num_workers + 1`` batches ahead."""
+    ``__getitem__`` on a thread pool, ``num_workers + 1`` batches ahead.
+
+    ``process_shard=(rank, world)`` makes it one rank's loader: every rank
+    shuffles the same permutation (the shared seed), pads it by wrapping
+    to a multiple of ``world`` and takes the strided shard ``rank::world``,
+    so every rank iterates the same number of batches; ``batch_size`` is
+    then the rank's, and the global batch is ``batch_size * world``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 2, drop_last: bool = True, seed: int = 0,
-                 sampler: Optional[Sequence[int]] = None):
+                 sampler: Optional[Sequence[int]] = None,
+                 process_shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -51,6 +58,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.sampler = sampler
+        self.process_shard = process_shard
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -59,6 +67,8 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.sampler) if self.sampler is not None else len(self.dataset)
+        if self.process_shard is not None:  # the padded shard
+            n = -(-n // self.process_shard[1])
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -66,6 +76,12 @@ class DataLoader:
                else np.arange(len(self.dataset)))
         if self.shuffle:
             idx = np.random.default_rng(self.seed + self.epoch).permutation(idx)
+        if self.process_shard is not None:
+            rank, world = self.process_shard
+            pad = (-len(idx)) % world
+            if pad and len(idx):
+                idx = np.concatenate([idx, idx[:pad]])
+            idx = idx[rank::world]
         usable = len(idx) - (len(idx) % self.batch_size) if self.drop_last else len(idx)
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, usable, self.batch_size)]

@@ -2,7 +2,8 @@
 ``RegistrationPipeline.__init__`` with its embedding choice :43-67,
 ``from_checkpoint`` :112-133, ``make_streaming_step`` and
 ``make_replay_scan`` :136-208, ``render/build_tile_database/register``
-:210-301, and ``evaluate_recall`` :374-390).
+:210-301, ``make_sharded_matcher`` and ``pad_tile_db`` :304-372, and
+``evaluate_recall`` :374-390).
 
 Render an aerial view from a window of surround-camera frames, embed it,
 and take the top-k of the distance ``2 - 2 * sim`` to a resident database
@@ -10,7 +11,9 @@ of map-tile embeddings. The embedding is, in the JAX package's order of
 choice, a caller's ``embed_fn`` (L2-normalised), the model's trained
 retrieval head (``ModelConfig.retrieval_embed_dim > 0``), or the flattened,
 L2-normalised image. Streaming serving carries the BEV state from frame to
-frame: one encoder pass and one decode a frame.
+frame: one encoder pass and one decode a frame. A database too large for
+one card is split over the ranks of a process group, each holding a
+contiguous shard of rows (``make_sharded_matcher``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from bevrender_tpu_torch.losses.recall import recall_at_k
 from bevrender_tpu_torch.models.attention import set_site_options
 from bevrender_tpu_torch.models.bevrender import BEVRenderNet
 from bevrender_tpu_torch.models.layers import init_params
+from bevrender_tpu_torch.parallel import dist as pdist
 from bevrender_tpu_torch.training.checkpoint import restore_model
 
 
@@ -186,6 +190,54 @@ class RegistrationPipeline:
             return bev, torch.stack(idx), torch.stack(dist)
 
         return replay
+
+    @staticmethod
+    def make_sharded_matcher(top_k: int = 10):
+        """``match(query_emb, db_shard, n_real) -> (top-k indices, top-k
+        distances)``, nearest first, for a database split over the ranks of
+        the process group (one rank without one): rank r holds the
+        contiguous rows ``[r * nl, (r + 1) * nl)`` of the (W * nl, D)
+        database that ``pad_tile_db`` padded, of which the first ``n_real``
+        are tiles. Each rank takes the distances ``2 - 2 q . shard^T`` of
+        the (B, D) queries to its rows (pad rows +inf), its (B, k) top-k
+        with k = min(top_k, nl), and one ``all_gather`` of the candidates
+        in rank order; the top-k of those is the exact global top-k, with
+        global row indices, on every rank. The (B, N) distances never
+        leave their rank."""
+
+        @torch.no_grad()
+        def match(q: torch.Tensor, db_shard: torch.Tensor, n_real: int):
+            W, r = pdist.world_size(), pdist.rank()
+            nl = db_shard.shape[0]
+            sims = torch.matmul(q.to(db_shard.dtype), db_shard.T).float()
+            dist = 2.0 - 2.0 * sims
+            rows = r * nl + torch.arange(nl, device=dist.device)
+            dist = torch.where(rows[None, :] < n_real, dist,
+                               torch.full_like(dist, torch.inf))
+            neg, lidx = torch.topk(-dist, min(top_k, nl))
+            cand_d, cand_i = -neg, lidx + r * nl
+            if W > 1:
+                parts_d = [torch.empty_like(cand_d) for _ in range(W)]
+                parts_i = [torch.empty_like(cand_i) for _ in range(W)]
+                torch.distributed.all_gather(parts_d, cand_d.contiguous())
+                torch.distributed.all_gather(parts_i, cand_i.contiguous())
+                cand_d, cand_i = torch.cat(parts_d, 1), torch.cat(parts_i, 1)
+            neg, sel = torch.topk(-cand_d, min(top_k, cand_d.shape[1]))
+            return torch.gather(cand_i, 1, sel), -neg
+
+        return match
+
+    @staticmethod
+    def pad_tile_db(db: torch.Tensor, n_shards: int
+                    ) -> Tuple[torch.Tensor, int]:
+        """(the (N, D) database padded with zero rows to a multiple of
+        ``n_shards``, N): N is the matcher's ``n_real``, so that pad rows
+        are never matched while ``top_k`` <= N."""
+        n = db.shape[0]
+        pad = (-n) % n_shards
+        if pad:
+            db = torch.cat([db, db.new_zeros((pad, db.shape[1]))])
+        return db, n
 
     @torch.no_grad()
     def evaluate_recall(self, dataset, batch_size: int = 1) -> Dict[str, float]:

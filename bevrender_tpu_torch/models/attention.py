@@ -235,7 +235,7 @@ class SCADeformableAttention(_Site):
                 (B * V,) + q5.shape[1:])
             out = streamed_deform_attention(
                 q_rep, _split_heads(k, G, Hpg), _split_heads(v, G, Hpg), pos,
-                rpe, H, W, **attn)
+                rpe, H, W, rows_per_sample=V, **attn)
             out = _merge_heads(out).reshape(B, V, H, W, C).permute(0, 2, 3, 1, 4)
             out = out.reshape(B, H, W, V * C)
         else:

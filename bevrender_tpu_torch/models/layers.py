@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bevrender_tpu_torch.parallel import dist as pdist
+
 
 def compute_dtype(name: str) -> Optional[torch.dtype]:
     """``ModelConfig.dtype`` -> the conv/dense compute dtype (None = f32)."""
@@ -106,7 +108,13 @@ class BatchNorm(nn.BatchNorm2d):
     float32 out. Eval mode normalises with the running statistics. Train
     mode follows flax and not ``nn.BatchNorm2d``: the batch variance is the
     biased E[x^2] - E[x]^2 in float32, clipped at 0, and that same biased
-    variance updates ``running_var`` (torch stores the unbiased one)."""
+    variance updates ``running_var`` (torch stores the unbiased one).
+
+    With a process group of more than one rank, the batch is the global
+    one, as under the JAX package's GSPMD: the per-channel sums of x and
+    x^2 and the row count are all-reduced (autograd-aware) before the
+    mean and variance are taken, so every rank normalises with, and
+    updates its running statistics from, the same global values."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-5, momentum=0.1)
@@ -115,8 +123,18 @@ class BatchNorm(nn.BatchNorm2d):
         x = x.float()
         if not self.training:
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        mean = x.mean(dim=(0, 1, 2))
-        var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+        if pdist.world_size() > 1:
+            C = x.shape[-1]
+            stats = pdist.all_reduce_sum(torch.cat([
+                x.sum(dim=(0, 1, 2)), (x * x).sum(dim=(0, 1, 2)),
+                x.new_full((1,), x.numel() // C)]))
+            mean = stats[:C] / stats[-1]
+            var = torch.clamp(stats[C:2 * C] / stats[-1] - mean * mean,
+                              min=0.0)
+        else:
+            mean = x.mean(dim=(0, 1, 2))
+            var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean,
+                              min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
@@ -185,7 +203,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 class DropPath(nn.Module):
     """Per-sample stochastic depth; identity at eval. The mask comes from
     ``generator`` (``set_generator``), or PyTorch's default generator when
-    none is set."""
+    none is set; with a process group of W > 1 it is this rank's rows of
+    the global batch's mask (``parallel.dist.local_rand``)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -196,8 +215,8 @@ class DropPath(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
-                          generator=self.generator, device=x.device) < keep
+        mask = pdist.local_rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                                self.generator, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -214,8 +233,7 @@ class Dropout(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        mask = pdist.local_rand(x.shape, self.generator, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

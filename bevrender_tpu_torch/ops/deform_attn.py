@@ -75,6 +75,7 @@ from bevrender_tpu_torch.ops.kernels._launch import (
     padded_width,
     window_width,
 )
+from bevrender_tpu_torch.parallel import dist as pdist
 
 # float32 constants of the site kernels, which keep their scores in base 2
 LOG2E = float(np.float32(1.4426950408889634))
@@ -733,10 +734,13 @@ def _maybe_remat(fn, site_remat: str, *tensors):
     return fn(*tensors)
 
 
-def _keep_mask(shape, rate: float, generator, device):
+def _keep_mask(shape, rate: float, generator, device,
+               rows_per_sample: int = 1):
     """Dropout mask drawn outside any recomputed region, so a backward that
-    recomputes sees the same mask."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    recomputes sees the same mask; with a process group of W > 1, this
+    rank's rows of the global batch's mask (``parallel.dist.local_rand``)."""
+    return pdist.local_rand(shape, generator, device,
+                            rows_per_sample) < 1.0 - rate
 
 
 def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
@@ -750,7 +754,8 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
                               site_fold_rows: bool = False,
                               fused_fwd_fold: bool | None = None,
                               dropout_rate: float = 0.0,
-                              generator=None) -> torch.Tensor:
+                              generator=None,
+                              rows_per_sample: int = 1) -> torch.Tensor:
     """One lattice attention site (deform_attn.py:866-917), on the kernels
     that ``site_kernels`` names for the ``SiteOptions`` of the keyword
     arguments from ``fused_bwd`` to ``fused_fwd_fold``; ``fuse_site`` says
@@ -766,7 +771,9 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     recomputes the bias and the elementwise tail, "none" lets autograd
     keep what it wants (``_maybe_remat``). Attention dropout
     (``dropout_rate`` > 0, drawn from ``generator``) always takes the plain
-    consumer."""
+    consumer; ``rows_per_sample`` is the number of leading rows of q, k and
+    v that one sample of the batch holds (its views, where they are folded
+    into the batch), for the mask of a data-parallel rank."""
     use_dropout = dropout_rate > 0.0
     options = SiteOptions(
         fused_bwd=fused_bwd, site_remat=site_remat, lattice_route=lattice_route,
@@ -782,7 +789,7 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     keep = None
     if use_dropout:
         keep = _keep_mask(k.shape[:-1] + (q.shape[-2],), dropout_rate,
-                          generator, q.device)
+                          generator, q.device, rows_per_sample)
 
     def full_site(q, k, v, k_pos, table):
         if kernel == "lattice_windows":

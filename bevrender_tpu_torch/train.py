@@ -9,6 +9,7 @@ Usage::
     python -m bevrender_tpu_torch.train --synthetic --epochs 2  # smoke run
     python -m bevrender_tpu_torch.train --tiny --device cpu     # on the CPU
     python -m bevrender_tpu_torch.train --config cfg.json --steps-per-dispatch 4
+    torchrun --nproc_per_node N -m bevrender_tpu_torch.train --config cfg.json --distributed
 
 It runs on the GPU unless ``--device`` names another device, and raises
 when there is none. ``cfg.json`` is ``Config.to_json`` output, the port's
@@ -16,6 +17,13 @@ or the JAX package's. ``Trainer.train`` trains while the epoch count plus
 one is below ``--epochs``, so ``--epochs 2`` trains one epoch.
 ``--steps-per-dispatch K`` (K > 1) groups K batches a dispatch; on the card
 each of its steps replays one captured CUDA graph of the training step.
+``--distributed`` (or ``TrainConfig.distributed``) joins the process group
+that ``torchrun`` describes (``parallel.dist.initialize_distributed``):
+each rank trains on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo
+with ``--device cpu``, on its share of every global batch of
+``batch_size`` rows; rank 0 names the work directory and writes the config
+and the inference split. Without torchrun's environment it logs that and
+trains as one process.
 """
 
 from __future__ import annotations
@@ -92,6 +100,7 @@ def main(argv=None):
     from bevrender_tpu_torch.config import (Config, flagship_config,
                                             tiny_model_config)
     from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.parallel import dist as pdist
     from bevrender_tpu_torch.training.metrics import get_logger
     from bevrender_tpu_torch.training.trainer import Trainer
 
@@ -112,7 +121,6 @@ def main(argv=None):
                     help="torch device (default: cuda; cpu only on request)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     logger = get_logger()
     if args.config:
         config = Config.from_json(Path(args.config).read_text())
@@ -127,18 +135,21 @@ def main(argv=None):
     if args.steps_per_dispatch:
         config.train.steps_per_dispatch = args.steps_per_dispatch
     if args.distributed or config.train.distributed:
-        raise NotImplementedError(
-            "distributed training is not ported yet (ROADMAP.md section 1, "
-            "item 8: the parallel layer)")
+        device = pdist.initialize_distributed(args.device)
+    else:
+        device = resolve_device(args.device)
+    main_rank = pdist.is_main()
 
     ckpt_dir = config.train.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                                      "bevrender_ckpt")
-    work_dir = Path(ckpt_dir) / str(int(time.time()))
-    work_dir.mkdir(parents=True, exist_ok=True)
+    work_dir = Path(pdist.broadcast_object(
+        str(Path(ckpt_dir) / str(int(time.time())))))
     config.train.work_dir = str(work_dir)
-    config.save_config_given_dir(str(work_dir))
-    logger.info("Working directory: %s", work_dir)
-    logger.info("Loss type: %s", config.train.loss_type)
+    if main_rank:
+        work_dir.mkdir(parents=True, exist_ok=True)
+        config.save_config_given_dir(str(work_dir))
+        logger.info("Working directory: %s", work_dir)
+        logger.info("Loss type: %s", config.train.loss_type)
 
     np.random.seed(config.train.seed)
     torch.manual_seed(config.train.seed)
@@ -160,7 +171,8 @@ def main(argv=None):
     if config.train.split_inf_set:
         train_idx, inf_indices = split_inf_set(
             len(dataset), config.train.inf_set_ratio, config.train.seed)
-        np.save(work_dir / "inference_indices.npy", inf_indices)
+        if main_rank:
+            np.save(work_dir / "inference_indices.npy", inf_indices)
         dataset = _Subset(dataset, train_idx)
 
     trainer = Trainer(config, dataset, logger=logger, device=device)

@@ -33,6 +33,11 @@ side stream, and each sub-step of a group is one ``replay``:
 A capture that fails raises: there is no eager fallback on the card. One
 graph of one step, replayed k times, keeps the per-step reseed, and a
 trailing partial group is fewer replays of the same graph.
+
+In a process group the step's one all-reduce of the gradients and losses
+(``parallel.dist.all_reduce_mean_``) is captured with the rest: NCCL's
+collectives can be, on the capture stream. gloo's cannot, and a graphed
+step on gloo raises (``check_capturable``) rather than step eagerly.
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ import time
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
+
+from bevrender_tpu_torch.parallel import dist as pdist
 
 # the batch entries a training step reads
 STEP_INPUTS = ("camera", "vehicle_pose", "vehicle_type", "map")
@@ -66,11 +74,22 @@ def signature(state) -> Tuple[int, ...]:
     return tuple(t.data_ptr() for t in tensors)
 
 
+def check_capturable() -> None:
+    """Raise ValueError when a process group is initialised whose
+    collectives a CUDA graph cannot capture (any backend but NCCL)."""
+    if pdist.is_initialized() and dist.get_backend() != "nccl":
+        raise ValueError(
+            f"a graphed training step cannot capture the collectives of the "
+            f"{dist.get_backend()!r} backend; graphed steps across ranks need "
+            f"NCCL (or steps_per_dispatch = 1)")
+
+
 class GraphedStep:
     """A captured training step of ``trainer`` on ``state`` for batches
     shaped as ``batch`` (one step's batch, on the device)."""
 
     def __init__(self, trainer, state, batch: Dict[str, torch.Tensor]):
+        check_capturable()
         self.trainer = trainer
         self.static = {k: batch[k].detach().clone() for k in STEP_INPUTS
                        if k in batch}

@@ -34,7 +34,16 @@ What differs from the JAX package, and why:
   ``data.preprocess`` (``self.preprocess``), which ``device_prefetch`` runs
   on every batch after its copy, as there;
 * validation renders are written with the port's own PNG encoder and the
-  log image is resized by the native library: the port needs no PIL.
+  log image is resized by the native library: the port needs no PIL;
+* data parallelism is one process a GPU (``parallel.dist``), not a mesh:
+  ``batch_size`` stays the global batch, of which each of W ranks loads
+  the strided ``batch_size // W`` rows (``DataLoader(process_shard=...)``);
+  the state is broadcast from rank 0; a step all-reduces the flattened
+  gradients and losses once and divides by W before the clip; the
+  retrieval losses run on the gathered embeddings, BatchNorm on global
+  statistics and the masks on the global batch's draws, so W ranks take
+  the step one process takes on the global batch. Checkpoints, validation
+  images, wandb and the epoch log are rank 0's, as there.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from bevrender_tpu_torch.losses.recall import recall_at_k
 from bevrender_tpu_torch.models.attention import set_site_options
 from bevrender_tpu_torch.models.bevrender import BEVRenderNet
 from bevrender_tpu_torch.models.layers import init_params, set_generator
+from bevrender_tpu_torch.parallel import dist as pdist
 from bevrender_tpu_torch.training import checkpoint as ckpt
 from bevrender_tpu_torch.training.graph_step import GraphedStep, signature
 from bevrender_tpu_torch.training.metrics import MetricsLogger, get_logger
@@ -165,7 +175,8 @@ class Trainer:
         self.tc = config.train
         self.dataset = train_val_dataset
         self.logger = logger or get_logger()
-        self.metrics = MetricsLogger(self.tc.use_wandb, self.logger)
+        self.metrics = MetricsLogger(self.tc.use_wandb and pdist.is_main(),
+                                     self.logger)
         self.use_embed_head = (embed_fn is None
                                and config.model.retrieval_embed_dim > 0)
         self.embed_fn = embed_fn or (lambda out: out.reshape(out.shape[0], -1))
@@ -178,9 +189,11 @@ class Trainer:
         self.best_epoch_recall = 0.0
         ckpt_dir = self.tc.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                                     "bevrender_ckpt")
-        self.work_dir = self.tc.work_dir or str(
-            Path(ckpt_dir) / str(int(time.time())))
-        Path(self.work_dir).mkdir(parents=True, exist_ok=True)
+        # named by rank 0's clock, which every rank takes; made by rank 0
+        self.work_dir = self.tc.work_dir or pdist.broadcast_object(str(
+            Path(ckpt_dir) / str(int(time.time()))))
+        if pdist.is_main():
+            Path(self.work_dir).mkdir(parents=True, exist_ok=True)
         self._gen = torch.Generator(device=self.device)
         # k > 1 steps a dispatch on the card: each a CUDA graph replay, so
         # AdamW is capturable with its learning rate on the device
@@ -194,13 +207,15 @@ class Trainer:
     # ------------------------------------------------------------------
     def create_state(self, seed: int = 0, state_dict=None) -> TrainState:
         """A model on the device, from ``state_dict`` (strict) or the seeded
-        initialiser, and AdamW over all of its parameters."""
+        initialiser, and AdamW over all of its parameters; with several
+        ranks, rank 0's model on every rank."""
         net = BEVRenderNet(self.config.model)
         if state_dict is None:
             init_params(net, seed)
         else:
             net.load_state_dict(state_dict, strict=True)
         net = net.to(self.device)
+        pdist.broadcast_module_(net)
         set_site_options(net, fused_bwd=self.tc.fused_bwd,
                          site_remat=self.tc.site_remat,
                          fused_fwd_fold=self.tc.fused_fwd_fold,
@@ -261,8 +276,11 @@ class Trainer:
             parts["render"] = self.render_fn(out, batch["map"])
             total = total + parts["render"]
         if self.image_retrieval:
+            # every rank takes the global batch's retrieval loss; the
+            # render loss stays a mean over this rank's equal share
             parts["retrieval"] = self.retrieval_fn(
-                self._embed(net, out), self._embed(net, batch["map"]))
+                pdist.all_gather_rows(self._embed(net, out)),
+                pdist.all_gather_rows(self._embed(net, batch["map"])))
             total = total + parts["retrieval"]
         return total, parts
 
@@ -283,7 +301,10 @@ class Trainer:
                    batch, losses_fn):
         """The step's device work on a device batch, the dropout generator
         already seeded: (metrics, render). No host synchronisation, so it
-        can be captured as a CUDA graph (``graph_step.GraphedStep``)."""
+        can be captured as a CUDA graph (``graph_step.GraphedStep``). In a
+        process group the gradients and losses are averaged over the ranks
+        with one all-reduce before the clip, which then sees the global
+        gradient."""
         net.train()
         out = net(batch["camera"], batch["vehicle_pose"], batch["vehicle_type"])
         total, parts = losses_fn(net, out, batch)
@@ -293,13 +314,18 @@ class Trainer:
         for p in params:  # optax updates (and decays) every parameter
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        losses = {"train_batch_loss": total.detach()}
+        for k, v in parts.items():
+            losses[f"train_batch_{k}_loss"] = v.detach()
+        if pdist.is_initialized():
+            losses = {k: v.clone() for k, v in losses.items()}
+            pdist.all_reduce_mean_([p.grad for p in params]
+                                   + list(losses.values()))
         grad_norm = clip_by_global_norm_([p.grad for p in params],
                                          self.tc.grad_clip_norm)
         opt.step()
-        metrics = {"train_batch_loss": total.detach(),
-                   "camera_encoder_grad_norm": grad_norm}
-        for k, v in parts.items():
-            metrics[f"train_batch_{k}_loss"] = v.detach()
+        metrics = {"train_batch_loss": losses.pop("train_batch_loss"),
+                   "camera_encoder_grad_norm": grad_norm, **losses}
         return metrics, out.detach()
 
     def train_step(self, state: TrainState, batch, rng: int = 0):
@@ -351,7 +377,8 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):
         """(metrics, camera embeddings, map embeddings, render) in eval
-        mode."""
+        mode; in a process group the metrics are the ranks' mean and the
+        rest this rank's rows."""
         batch = self._to_device(batch)
         state.net.eval()
         out = state.net(batch["camera"], batch["vehicle_pose"],
@@ -360,6 +387,9 @@ class Trainer:
         metrics = {"val_batch_loss": total}
         for k, v in parts.items():
             metrics[f"val_batch_{k}_loss"] = v
+        if pdist.is_initialized():
+            metrics = {k: v.clone() for k, v in metrics.items()}
+            pdist.all_reduce_mean_(list(metrics.values()))
         return (metrics, self._embed(state.net, out),
                 self._embed(state.net, batch["map"]), out)
 
@@ -368,9 +398,11 @@ class Trainer:
                    train_loader: DataLoader, val_loader: DataLoader,
                    apply_validation: bool,
                    rng: int) -> Tuple[TrainState, Dict[str, float]]:
-        self.logger.info(
-            "Training epoch %d, fold %d, train batches: %d, val batches: %d",
-            epoch, fold, len(train_loader), len(val_loader))
+        main = pdist.is_main()  # the one rank that logs and writes
+        if main:
+            self.logger.info(
+                "Training epoch %d, fold %d, train batches: %d, val batches: "
+                "%d", epoch, fold, len(train_loader), len(val_loader))
         train_loader.set_epoch(epoch)
         state = self.set_epoch_lr(state, epoch)
         epoch_metrics: Dict[str, float] = {}
@@ -401,7 +433,7 @@ class Trainer:
                 last_map, last_cam = batch["map"], batch["camera"]
             want_img = (self.image_rendering and self.metrics.run is not None
                         and idx % max(self.tc.wandb_log_img_freq_train, 1) == 0)
-            if idx % log_every == 0 or want_img:
+            if main and (idx % log_every == 0 or want_img):
                 m = {k: float(v) for k, v in metrics.items()}
                 self.metrics.log_batch(
                     idx, n_train, m["train_batch_loss"],
@@ -433,9 +465,9 @@ class Trainer:
                     preprocess=self.preprocess)):
                 metrics, cam_e, map_e, val_out = self.eval_step(state, batch)
                 val_loss += float(metrics["val_batch_loss"]) / n_val
-                if self.image_retrieval:
-                    cam_embs.append(cam_e.float().cpu())
-                    map_embs.append(map_e.float().cpu())
+                if self.image_retrieval:  # the global batch's rows
+                    cam_embs.append(pdist.all_gather_rows(cam_e).float().cpu())
+                    map_embs.append(pdist.all_gather_rows(map_e).float().cpu())
                 self.metrics.log(
                     {**{k: float(v) for k, v in metrics.items()}, "epoch": epoch})
                 if (self.image_rendering and self.metrics.run is not None
@@ -456,6 +488,9 @@ class Trainer:
                 epoch_metrics.update(recalls)
                 self.metrics.log({**recalls, "epoch": epoch})
 
+            # rank 0's numbers decide the best epoch on every rank
+            val_loss, r5 = pdist.broadcast_object(
+                (val_loss, epoch_metrics.get("val_R@5", 0.0)))
             is_best = False
             if self.tc.validation_metric == "LOSS":
                 if val_loss < self.best_epoch_loss:
@@ -463,21 +498,21 @@ class Trainer:
                     self.best_epoch = epoch
                     is_best = True
             elif self.tc.validation_metric == "RECALL":
-                r5 = epoch_metrics.get("val_R@5", 0.0)
                 if r5 > self.best_epoch_recall:
                     self.best_epoch_recall = r5
                     self.best_epoch = epoch
                     is_best = True
-            if self.tc.save_ckpt:
+            if self.tc.save_ckpt and main:
                 self.save_checkpoint(state, epoch, best=is_best)
-            if is_best and self.tc.save_val_results:
+            if is_best and self.tc.save_val_results and main:
                 self.save_val_images(state, val_loader, epoch)
 
-        self.logger.info(
-            "Summary of epoch %d/%d - training loss: %.8f%s", epoch,
-            self.tc.total_epochs, epoch_metrics["train_epoch_loss"],
-            (f",  validation loss: {epoch_metrics['val_epoch_loss']:.8f}"
-             if run_val else ""))
+        if main:
+            self.logger.info(
+                "Summary of epoch %d/%d - training loss: %.8f%s", epoch,
+                self.tc.total_epochs, epoch_metrics["train_epoch_loss"],
+                (f",  validation loss: {epoch_metrics['val_epoch_loss']:.8f}"
+                 if run_val else ""))
         return state, epoch_metrics
 
     # ------------------------------------------------------------------
@@ -485,23 +520,34 @@ class Trainer:
               rng: Optional[int] = None,
               max_epochs: Optional[int] = None) -> TrainState:
         """K-fold outer loop: fresh folds, ``epoch_per_fold`` epochs per
-        fold, until ``total_epochs``."""
+        fold, until ``total_epochs``. With W ranks each loads the strided
+        ``batch_size // W`` rows of every global batch, which needs
+        ``batch_size`` to be a positive multiple of W."""
         apply_validation = (self.tc.apply_validation
                             if apply_validation is None else apply_validation)
         rng = self.tc.seed if rng is None else rng
         total = max_epochs or self.tc.total_epochs
+        world = pdist.world_size()
+        if self.tc.batch_size % world or self.tc.batch_size < world:
+            raise ValueError(
+                f"batch_size={self.tc.batch_size} must be a positive "
+                f"multiple of world_size={world} (each process feeds "
+                f"batch_size/world_size rows of the global batch)")
+        shard = (pdist.rank(), world) if world > 1 else None
+        per_rank = self.tc.batch_size // world
         num_epoch = 0
         while num_epoch + 1 < total:
             for fold, (train_idx, val_idx) in enumerate(kfold_indices(
                     len(self.dataset), self.tc.k_fold, self.tc.seed)):
                 train_loader = DataLoader(
-                    self.dataset, self.tc.batch_size, shuffle=True,
+                    self.dataset, per_rank, shuffle=True,
                     num_workers=self.tc.num_workers, drop_last=True,
-                    seed=self.tc.seed, sampler=train_idx)
+                    seed=self.tc.seed, sampler=train_idx,
+                    process_shard=shard)
                 val_loader = DataLoader(
-                    self.dataset, self.tc.batch_size, shuffle=False,
+                    self.dataset, per_rank, shuffle=False,
                     num_workers=self.tc.num_workers, drop_last=True,
-                    sampler=val_idx)
+                    sampler=val_idx, process_shard=shard)
                 for _ in range(self.tc.epoch_per_fold):
                     state, _ = self._run_epoch(
                         state, num_epoch, fold, train_loader, val_loader,
@@ -525,23 +571,39 @@ class Trainer:
     def restore_checkpoint(self, state: TrainState, path: str) -> TrainState:
         """Load model and optimizer; the step counter (which seeds the
         dropout stream) is recovered from the optimizer's own update count,
-        so a resumed run continues the stream instead of replaying it."""
+        so a resumed run continues the stream instead of replaying it.
+        With several ranks, rank 0's model and AdamW tensors on the device
+        are then every rank's."""
         restored = ckpt.restore_model(path, map_location=self.device)
         state.net.load_state_dict(restored["model"], strict=True)
         state.optimizer.load_state_dict(restored["optimizer"])
         self._conform_optimizer(state.optimizer)
+        pdist.broadcast_module_(state.net)
+        pdist.broadcast_tensors_([
+            v for st in state.optimizer.state.values() for v in st.values()
+            if torch.is_tensor(v) and v.device.type == self.device.type])
         steps = [int(s["step"]) for s in state.optimizer.state.values()
                  if "step" in s]
         state.step = max(steps, default=0)
         return state
 
+    @torch.no_grad()
     def save_val_images(self, state: TrainState, val_loader, epoch: int) -> None:
-        """Write the best epoch's validation renders as PNGs."""
+        """Write the best epoch's validation renders as PNGs. A rank's
+        loader (``process_shard``) is widened to the whole validation set,
+        which this rank renders alone: eval mode runs no collective."""
         out_dir = Path(self.work_dir) / "best_epoch_val"
         out_dir.mkdir(parents=True, exist_ok=True)
+        if val_loader.process_shard is not None:
+            val_loader = DataLoader(
+                self.dataset, val_loader.batch_size * val_loader.process_shard[1],
+                shuffle=False, num_workers=val_loader.num_workers,
+                drop_last=val_loader.drop_last, sampler=val_loader.sampler)
+        state.net.eval()
         for batch in device_prefetch(iter(val_loader), self.device,
                                      preprocess=self.preprocess):
-            _, _, _, out = self.eval_step(state, batch)
+            out = state.net(batch["camera"], batch["vehicle_pose"],
+                            batch["vehicle_type"])
             for render, ts in zip(out.float().cpu().numpy(),
                                   np.asarray(batch["timestamp"].cpu())):
                 img = (np.clip(render, 0, 1) * 255).astype(np.uint8)

@@ -190,6 +190,14 @@ Phases, each fatal on failure:
     ``trace`` with an ``annotation``, ``device_memory_stats`` against
     ``torch.cuda.max_memory_allocated``.
 
+30. data parallelism (``bevrender_tpu_torch.parallel``): phase 29's
+    graphed default-route steps in a one-rank NCCL group (the step's
+    all-reduce captured), against phase 29's replay; two ranks spawned on
+    the one card over gloo (B=2 each, drop path 0.2, 3 steps) against one
+    process at B=4, and phase 5's small model one step on them; the
+    sharded matcher on those ranks against ``register``'s top-k over phase
+    26's 4,096-tile database.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 there is no CUDA device or the port's package is not beside this file.
@@ -3256,9 +3264,11 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def graph_config(fused_bwd: bool, site_remat: str = "nothing", k: int = 1):
+def graph_config(fused_bwd: bool, site_remat: str = "nothing", k: int = 1,
+                 work_dir: str | None = None):
     """The flagship as phase 6 trains it (bf16, B=2, T=2, MSE, drop path
-    0.2, AdamW at 1e-3) with ``k`` steps a dispatch."""
+    0.2, AdamW at 1e-3) with ``k`` steps a dispatch, writing to
+    ``work_dir`` (a new temporary directory if None)."""
     import tempfile
 
     from bevrender_tpu_torch.config import flagship_config
@@ -3268,7 +3278,7 @@ def graph_config(fused_bwd: bool, site_remat: str = "nothing", k: int = 1):
     tc.batch_size, tc.loss_type, tc.learning_rate = TRAIN_B, "MSE", 1e-3
     tc.fused_bwd, tc.site_remat, tc.steps_per_dispatch = fused_bwd, \
         site_remat, k
-    tc.work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    tc.work_dir = work_dir or tempfile.mkdtemp(prefix="chip_smoke_")
     return cfg
 
 
@@ -3294,15 +3304,21 @@ def within_spread(got, ref, other) -> tuple:
     differences come from float atomics and grow through the steps alike
     in every tensor, so one number for the state is steadier than a
     tensor's own); a ratio above 1 fails."""
-    rel = max(float((other[n].float() - r.float()).abs().max())
+    return spread_ratio(got, ref, ref, other)
+
+
+def spread_ratio(got, ref, a, b) -> tuple:
+    """``within_spread`` of ``got`` against ``ref``, with the spread taken
+    between two other runs ``a`` and ``b``."""
+    rel = max(float((b[n].float() - r.float()).abs().max())
               / max(float(r.float().abs().max()), 1e-30)
-              for n, r in ref.items())
+              for n, r in a.items())
     worst, at = 0.0, ""
     for name, r in ref.items():
         r = r.float()
         tol = max(SPREAD_FACTOR * rel, GRAPH_REL_FLOOR) * max(
             float(r.abs().max()), 1e-30)
-        ratio = float((got[name].float() - r).abs().max()) / tol
+        ratio = float((got[name].float().to(r.device) - r).abs().max()) / tol
         if not ratio <= worst:
             worst, at = ratio, name
     return worst, at
@@ -3347,11 +3363,15 @@ def restore(state, saved: list) -> None:
     state.step = saved[-1]
 
 
-def graph_route(card: str, fused_bwd: bool, batches: list) -> dict:
+def graph_route(card: str, fused_bwd: bool, batches: list,
+                keep: dict | None = None) -> dict:
     """Two eager runs of GRAPH_STEPS steps and GRAPH_DISPATCHES dispatches
     of GRAPH_K graphed sub-steps, each from the same seeded state on the
     same batches; the graphed losses and final parameters held to the
-    eager spread; times, capture, idle share, peak memory."""
+    eager spread; times, capture, idle share, peak memory. ``keep``, when
+    given, receives what phase 30 replays: the seeded state, the groups,
+    the graphed losses and parameters and both eager runs' (on the
+    host)."""
     import shutil
 
     import torch
@@ -3397,6 +3417,9 @@ def graph_route(card: str, fused_bwd: bool, batches: list) -> dict:
 
         t_eager = time.perf_counter()
         state = trainer.create_state(seed=0)
+        if keep is not None:
+            keep["state_dict"] = {n: t.detach().cpu().clone() for n, t in
+                                  state.net.state_dict().items()}
         bn_before = {n: b.clone() for n, b in state.net.named_buffers()
                      if n.endswith("running_var")}
         groups = [{k: torch.stack([b[k] for b in batches[d * GRAPH_K:
@@ -3441,6 +3464,13 @@ def graph_route(card: str, fused_bwd: bool, batches: list) -> dict:
                  f"!= {want}")
         losses = torch.cat(losses).float().cpu()
         params = {n: p.detach() for n, p in state.net.named_parameters()}
+        if keep is not None:
+            keep.update(
+                groups=groups, losses=losses, ms=ms, counts=capture_counts,
+                params={n: p.cpu().clone() for n, p in params.items()},
+                eager=[{"losses": e["losses"], "params": {
+                    n: p.cpu() for n, p in e["params"].items()}}
+                    for e in eager])
         ratio_loss, _ = within_spread({"loss": losses},
                                       {"loss": eager[0]["losses"]},
                                       {"loss": eager[1]["losses"]})
@@ -3730,12 +3760,13 @@ def utilities_phase(card: str, routed: dict) -> dict:
                 memory_stats=stats)
 
 
-def graph_phase(card: str) -> dict:
+def graph_phase(card: str, keep: dict | None = None) -> dict:
     """Phase 29: graphed against eager training on both routes, the three
-    ``site_remat`` modes, the utilities on the card."""
+    ``site_remat`` modes, the utilities on the card. ``keep``: see
+    ``graph_route`` (the default route's)."""
     t0 = time.perf_counter()
     batches = graph_batches(GRAPH_STEPS)
-    default = graph_route(card, False, batches)
+    default = graph_route(card, False, batches, keep)
     default.pop("trainer"), default.pop("state"), default.pop("batch")
     release()
     t1 = time.perf_counter()
@@ -3751,6 +3782,438 @@ def graph_phase(card: str) -> dict:
           f"utilities {seconds - (t3 - t0):.1f})", flush=True)
     return dict(default=default, fused_bwd=fused, epoch=epoch, remat=remat,
                 utilities=utils, seconds=seconds)
+
+
+# ---- phase 30: data parallelism -----------------------------------------
+# (a) a one-rank NCCL group replays phase 29's graphed default-route steps;
+# (b) DP_WORLD spawned ranks share the card over gloo (NCCL refuses two
+# ranks on one device), DP_B rows each, against one process on the global
+# batch; (c) the sharded matcher on those ranks against phase 26's
+# database. It runs on one card: nothing here measures more
+# than one.
+DP_WORLD = 2
+DP_B = TRAIN_B            # rows a rank: the global batch is DP_WORLD x DP_B
+DP_STEPS = 3
+DP_TIMEOUT_S = 420        # the spawned ranks, imports and build cache included
+MATCH_TOP_K = 10
+MATCH_DIST_TOL = 1e-5     # 256-term float32 dot products, two GEMM shapes
+# the flagship at random weights is chaotic (phase 5): a rank's forward
+# rounds otherwise than one process's (its convolutions see B=2, not 4),
+# and that moves the flagship's loss by ~1% from step 1 on, where the
+# step-1 losses of two unperturbed one-process runs agree bit for bit
+# (the float atomics of the backward part them later). So the second
+# one-process run, whose spread to the first holds the ranks, starts from
+# weights scaled by 1 + DP_PERTURB x a seeded normal draw: a change of
+# rounding size, as the trainer's CPU tests size the tiny model's
+# conditioning (tests/test_torch_trainer.py, LATER_* limits)
+DP_PERTURB = 1e-6
+# phase 5's small model is not chaotic: its one step on the ranks is held
+# to one process's to this
+SMALL_DP_REL = 1e-5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_one_rank(card: str, keep: dict) -> dict:
+    """Phase 30a: phase 29's graphed default-route dispatches, from its
+    seeded state on its groups, in a process group of one NCCL rank: the
+    step's all-reduce of gradients and losses is captured in the graph.
+    Launches as phase 29's; losses and parameters phase 29's bits, or
+    within its spread rule."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.parallel import dist as pdist
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    tag = "phase 30a one NCCL rank"
+    pdist.initialize_distributed(
+        "cuda:0", init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1)
+    cfg = graph_config(False, k=GRAPH_K)
+    try:
+        if dist.get_backend() != "nccl" or pdist.world_size() != 1:
+            fail(f"{tag}: group {dist.get_backend()} of {pdist.world_size()}")
+        trainer = Trainer(cfg, None, device="cuda")
+        state = trainer.create_state(state_dict=keep["state_dict"])
+        groups = keep["groups"]
+        kernels.reset_counts()
+        state, m, _ = trainer.train_step_multi(state, groups[0], rng=7)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        losses, ev = [m["train_batch_loss"]], []
+        for d in range(1, GRAPH_DISPATCHES):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m, _ = trainer.train_step_multi(state, groups[d], rng=7)
+            b.record()
+            losses.append(m["train_batch_loss"])
+            ev.append((a, b))
+        torch.cuda.synchronize()
+        ms = statistics.mean(a.elapsed_time(b) for a, b in ev) / GRAPH_K
+        losses = torch.cat(losses).float().cpu()
+        params = {n: p.detach().cpu() for n, p in
+                  state.net.named_parameters()}
+        if counts != keep["counts"]:
+            fail(f"{tag}: launches while warmed up and captured {counts} != "
+                 f"phase 29's {keep['counts']}")
+        bits = torch.equal(losses, keep["losses"]) and all(
+            torch.equal(p, keep["params"][n]) for n, p in params.items())
+        e0, e1 = keep["eager"]
+        r_loss, _ = spread_ratio({"loss": losses}, {"loss": keep["losses"]},
+                                 {"loss": e0["losses"]},
+                                 {"loss": e1["losses"]})
+        r_par, at = spread_ratio(params, keep["params"], e0["params"],
+                                 e1["params"])
+        print(f"{tag}: launches while warmed up and captured equal phase "
+              f"29's {counts}; losses {[round(float(x), 6) for x in losses]}"
+              f", phase 29 {[round(float(x), 6) for x in keep['losses']]}; "
+              f"{'the same bits' if bits else 'not the same bits'} as phase "
+              f"29's replay", flush=True)
+        if not bits:
+            # the float atomics of grid_sampler_2d_backward and #9 order
+            # their sums anew in every run, as two eager runs of phase 29
+            # differ: the phase-29 rule holds the two replays
+            print(f"{tag}: why not bitwise: float atomics in the backward "
+                  f"sum in another order each run (phase 29's two eager "
+                  f"runs differ too); against phase 29's replay, worst share "
+                  f"of its spread tolerance: losses {r_loss:.3g}, parameters "
+                  f"{r_par:.3g} ({at})", flush=True)
+            if not (r_loss <= 1.0 and r_par <= 1.0):
+                fail(f"{tag}: the replays part beyond phase 29's spread "
+                     f"(losses {r_loss}, parameters {r_par} at {at})")
+        one = {k: v[:1] for k, v in groups[0].items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train_step_multi(state, one, rng=7)
+            torch.cuda.synchronize()
+        nccl = {e.key: e.count for e in prof.key_averages()
+                if "nccl" in e.key.lower()}
+        print(f"{tag}: NCCL kernels in one profiled replay: "
+              f"{nccl or 'none reported'}; graphed {ms:.3f} ms/step by CUDA "
+              f"events (phase 29: {keep['ms']:.3f}) [{card}]", flush=True)
+        del trainer, state
+        return dict(bitwise=bits, loss_ratio=r_loss, param_ratio=r_par,
+                    graphed_ms_events=ms, phase29_ms_events=keep["ms"],
+                    nccl_kernels=nccl, captured=counts)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(cfg.train.work_dir, ignore_errors=True)
+        release()
+
+
+def dp_config(work_dir: str):
+    """Phase 6's flagship step (``graph_config``) at the global batch of
+    DP_WORLD ranks."""
+    cfg = graph_config(False, work_dir=work_dir)
+    cfg.train.batch_size = DP_WORLD * DP_B
+    return cfg
+
+
+def small_dp(work_dir: str):
+    """Phase 5's small model (2 stages, f32) trained as phase 6 trains the
+    flagship (MSE, drop path 0.2) at the global batch, and that seeded
+    batch on the host."""
+    import torch
+
+    from bevrender_tpu_torch.config import Config, tiny_model_config
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+
+    cfg = Config()
+    cfg.model = tiny_model_config(embed_dims=(32, 32, 32), n_heads=(2, 8),
+                                  n_groups=(1, 4), drop_path_rate=0.2)
+    tc = cfg.train
+    tc.batch_size, tc.loss_type, tc.work_dir = DP_WORLD * DP_B, "MSE", work_dir
+    batch = SyntheticDataset(n_items=DP_WORLD * DP_B, num_views=2,
+                             window_num_imgs=1, img_height=32, img_width=32,
+                             map_tile=32, seed=3).batch(DP_WORLD * DP_B)
+    return cfg, {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def perturb_(net, rel: float, seed: int = 0) -> None:
+    """Scale every parameter of ``net`` by 1 + ``rel`` x a normal draw from
+    ``seed``, in place."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.mul_(1 + rel * torch.randn(p.shape, generator=gen,
+                                         device=p.device))
+
+
+def dp_batches() -> list:
+    """DP_STEPS seeded global batches (DP_WORLD x DP_B rows), on the host."""
+    import torch
+
+    from bevrender_tpu_torch.data.prefetch import collate
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+
+    n = DP_WORLD * DP_B
+    ds = SyntheticDataset(n_items=DP_STEPS * n, num_views=3,
+                          window_num_imgs=1, img_height=224, img_width=224,
+                          seed=5)
+    return [{k: torch.as_tensor(v) for k, v in collate(
+        [ds[i * n + j] for j in range(n)]).items()} for i in range(DP_STEPS)]
+
+
+def dp_rank(rank: int, port: int, tmp: str) -> None:
+    """Phase 30b-c, one spawned rank on the shared card: DP_STEPS steps on
+    its rows of the global batches, the ranks' parameters compared after
+    each, then its shard of the matcher. Writes ``rank<r>.pt`` to
+    ``tmp``."""
+    sys.path.insert(0, str(HERE))
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bevrender_tpu_torch.inference.register import RegistrationPipeline
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.parallel import dist as pdist
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=DP_WORLD)
+        trainer = Trainer(dp_config(tmp), None, device="cuda")
+        state = trainer.create_state(
+            state_dict=torch.load(f"{tmp}/state.pt", weights_only=True))
+        rows = pdist.rank_rows(DP_WORLD * DP_B, DP_WORLD, rank)
+        losses, equal, ms = [], [], []
+        kernels.reset_counts()
+        for batch in dp_batches():
+            local = {k: v[rows].cuda() for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m, _ = trainer.train_step(state, local, rng=7)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["train_batch_loss"]))
+            flat = torch.cat([t.detach().reshape(-1).float() for t in
+                              list(state.net.parameters())
+                              + list(state.net.buffers())])
+            parts = [torch.empty_like(flat) for _ in range(DP_WORLD)]
+            dist.all_gather(parts, flat)
+            equal.append(all(torch.equal(parts[0], p) for p in parts[1:]))
+        counts = kernels.counts()
+        small_cfg, small_batch = small_dp(tmp)
+        small = Trainer(small_cfg, None, device="cuda")
+        _, m, _ = small.train_step(small.create_state(seed=0), {
+            k: v[rows].cuda() for k, v in small_batch.items()}, rng=7)
+        small_loss = float(m["train_batch_loss"])
+        match = torch.load(f"{tmp}/match.pt", weights_only=True)
+        padded, n = RegistrationPipeline.pad_tile_db(match["db"].cuda(),
+                                                     DP_WORLD)
+        nl = padded.shape[0] // DP_WORLD
+        matcher = RegistrationPipeline.make_sharded_matcher(MATCH_TOP_K)
+        q, shard = match["q"].cuda(), padded[rank * nl:(rank + 1) * nl]
+        first = matcher(q, shard, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, dist_ = matcher(q, shard, n)
+        torch.cuda.synchronize()
+        match_ms = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(first[0], idx) and torch.equal(first[1], dist_)):
+            raise RuntimeError("two calls of the matcher differ")
+        out = dict(losses=losses, equal=equal, ms=ms, counts=counts,
+                   idx=idx.cpu(), dist=dist_.cpu(), match_ms=match_ms,
+                   shard_rows=nl, small_loss=small_loss)
+        if rank == 0:
+            out["params"] = {k: p.detach().cpu() for k, p in
+                             state.net.named_parameters()}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    except BaseException:
+        Path(f"{tmp}/rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_dp_ranks(tmp: str) -> list:
+    """Spawn the DP_WORLD ranks, wait for them within DP_TIMEOUT_S, stop
+    any left; their results in rank order."""
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")  # CUDA is initialised in this process
+    port = free_port()
+    procs = [ctx.Process(target=dp_rank, args=(r, port, tmp))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    errors = {r: Path(f"{tmp}/rank{r}.err").read_text()
+              for r in range(DP_WORLD) if Path(f"{tmp}/rank{r}.err").exists()}
+    codes = [p.exitcode for p in procs]
+    if errors or codes != [0] * DP_WORLD:
+        fail(f"phase 30b: ranks exited {codes}: {errors}")
+    return [torch.load(f"{tmp}/rank{r}.pt", weights_only=True)
+            for r in range(DP_WORLD)]
+
+
+def dp_phase(card: str, match_in: dict) -> dict:
+    """Phase 30b-c: one process on the global batch twice, the second
+    from weights perturbed by DP_PERTURB (the spread), then DP_WORLD
+    spawned gloo ranks from the unperturbed state; the sharded matcher on
+    the ranks against the one-process ``register``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    tag = "phase 30b gloo ranks"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t0 = time.perf_counter()
+        trainer = Trainer(dp_config(tmp), None, device="cuda")
+        state = trainer.create_state(seed=0)
+        torch.save({k: v.detach().cpu() for k, v in
+                    state.net.state_dict().items()}, f"{tmp}/state.pt")
+        torch.save({k: match_in[k].cpu() for k in ("q", "db")},
+                   f"{tmp}/match.pt")
+        batches = [{k: v.cuda() for k, v in b.items()} for b in dp_batches()]
+        one = []
+        for run in range(2):
+            state = trainer.create_state(
+                state_dict=torch.load(f"{tmp}/state.pt", weights_only=True))
+            if run == 1:
+                perturb_(state.net, DP_PERTURB)
+            losses, ms = [], []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, m, _ = trainer.train_step(state, batch, rng=7)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                losses.append(float(m["train_batch_loss"]))
+            one.append(dict(losses=torch.tensor(losses), ms=ms, params={
+                n: p.detach().cpu() for n, p in
+                state.net.named_parameters()}))
+        small_cfg, small_batch = small_dp(tmp)
+        small = Trainer(small_cfg, None, device="cuda")
+        _, m, _ = small.train_step(small.create_state(seed=0), {
+            k: v.cuda() for k, v in small_batch.items()}, rng=7)
+        small_loss = float(m["train_batch_loss"])
+        del trainer, state, batches, small
+        release()
+        t_one = time.perf_counter()
+        ranks = run_dp_ranks(tmp)
+        t_ranks = time.perf_counter()
+        per_step = TRAIN_COUNTS[(False, "nothing")]
+        want = expected(**{k: v * DP_STEPS for k, v in per_step.items()})
+        for r, res in enumerate(ranks):
+            if res["counts"] != want:
+                fail(f"{tag}: rank {r} launches {res['counts']} != {want}")
+        if not all(all(res["equal"]) for res in ranks) or \
+                ranks[0]["losses"] != ranks[1]["losses"]:
+            fail(f"{tag}: the ranks' parameters or losses differ: "
+                 f"{[res['equal'] for res in ranks]}")
+        got = torch.tensor(ranks[0]["losses"])
+        r_loss, _ = within_spread({"loss": got}, {"loss": one[0]["losses"]},
+                                  {"loss": one[1]["losses"]})
+        r_par, at = within_spread(ranks[0]["params"], one[0]["params"],
+                                  one[1]["params"])
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{tag}: a non-finite loss {got}")
+        rank_ms = statistics.mean(ranks[0]["ms"][1:])
+        one_ms = statistics.mean(one[0]["ms"][1:])
+        print(f"{tag}: {DP_WORLD} ranks x B={DP_B} (flagship bf16, T=2, drop "
+              f"path 0.2), {DP_STEPS} steps: parameters equal bit for bit "
+              f"after every step; launches a rank a step {per_step} (phase "
+              f"6's); losses {[round(x, 6) for x in ranks[0]['losses']]}, "
+              f"one process at B={DP_WORLD * DP_B} "
+              f"{[round(float(x), 6) for x in one[0]['losses']]} / from "
+              f"weights perturbed by {DP_PERTURB} "
+              f"{[round(float(x), 6) for x in one[1]['losses']]}; worst share "
+              f"of the spread tolerance: losses {r_loss:.3g}, parameters "
+              f"{r_par:.3g} ({at})", flush=True)
+        print(f"{tag}: {rank_ms:.3f} ms/step a rank (steps 2-{DP_STEPS}, "
+              f"host clock), gloo over the host, two ranks time-sharing one "
+              f"card; one process at B={DP_WORLD * DP_B} {one_ms:.3f} "
+              f"ms/step [{card}]", flush=True)
+        if not (r_loss <= 1.0 and r_par <= 1.0):
+            fail(f"{tag}: the ranks part from one process beyond its spread "
+                 f"(losses {r_loss}, parameters {r_par} at {at})")
+        small_rel = abs(ranks[0]["small_loss"] - small_loss) / abs(small_loss)
+        print(f"{tag}: phase 5's small model, one step (MSE, drop path 0.2) "
+              f"on the ranks {ranks[0]['small_loss']!r}, one process "
+              f"{small_loss!r}: relative {small_rel:.3g} (limit "
+              f"{SMALL_DP_REL})", flush=True)
+        if not (ranks[0]["small_loss"] == ranks[1]["small_loss"]
+                and small_rel <= SMALL_DP_REL):
+            fail(f"{tag}: the small model's step on the ranks "
+                 f"{[r['small_loss'] for r in ranks]} against {small_loss}")
+
+        # (c) the matcher: every rank returns the global top-k
+        ref_i, ref_d = match_in["idx"].cpu(), match_in["dist"].cpu()
+        worst = 0.0
+        for r, res in enumerate(ranks):
+            if not torch.equal(res["idx"], ref_i):
+                fail(f"phase 30c: rank {r}'s sharded top-{MATCH_TOP_K} "
+                     f"{res['idx'].tolist()} != register's {ref_i.tolist()}")
+            worst = max(worst, float((res["dist"] - ref_d).abs().max()))
+        print(f"phase 30c sharded matcher: {match_in['db'].shape[0]} tiles "
+              f"of {match_in['db'].shape[1]}-D over {DP_WORLD} ranks "
+              f"({ranks[0]['shard_rows']} rows each), top-{MATCH_TOP_K} of "
+              f"{ref_i.shape[0]} queries equal to the one-process register's "
+              f"on every rank, distances within {worst:.3g} (tolerance "
+              f"{MATCH_DIST_TOL}); a second call {ranks[0]['match_ms']:.3f} "
+              f"ms on rank 0 (host clock, gloo over the host) [{card}]",
+              flush=True)
+        if not worst <= MATCH_DIST_TOL:
+            fail(f"phase 30c: distances {worst} off register's")
+        return dict(world=DP_WORLD, rows_a_rank=DP_B, steps=DP_STEPS,
+                    launches_a_rank=ranks[0]["counts"],
+                    losses=ranks[0]["losses"],
+                    one_process_losses=[one[0]["losses"].tolist(),
+                                        one[1]["losses"].tolist()],
+                    loss_ratio=r_loss, param_ratio=r_par,
+                    small_model_loss_rel=small_rel,
+                    rank_ms_per_step_gloo=rank_ms,
+                    one_process_ms_per_step=one_ms,
+                    one_process_s=t_one - t0, ranks_s=t_ranks - t_one,
+                    match_max_dist_err=worst,
+                    match_ms=ranks[0]["match_ms"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parallel_phase(card: str, keep: dict, match_in: dict) -> dict:
+    """Phase 30: (a) ``nccl_one_rank``, (b)-(c) ``dp_phase``."""
+    t0 = time.perf_counter()
+    one_rank = nccl_one_rank(card, keep)
+    keep.clear()
+    release()
+    t1 = time.perf_counter()
+    ranks = dp_phase(card, match_in)
+    seconds = time.perf_counter() - t0
+    print(f"phase 30: {seconds:.1f} s (one NCCL rank {t1 - t0:.1f}, gloo "
+          f"ranks and matcher {seconds - (t1 - t0):.1f})", flush=True)
+    return dict(nccl_one_rank=one_rank, gloo_ranks=ranks, seconds=seconds)
 
 
 def main() -> None:
@@ -4027,7 +4490,17 @@ def main() -> None:
     # flagship, then streaming and replay on the same pipeline ----
     head, head_pipe, head_db = head_phase(card, auto_render)
     stream = streaming_phase(card, head_pipe, head_db, auto_render, serve)
-    del head_pipe, head_db
+    # phase 30's matcher: the one-process register against this database
+    match_batch = SyntheticDataset(
+        n_items=SERVE_B, num_views=3, window_num_imgs=1, img_height=224,
+        img_width=224).batch(SERVE_B)
+    with torch.no_grad():
+        match_q = head_pipe.embed(head_pipe.render(match_batch))
+    _, match_idx, match_dist = head_pipe.register(match_batch,
+                                                  top_k=MATCH_TOP_K)
+    match_in = dict(q=match_q.cpu(), db=head_db.cpu(), idx=match_idx.cpu(),
+                    dist=match_dist.cpu())
+    del head_pipe, head_db, match_q
     torch.cuda.empty_cache()
 
     stamp("phase 28")
@@ -4040,7 +4513,14 @@ def main() -> None:
     # ---- grouped training: k steps a dispatch, each a CUDA graph replay,
     # against eager steps on both routes; site_remat "dots"; the
     # utilities ----
-    graphed = graph_phase(card)
+    keep = {}
+    graphed = graph_phase(card, keep)
+
+    stamp("phase 30")
+    # ---- data parallelism: phase 29's graphed step in a one-rank NCCL
+    # group, two gloo ranks sharing the card against one process, and
+    # the sharded matcher on them ----
+    parallel = parallel_phase(card, keep, match_in)
 
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
@@ -4058,8 +4538,10 @@ def main() -> None:
                if "worst_online" in data else {}),
         }
 
-    # the streamed frames' measured launches, a frame
+    # the streamed frames' measured launches, a frame; a gloo rank's, a step
     stream_frame = {k: n // stream["frames"] for k, n in stream["counts"].items()}
+    dp_step = {k: n // DP_STEPS for k, n in
+               parallel["gloo_ranks"]["launches_a_rank"].items()}
     record = {"kernels": [
         entry("lattice_bias", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias.cu",
@@ -4077,6 +4559,7 @@ def main() -> None:
                   "lattice_bias"],
               launches_graphed_step_fused_bwd=graphed["fused_bwd"][
                   "captured_per_step"]["lattice_bias"],
+              launches_dp_rank_step=dp_step["lattice_bias"],
               per_shape_train=bias_bwd["fwd_rows"],
               per_shape_pyramid=pyr_bias["lattice_bias"]["rows"]),
         entry("fused_site", "cuda",
@@ -4090,7 +4573,8 @@ def main() -> None:
               launches_file_fed_step=feed["host"]["counts_per_step"][
                   "fused_site"],
               launches_graphed_step=graphed["default"]["captured_per_step"][
-                  "fused_site"]),
+                  "fused_site"],
+              launches_dp_rank_step=dp_step["fused_site"]),
         entry("lattice_bias_bwd", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_bwd.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:829", bias_bwd,
@@ -4101,6 +4585,7 @@ def main() -> None:
                   "lattice_bias_bwd"],
               launches_graphed_step=graphed["default"]["captured_per_step"][
                   "lattice_bias_bwd"],
+              launches_dp_rank_step=dp_step["lattice_bias_bwd"],
               per_step_ms=bias_bwd["per_step_ms"],
               per_step_ms_pyramid=pyr_bias["lattice_bias_bwd"]["per_step_ms"],
               per_shape_pyramid=pyr_bias["lattice_bias_bwd"]["rows"]),
@@ -4193,7 +4678,7 @@ def main() -> None:
         "windows": {"serving": windows_serve, "train": windows_train,
                     "pyramid_serving": pyr_windows, "bias": win_bias},
         "retrieval_head": head, "streaming": stream, "file_feed": feed,
-        "graphed": graphed,
+        "graphed": graphed, "parallel": parallel,
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}

@@ -2,6 +2,7 @@
 and its entry points never drop to the CPU on their own."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -73,6 +74,11 @@ UTILS_GRAPH_MODULES = (
 )
 
 
+# the data-parallel layer (the modules it threads through are named above;
+# the package's __init__ imports nothing)
+PARALLEL_MODULES = ("parallel/dist.py",)
+
+
 def _port_files():
     return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -106,7 +112,8 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("module", TRAINING_MODULES + PYRAMID_MODULES
                          + WIDE_ROUTE_MODULES + FOLD_MODULES
                          + WINDOWS_MODULES + RETRIEVAL_MODULES
-                         + DATA_MODULES + UTILS_GRAPH_MODULES)
+                         + DATA_MODULES + UTILS_GRAPH_MODULES
+                         + PARALLEL_MODULES)
 def test_training_module_imports_no_jax(module):
     path = ROOT / "bevrender_tpu_torch" / module
     assert path.exists()
@@ -123,15 +130,21 @@ def test_training_module_imports_no_jax(module):
 
 
 def test_port_reads_no_environment_knobs():
-    """Kernel choice lives in the config. The only environment variable the
-    port reads is CUDA_HOME, to find nvcc."""
+    """Kernel choice lives in the config. The environment variables the
+    port reads are CUDA_HOME, to find nvcc, and the ones torchrun sets for
+    each rank (``parallel.dist.initialize_distributed``)."""
     hits = []
     for f in _port_files():
         text = f.read_text()
         if "os.environ" in text or "getenv(" in text:
             hits.append(f.relative_to(ROOT).as_posix())
-    assert hits == ["bevrender_tpu_torch/ops/kernels/build.py"]
-    assert "BEVRENDER_" not in (ROOT / hits[0]).read_text()
+    assert hits == ["bevrender_tpu_torch/ops/kernels/build.py",
+                    "bevrender_tpu_torch/parallel/dist.py"]
+    for hit in hits:
+        assert "BEVRENDER_" not in (ROOT / hit).read_text()
+    read = set(re.findall(r"os\.environ(?:\.get)?[\[(]\"(\w+)\"",
+                          (ROOT / hits[1]).read_text()))
+    assert read == {"WORLD_SIZE", "RANK", "LOCAL_RANK"}
 
 
 def test_scan_sees_forbidden_imports(tmp_path):

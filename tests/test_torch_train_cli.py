@@ -168,14 +168,19 @@ def test_cli_synthetic_tiny(tmp_path, monkeypatch):
     assert (work / "config.yaml").exists()
 
 
-def test_cli_refuses_cpu_by_default_and_distributed(tmp_path):
+def test_cli_refuses_cpu_by_default_and_distributed(tmp_path, monkeypatch):
+    """Without a GPU the CLI refuses to start, ``--distributed`` included
+    (its ranks run on ``cuda:LOCAL_RANK`` unless ``--device cpu``), and
+    writes nothing. Distributed training itself is tested in
+    tests/test_torch_parallel.py."""
     path = _file_config(tmp_path)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.main(["--config", str(path)])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.main(["--config", str(path), "--distributed", "--device",
-                     "cpu"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttrain.main(["--config", str(path), "--distributed"])
     assert not (tmp_path / "ckpt").exists()
 
 
