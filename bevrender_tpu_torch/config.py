@@ -88,6 +88,11 @@ class ModelConfig:
     # (BEVRENDER_SITE_SH2=1)
     site_fold_rows: bool = False
 
+    @property
+    def window_key_shape(self) -> Tuple[int, int]:
+        """SCA key-plane shape at stage 0: (bev_h // 2, bev_w * depth)."""
+        return self.bev_shapes[0] // 2, self.bev_shapes[0] * self.bev_depth_dim
+
     def site_options(self) -> dict:
         """The fields above, as ``models.attention.set_site_options``
         takes them."""
@@ -343,6 +348,17 @@ def _set(section, name: str, value) -> None:
     if isinstance(getattr(section, name), tuple) and isinstance(value, list):
         value = tuple(value)
     setattr(section, name, value)
+
+
+def get_config(print_or_not: bool = False,
+               save_or_not: bool = False) -> Dict[str, Any]:
+    """The reference API's entry (bevrender_tpu/config.py:328): the
+    reference dict of ``Config()``, printed when ``print_or_not``;
+    ``save_or_not`` is accepted and, as there, does nothing."""
+    cfg = Config()
+    if print_or_not:
+        cfg.print_config()
+    return cfg.to_reference_dict()
 
 
 def flagship_config(**overrides) -> Config:

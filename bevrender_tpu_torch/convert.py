@@ -19,7 +19,8 @@ which follow the flax names:
   zero ``num_batches_tracked``;
 * the leading depth axis of ``stage{s}/layers/*`` (the flax scan stack)
   -> ``stage{s}.layers.{i}.*``;
-* ``bev_embedding`` and ``rpe_table`` as they are; so do the module names
+* ``bev_embedding``, ``rpe_table`` and ``LayerScale``'s ``gamma`` as they
+  are; so do the module names
   of ``ResnetFPN`` (a bottleneck's ``conv3`` / ``bn3``, an FPN level's
   ``lateral``, ``top_proj`` and ``out_conv`` with their biases) and of
   ``SimpleDecoder``.
@@ -70,7 +71,7 @@ def _param(path: tuple, arr: np.ndarray):
         raise ValueError(f"kernel of rank {arr.ndim} has no mapping")
     if name == "scale":
         return "weight", arr
-    if name in ("bias", "rpe_table", "bev_embedding"):
+    if name in ("bias", "rpe_table", "bev_embedding", "gamma"):
         return name, arr
     raise ValueError(f"unknown flax parameter {name!r}")
 

@@ -3,8 +3,10 @@
 Own copy of bevrender_tpu/geometry/projection.py (``sample_3d_points``
 :26, ``BEV2CameraProjector`` :65 with its gray-calibration mask
 ``_in_bound_mask`` :150, ``reference_points_all_types`` :174 and
-``default_camera_rig`` :219). The calibration PNGs are decoded by the
-port's native library (``data/native.py``).
+``default_camera_rig`` :219): the model reads the function form
+(``_project_views``), on which the reference API's class is built. The
+calibration PNGs are decoded by the port's native library
+(``data/native.py``).
 """
 
 from __future__ import annotations
@@ -84,6 +86,66 @@ def _project_views(points_3d, extrinsics, intrinsics, img_width, img_height,
         pts_2d = pts_2d * 2.0 - 1.0
         views.append(pts_2d.reshape(2, h, w, z).astype(np.float32))
     return views
+
+
+class BEV2CameraProjector:
+    """The reference API's projector (``BEV2CameraProjector``,
+    bevrender_tpu/geometry/projection.py:65): BEV voxel centers into each
+    view of one vehicle type, on ``_project_views`` and
+    ``_in_bound_mask``. ``K`` holds the intrinsics rescaled to the
+    post-resize image size, as there; with ``remove_ref_in_gray`` and one
+    calibration PNG a view in ``bound_check_img_paths`` (decoded by the
+    port's own PNG decoder), points on its gray pixels are dropped."""
+
+    def __init__(self, imu_to_rgb, K, vehicle_type_code: int, img_width: int,
+                 img_height: int, ori_img_width: int, ori_img_height: int,
+                 remove_ref_in_gray: bool = False,
+                 bound_check_img_paths: Optional[List[str]] = None,
+                 logger=None):
+        self.scale_x = img_width / ori_img_width
+        self.scale_y = img_height / ori_img_height
+        self.img_width, self.img_height = img_width, img_height
+        self.ori_img_width, self.ori_img_height = ori_img_width, ori_img_height
+        self.vehicle_type_code = vehicle_type_code
+        self.remove_ref_in_gray = remove_ref_in_gray
+        self.bound_check_img_paths = bound_check_img_paths
+        self.logger = logger
+        self.imu_to_cmr = {k: [np.asarray(m, dtype=np.float64) for m in v]
+                           for k, v in imu_to_rgb.items()}
+        self._K_capture = K
+        self.K = {}
+        for key, mats in K.items():
+            scaled = []
+            for m in mats:
+                m = np.asarray(m, dtype=np.float64).copy()
+                m[0, 0] *= self.scale_x
+                m[0, 2] *= self.scale_x
+                m[1, 1] *= self.scale_y
+                m[1, 2] *= self.scale_y
+                scaled.append(m)
+            self.K[key] = scaled
+
+    def _gray_paths(self) -> Optional[List[str]]:
+        return (self.bound_check_img_paths
+                if self.remove_ref_in_gray and self.bound_check_img_paths
+                else None)
+
+    def bev_grid_to_camera(self, points_3d: np.ndarray
+                           ) -> Dict[int, List[np.ndarray]]:
+        """``{vehicle_type_code: [per-view (2, h, w, z) arrays]}`` of
+        normalized [-1, 1] (x, y) pixel coordinates of the (4, h, w, z)
+        homogeneous ``points_3d``; points outside the image (or on gray
+        calibration pixels) are zeroed before normalization."""
+        vt = self.vehicle_type_code
+        return {vt: _project_views(
+            points_3d, self.imu_to_cmr[vt], self._K_capture[vt],
+            self.img_width, self.img_height, self.ori_img_width,
+            self.ori_img_height, self._gray_paths())}
+
+    def _in_bound_mask(self, points_2d: np.ndarray, module: int) -> np.ndarray:
+        gray = self._gray_paths()
+        return _in_bound_mask(points_2d, self.img_width, self.img_height,
+                              gray[module] if gray else None)
 
 
 def reference_points_all_types(

@@ -12,8 +12,12 @@ choice, a caller's ``embed_fn`` (L2-normalised), the model's trained
 retrieval head (``ModelConfig.retrieval_embed_dim > 0``), or the flattened,
 L2-normalised image. Streaming serving carries the BEV state from frame to
 frame: one encoder pass and one decode a frame. A database too large for
-one card is split over the ranks of a process group, each holding a
-contiguous shard of rows (``make_sharded_matcher``).
+one card is split over the data ranks of a process group, each holding a
+contiguous shard of rows (``make_sharded_matcher``), the model ranks of a
+data rank the same shard. With a model split
+(``parallel.dist.init_model_parallel``) every model rank of a data rank
+calls ``render`` and ``register`` together: the attention sites gather
+their heads over them.
 """
 
 from __future__ import annotations
@@ -203,11 +207,14 @@ class RegistrationPipeline:
         with k = min(top_k, nl), and one ``all_gather`` of the candidates
         in rank order; the top-k of those is the exact global top-k, with
         global row indices, on every rank. The (B, N) distances never
-        leave their rank."""
+        leave their rank. With a model split the shards and the gather
+        are the data ranks' (``make_sharded_matcher(mesh, axis="data")``):
+        W is the number of data ranks, r this rank's data rank, and the
+        model ranks of a data rank hold the same shard."""
 
         @torch.no_grad()
         def match(q: torch.Tensor, db_shard: torch.Tensor, n_real: int):
-            W, r = pdist.world_size(), pdist.rank()
+            W, r = pdist.data_world_size(), pdist.data_rank()
             nl = db_shard.shape[0]
             sims = torch.matmul(q.to(db_shard.dtype), db_shard.T).float()
             dist = 2.0 - 2.0 * sims
@@ -219,8 +226,11 @@ class RegistrationPipeline:
             if W > 1:
                 parts_d = [torch.empty_like(cand_d) for _ in range(W)]
                 parts_i = [torch.empty_like(cand_i) for _ in range(W)]
-                torch.distributed.all_gather(parts_d, cand_d.contiguous())
-                torch.distributed.all_gather(parts_i, cand_i.contiguous())
+                group = pdist.data_group()
+                torch.distributed.all_gather(parts_d, cand_d.contiguous(),
+                                             group=group)
+                torch.distributed.all_gather(parts_i, cand_i.contiguous(),
+                                             group=group)
                 cand_d, cand_i = torch.cat(parts_d, 1), torch.cat(parts_i, 1)
             neg, sel = torch.topk(-cand_d, min(top_k, cand_d.shape[1]))
             return torch.gather(cand_i, 1, sel), -neg

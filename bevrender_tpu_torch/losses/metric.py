@@ -15,6 +15,9 @@ resident database and the rows of the positives for the ``*_vs_db`` losses:
   neg_margin - d)) + (d_pos - pos_margin)``, loss ``mean_pos(relu(J)^2) / 2``.
 * ``infonce_loss_vs_db``: softmax cross entropy over cosine similarities to
   the database at a temperature.
+
+The first three are also the reference API's classes with a
+``get_loss(cam, map_)`` method.
 """
 
 from __future__ import annotations
@@ -121,3 +124,18 @@ def lifted_structure_loss(cam, map_, neg_margin: float = 1.0,
     n_pos = torch.sum(pos_mask)
     return torch.sum(torch.where(pos_mask, J ** 2, torch.zeros_like(J))) / \
         torch.clamp(2.0 * n_pos, min=1.0)
+
+
+class ContrastiveLoss:
+    def get_loss(self, cam, map_):
+        return contrastive_loss(cam, map_)
+
+
+class TripletLossMetricLearning:
+    def get_loss(self, cam, map_):
+        return triplet_loss(cam, map_)
+
+
+class LiftedStructureLoss:
+    def get_loss(self, cam, map_):
+        return lifted_structure_loss(cam, map_)

@@ -5,6 +5,14 @@ and parameter names follow the flax tree.
 The JAX package sorts keys by their lattice shift class for its TPU
 kernels (attention.py:59-94). Attention over keys does not depend on their
 order, so the port keeps them as they come.
+
+With M model ranks (``parallel.dist.init_model_parallel``) every site's
+heads split over them, as the JAX package's ``_shard_heads``
+(attention.py:97-99) puts heads-per-group on its ``model`` axis: model rank
+m runs heads [m Hpg / M, (m + 1) Hpg / M) of every group (``_rank_heads``),
+and the heads' outputs are gathered before ``proj_out``, which runs whole
+on every rank. The offsets, key positions and K/V gathers are per group and
+stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from bevrender_tpu_torch.ops.deform_attn import (
     streamed_deform_attention,
 )
 from bevrender_tpu_torch.ops.grid_sample import grid_sample_2d, normalized_grid
+from bevrender_tpu_torch.parallel import dist as pdist
 
 
 def _split_heads(x: torch.Tensor, G: int, Hpg: int) -> torch.Tensor:
@@ -41,6 +50,28 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     """(B, G, Hpg, M, ch) -> (B, M, C)."""
     B, G, Hpg, M, ch = x.shape
     return x.permute(0, 3, 1, 2, 4).reshape(B, M, G * Hpg * ch)
+
+
+def _rank_heads(Hpg: int, table: torch.Tensor, *tensors: torch.Tensor):
+    """This model rank's part of one site: (head_part, table, *tensors),
+    where the table (G, Hpg, Ht, Wt) and each 5-d head tensor (B, G, Hpg,
+    ., ch) keep this rank's run of every group's heads and the 4-d key
+    positions (B, G, N, 2) stay whole. They enter the model group's split
+    region together (``parallel.dist.enter_model``: one sum of their
+    gradients). ``head_part`` is (m, M) for the site's dropout mask, None
+    without a model split. Channels are group-major, then head
+    (``_split_heads``), so a rank's heads are G strided runs of the
+    channels, not one block."""
+    M = pdist.model_parallel()
+    if M == 1:
+        return (None, table) + tensors
+    if Hpg % M:
+        raise ValueError(f"{Hpg} heads a group do not split over {M} model "
+                         f"ranks")
+    m, h = pdist.model_rank(), Hpg // M
+    table, *tensors = pdist.enter_model(table, *tensors)
+    return ((m, M), table.narrow(1, m * h, h)) + tuple(
+        t.narrow(2, m * h, h) if t.dim() == 5 else t for t in tensors)
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,12 +99,12 @@ class _Site(nn.Module):
         self.site_options = SiteOptions()
         self.generator = None
 
-    def _site_kwargs(self, ch: int) -> dict:
+    def _site_kwargs(self, ch: int, head_part) -> dict:
         return dict(
             scale=ch ** -0.5, fuse_site=not self.training,
             **dataclasses.asdict(self.site_options),
             dropout_rate=self.attn_drop_rate if self.training else 0.0,
-            generator=self.generator)
+            generator=self.generator, head_part=head_part)
 
 
 def set_site_options(module: nn.Module, **options) -> None:
@@ -142,14 +173,14 @@ class TSADeformableAttention(_Site):
         kv = kv.reshape(B, G, N, C // G).permute(0, 2, 1, 3).reshape(B, N, C)
         k = self.proj_k(kv)
         v = self.proj_v(kv)
-        out = streamed_deform_attention(
+        part, rpe, q, k, v, pos = _rank_heads(
+            Hpg, self.rpe_table.reshape(G, Hpg, 2 * H - 1, 2 * W - 1),
             _split_heads(query.reshape(B, H * W, C), G, Hpg),
-            _split_heads(k, G, Hpg),
-            _split_heads(v, G, Hpg),
-            pos.reshape(B, G, N, 2),
-            self.rpe_table.reshape(G, Hpg, 2 * H - 1, 2 * W - 1),
-            H, W, **self._site_kwargs(ch),
-        )
+            _split_heads(k, G, Hpg), _split_heads(v, G, Hpg),
+            pos.reshape(B, G, N, 2))
+        out = streamed_deform_attention(q, k, v, pos, rpe, H, W,
+                                        **self._site_kwargs(ch, part))
+        out = pdist.gather_model(out, 2)
         return self.proj_drop(
             self.proj_out(_merge_heads(out).reshape(B, H, W, C)))
 
@@ -225,26 +256,35 @@ class SCADeformableAttention(_Site):
         rpe = self.rpe_table.reshape(G, Hpg, 2 * H - 1, 2 * W * d - 1)
         view_pos = [self._view_pos(qg, v, reference_points[v], B, H, W)
                     for v in range(V)]
-        attn = self._site_kwargs(ch)
 
         if G >= 4:
             pos = torch.stack(view_pos, dim=1).reshape(B * V, G, -1, 2)
             k, v = self._kv(img_feat.reshape((B * V,) + img_feat.shape[2:]),
                             pos, B * V)
+            part, rpe, q5, k, v, pos = _rank_heads(
+                Hpg, rpe, q5, _split_heads(k, G, Hpg),
+                _split_heads(v, G, Hpg), pos)
             q_rep = q5[:, None].expand((B, V) + q5.shape[1:]).reshape(
                 (B * V,) + q5.shape[1:])
             out = streamed_deform_attention(
-                q_rep, _split_heads(k, G, Hpg), _split_heads(v, G, Hpg), pos,
-                rpe, H, W, rows_per_sample=V, **attn)
+                q_rep, k, v, pos, rpe, H, W, rows_per_sample=V,
+                **self._site_kwargs(ch, part))
+            out = pdist.gather_model(out, 2)
             out = _merge_heads(out).reshape(B, V, H, W, C).permute(0, 2, 3, 1, 4)
             out = out.reshape(B, H, W, V * C)
         else:
-            outs = []
+            kvs = []
             for view in range(V):
                 k, v = self._kv(img_feat[:, view], view_pos[view], B)
-                o = streamed_deform_attention(
-                    q5, _split_heads(k, G, Hpg), _split_heads(v, G, Hpg),
-                    view_pos[view], rpe, H, W, **attn)
-                outs.append(_merge_heads(o).reshape(B, H, W, C))
-            out = torch.cat(outs, dim=-1)
+                kvs += [_split_heads(k, G, Hpg), _split_heads(v, G, Hpg),
+                        view_pos[view]]
+            part, rpe, q5, *kvs = _rank_heads(Hpg, rpe, q5, *kvs)
+            attn = self._site_kwargs(ch, part)
+            outs = [streamed_deform_attention(q5, *kvs[3 * view:3 * view + 3],
+                                              rpe, H, W, **attn)
+                    for view in range(V)]
+            if part is not None:  # one gather for the views' heads
+                outs = pdist.gather_model(torch.stack(outs), 3).unbind(0)
+            out = torch.cat([_merge_heads(o).reshape(B, H, W, C)
+                             for o in outs], dim=-1)
         return self.proj_drop(self.proj_out(out))

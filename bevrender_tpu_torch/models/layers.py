@@ -10,7 +10,7 @@ Norms compute in float32 and return float32, as flax's do for a bf16 input.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -110,11 +110,13 @@ class BatchNorm(nn.BatchNorm2d):
     biased E[x^2] - E[x]^2 in float32, clipped at 0, and that same biased
     variance updates ``running_var`` (torch stores the unbiased one).
 
-    With a process group of more than one rank, the batch is the global
-    one, as under the JAX package's GSPMD: the per-channel sums of x and
-    x^2 and the row count are all-reduced (autograd-aware) before the
+    With more than one data rank, the batch is the global one, as under
+    the JAX package's GSPMD: the per-channel sums of x and x^2 and the row
+    count are all-reduced over the data ranks (autograd-aware) before the
     mean and variance are taken, so every rank normalises with, and
-    updates its running statistics from, the same global values."""
+    updates its running statistics from, the same global values. The
+    model ranks of a data rank hold the same rows and take no part in the
+    sum."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-5, momentum=0.1)
@@ -123,7 +125,7 @@ class BatchNorm(nn.BatchNorm2d):
         x = x.float()
         if not self.training:
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        if pdist.world_size() > 1:
+        if pdist.data_world_size() > 1:
             C = x.shape[-1]
             stats = pdist.all_reduce_sum(torch.cat([
                 x.sum(dim=(0, 1, 2)), (x * x).sum(dim=(0, 1, 2)),
@@ -203,8 +205,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 class DropPath(nn.Module):
     """Per-sample stochastic depth; identity at eval. The mask comes from
     ``generator`` (``set_generator``), or PyTorch's default generator when
-    none is set; with a process group of W > 1 it is this rank's rows of
-    the global batch's mask (``parallel.dist.local_rand``)."""
+    none is set; with D > 1 data ranks it is this rank's rows of the
+    global batch's mask (``parallel.dist.local_rand``)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -222,19 +224,26 @@ class DropPath(nn.Module):
 
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: elementwise, kept values divided by the keep
-    rate; identity at eval. Draws from ``generator`` like ``DropPath``."""
+    rate; identity at eval. Draws from ``generator`` like ``DropPath``.
+    ``split=(part, parts)`` says that ``x`` is the ``part``-th of
+    ``parts`` equal runs of the last axis of a whole tensor (a model
+    rank's hidden channels): the whole tensor's mask is drawn and that run
+    kept."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = pdist.local_rand(x.shape, self.generator, x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        mask = pdist.local_rand(
+            x.shape, self.generator, x.device,
+            split=None if split is None else (x.ndim - 1,) + tuple(split))
+        return torch.where(mask < keep, x / keep, torch.zeros_like(x))
 
 
 def set_generator(module: nn.Module, generator) -> None:
@@ -249,7 +258,17 @@ def set_generator(module: nn.Module, generator) -> None:
 
 class ConvMLP(nn.Module):
     """1x1 expand, dropout, + depthwise 3x3 branch, GELU, 1x1 project,
-    dropout (``ConvMLP``, layers.py:111)."""
+    dropout (``ConvMLP``, layers.py:111).
+
+    With M model ranks (``parallel.dist.init_model_parallel``) the hidden
+    channels split over them, as the JAX package shards them over its
+    ``model`` axis (layers.py:135): model rank m takes the m-th run of
+    hidden / M channels, so ``linear1`` by output channel, ``dwc`` by
+    channel and ``linear2`` by input channel. The ranks' partial outputs
+    of ``linear2`` are summed in float32 over the model group, its bias
+    added once and the sum cast once to the compute dtype; the parameters
+    stay whole, and their gradients are summed over the group
+    (``enter_model``)."""
 
     def __init__(self, dim: int, expansion: int, cd=None,
                  drop_rate: float = 0.0):
@@ -262,9 +281,86 @@ class ConvMLP(nn.Module):
         self.linear2 = Conv(hidden, dim, 1, compute_dtype=cd)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if pdist.model_parallel() > 1:
+            return self._split_forward(x)
         x = self.drop(self.linear1(x))
         x = x + self.dwc(x)
         return self.drop(self.linear2(gelu(x)))
+
+    def _split_forward(self, x: torch.Tensor) -> torch.Tensor:
+        M, m = pdist.model_parallel(), pdist.model_rank()
+        hidden = self.linear1.out_channels
+        if hidden % M:
+            raise ValueError(f"{hidden} hidden channels do not split over "
+                             f"{M} model ranks")
+        h = hidden // M
+        run = slice(m * h, (m + 1) * h)
+        x, w1, b1, wd, bd, w2 = pdist.enter_model(
+            x, self.linear1.weight, self.linear1.bias, self.dwc.weight,
+            self.dwc.bias, self.linear2.weight)
+        cd = self.linear1.compute_dtype
+        dt = _dtype(x, w1, cd)
+        y = _conv_nhwc(x.to(dt), w1[run].to(dt), b1[run].to(dt))
+        y = self.drop(y, split=(m, M))
+        y = y + _conv_nhwc(y, wd[run].to(dt), bd[run].to(dt), padding=1,
+                           groups=h)
+        y = gelu(y)
+        dt = _dtype(y, w2, cd)
+        # products of the operands rounded to the compute dtype, summed in
+        # float32 here and over the ranks: one rounding, as one process's
+        part = _conv_nhwc(y.to(dt).float(), w2[:, run].to(dt).float())
+        out = pdist.sum_model(part) + self.linear2.bias.to(dt).float()
+        return self.drop(out.to(dt))
+
+
+def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, b=None, padding: int = 0,
+               groups: int = 1) -> torch.Tensor:
+    return F.conv2d(x.permute(0, 3, 1, 2), w, b, 1, padding, 1,
+                    groups).permute(0, 2, 3, 1)
+
+
+class LayerNorm2d(nn.Module):
+    """LayerNorm over the channel (last) axis of an NHWC tensor
+    (``LayerNorm2d``, layers.py:29): flax's ``LayerNorm_0``, eps 1e-6,
+    float32 out. A reference-API module that no model path calls."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm_0(x)
+
+
+class LayerScale(nn.Module):
+    """Per-channel learned scale (``LayerScale``, layers.py:97), the flax
+    parameter ``gamma`` filled with ``init_value``. A reference-API module
+    that no model path calls."""
+
+    def __init__(self, dim: int, init_value: float = 1e-5):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma
+
+
+class FeedForwardLayer(nn.Module):
+    """Linear FFN (``FeedForwardLayer``, layers.py:141): ``Dense_0`` to
+    ``hidden_dim``, GELU, dropout, ``Dense_1`` back to ``in_dim``,
+    dropout. A reference-API module: the reference builds two a layer and
+    never calls them, nor does any model path here."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, drop_rate: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.Dense_0 = Dense(in_dim, hidden_dim, compute_dtype)
+        self.Dense_1 = Dense(hidden_dim, in_dim, compute_dtype)
+        self.drop = Dropout(drop_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.drop(gelu(self.Dense_0(x)))
+        return self.drop(self.Dense_1(y))
 
 
 def _init_module(mod: nn.Module, gen: torch.Generator) -> None:

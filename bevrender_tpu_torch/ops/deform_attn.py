@@ -735,12 +735,15 @@ def _maybe_remat(fn, site_remat: str, *tensors):
 
 
 def _keep_mask(shape, rate: float, generator, device,
-               rows_per_sample: int = 1):
+               rows_per_sample: int = 1, head_part=None):
     """Dropout mask drawn outside any recomputed region, so a backward that
-    recomputes sees the same mask; with a process group of W > 1, this
-    rank's rows of the global batch's mask (``parallel.dist.local_rand``)."""
-    return pdist.local_rand(shape, generator, device,
-                            rows_per_sample) < 1.0 - rate
+    recomputes sees the same mask; with D > 1 data ranks, this rank's rows
+    of the global batch's mask (``parallel.dist.local_rand``); with
+    ``head_part`` (m, M), the mask of all heads drawn and the m-th run of
+    the head axis kept."""
+    split = None if head_part is None else (2,) + tuple(head_part)
+    return pdist.local_rand(shape, generator, device, rows_per_sample,
+                            split) < 1.0 - rate
 
 
 def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
@@ -755,7 +758,8 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
                               fused_fwd_fold: bool | None = None,
                               dropout_rate: float = 0.0,
                               generator=None,
-                              rows_per_sample: int = 1) -> torch.Tensor:
+                              rows_per_sample: int = 1,
+                              head_part=None) -> torch.Tensor:
     """One lattice attention site (deform_attn.py:866-917), on the kernels
     that ``site_kernels`` names for the ``SiteOptions`` of the keyword
     arguments from ``fused_bwd`` to ``fused_fwd_fold``; ``fuse_site`` says
@@ -773,7 +777,9 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     (``dropout_rate`` > 0, drawn from ``generator``) always takes the plain
     consumer; ``rows_per_sample`` is the number of leading rows of q, k and
     v that one sample of the batch holds (its views, where they are folded
-    into the batch), for the mask of a data-parallel rank."""
+    into the batch), for the mask of a data-parallel rank; ``head_part``
+    (m, M) says that q, k, v and the table hold model rank m's run of each
+    group's heads, for the mask of a model-parallel rank."""
     use_dropout = dropout_rate > 0.0
     options = SiteOptions(
         fused_bwd=fused_bwd, site_remat=site_remat, lattice_route=lattice_route,
@@ -789,7 +795,7 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     keep = None
     if use_dropout:
         keep = _keep_mask(k.shape[:-1] + (q.shape[-2],), dropout_rate,
-                          generator, q.device, rows_per_sample)
+                          generator, q.device, rows_per_sample, head_part)
 
     def full_site(q, k, v, k_pos, table):
         if kernel == "lattice_windows":

@@ -304,7 +304,9 @@ class Trainer:
         can be captured as a CUDA graph (``graph_step.GraphedStep``). In a
         process group the gradients and losses are averaged over the ranks
         with one all-reduce before the clip, which then sees the global
-        gradient."""
+        gradient: the model ranks of a data rank hold the same whole
+        gradients (``parallel.dist.enter_model``), so the mean over every
+        rank is the data ranks' mean, with the same bits on every rank."""
         net.train()
         out = net(batch["camera"], batch["vehicle_pose"], batch["vehicle_type"])
         total, parts = losses_fn(net, out, batch)
@@ -504,7 +506,10 @@ class Trainer:
                     is_best = True
             if self.tc.save_ckpt and main:
                 self.save_checkpoint(state, epoch, best=is_best)
-            if is_best and self.tc.save_val_results and main:
+            # rank 0's model group renders with it: its forward gathers the
+            # heads over the model ranks
+            if (is_best and self.tc.save_val_results
+                    and pdist.data_rank() == 0):
                 self.save_val_images(state, val_loader, epoch)
 
         if main:
@@ -520,20 +525,21 @@ class Trainer:
               rng: Optional[int] = None,
               max_epochs: Optional[int] = None) -> TrainState:
         """K-fold outer loop: fresh folds, ``epoch_per_fold`` epochs per
-        fold, until ``total_epochs``. With W ranks each loads the strided
-        ``batch_size // W`` rows of every global batch, which needs
-        ``batch_size`` to be a positive multiple of W."""
+        fold, until ``total_epochs``. With D data ranks each loads the
+        strided ``batch_size // D`` rows of every global batch (the model
+        ranks of a data rank the same rows), which needs ``batch_size`` to
+        be a positive multiple of D."""
         apply_validation = (self.tc.apply_validation
                             if apply_validation is None else apply_validation)
         rng = self.tc.seed if rng is None else rng
         total = max_epochs or self.tc.total_epochs
-        world = pdist.world_size()
+        world = pdist.data_world_size()
         if self.tc.batch_size % world or self.tc.batch_size < world:
             raise ValueError(
                 f"batch_size={self.tc.batch_size} must be a positive "
-                f"multiple of world_size={world} (each process feeds "
+                f"multiple of world_size={world} (each data rank feeds "
                 f"batch_size/world_size rows of the global batch)")
-        shard = (pdist.rank(), world) if world > 1 else None
+        shard = (pdist.data_rank(), world) if world > 1 else None
         per_rank = self.tc.batch_size // world
         num_epoch = 0
         while num_epoch + 1 < total:
@@ -591,9 +597,13 @@ class Trainer:
     def save_val_images(self, state: TrainState, val_loader, epoch: int) -> None:
         """Write the best epoch's validation renders as PNGs. A rank's
         loader (``process_shard``) is widened to the whole validation set,
-        which this rank renders alone: eval mode runs no collective."""
+        which data rank 0 renders alone (eval mode runs no collective over
+        the data ranks; its model ranks render with it) and rank 0
+        writes."""
+        main = pdist.is_main()
         out_dir = Path(self.work_dir) / "best_epoch_val"
-        out_dir.mkdir(parents=True, exist_ok=True)
+        if main:
+            out_dir.mkdir(parents=True, exist_ok=True)
         if val_loader.process_shard is not None:
             val_loader = DataLoader(
                 self.dataset, val_loader.batch_size * val_loader.process_shard[1],
@@ -604,11 +614,15 @@ class Trainer:
                                      preprocess=self.preprocess):
             out = state.net(batch["camera"], batch["vehicle_pose"],
                             batch["vehicle_type"])
+            if not main:
+                continue
             for render, ts in zip(out.float().cpu().numpy(),
                                   np.asarray(batch["timestamp"].cpu())):
                 img = (np.clip(render, 0, 1) * 255).astype(np.uint8)
                 encode_png(out_dir / f"{int(ts)}.png", img)
-        self.logger.info("val images saved at epoch %d -> %s", epoch, out_dir)
+        if main:
+            self.logger.info("val images saved at epoch %d -> %s", epoch,
+                             out_dir)
 
     @staticmethod
     def get_log_image(render: np.ndarray, map_tile: np.ndarray,

@@ -197,6 +197,18 @@ Phases, each fatal on failure:
     process at B=4, and phase 5's small model one step on them; the
     sharded matcher on those ranks against ``register``'s top-k over phase
     26's 4,096-tile database.
+31. the model axis (``parallel.dist.init_model_parallel``): (a) two
+    model ranks of one data rank spawned on the one card over gloo, the
+    flagship bf16 at full width with every site's heads split (one head a
+    group a rank) and ``ConvMLP``'s hidden channels: MP_REQUESTS
+    render+register requests after a warm-up and MP_STEPS training steps
+    (B=2, T=2, drop path 0.2), the ranks' renders, top-k and parameters
+    equal bit for bit, held against one process by phase 30's spread rule,
+    exact launches a rank a request and a step; a request on each folded
+    site (render equal to the default route's) and a ``fused_bwd`` step
+    with and without the folded forward, with their launches; (b) 2 data
+    x 2 model ranks: phase 5's small model one step against one process,
+    held to phase 30's spread rule with SMALL_DP_REL as its floor.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -3967,6 +3979,23 @@ def dp_batches() -> list:
         [ds[i * n + j] for j in range(n)]).items()} for i in range(DP_STEPS)]
 
 
+def flat_params(net):
+    import torch
+
+    return torch.cat([t.detach().reshape(-1).float() for t in
+                      list(net.parameters()) + list(net.buffers())])
+
+
+def ranks_equal(flat) -> bool:
+    """Whether every rank of the world holds ``flat``'s bits."""
+    import torch
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, flat)
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
 def dp_rank(rank: int, port: int, tmp: str) -> None:
     """Phase 30b-c, one spawned rank on the shared card: DP_STEPS steps on
     its rows of the global batches, the ranks' parameters compared after
@@ -4002,12 +4031,7 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(m["train_batch_loss"]))
-            flat = torch.cat([t.detach().reshape(-1).float() for t in
-                              list(state.net.parameters())
-                              + list(state.net.buffers())])
-            parts = [torch.empty_like(flat) for _ in range(DP_WORLD)]
-            dist.all_gather(parts, flat)
-            equal.append(all(torch.equal(parts[0], p) for p in parts[1:]))
+            equal.append(ranks_equal(flat_params(state.net)))
         counts = kernels.counts()
         small_cfg, small_batch = small_dp(tmp)
         small = Trainer(small_cfg, None, device="cuda")
@@ -4043,16 +4067,18 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
             dist.destroy_process_group()
 
 
-def run_dp_ranks(tmp: str) -> list:
-    """Spawn the DP_WORLD ranks, wait for them within DP_TIMEOUT_S, stop
-    any left; their results in rank order."""
+def run_dp_ranks(tmp: str, target=dp_rank, world: int = DP_WORLD,
+                 tag: str = "phase 30b") -> list:
+    """Spawn ``world`` ranks running ``target(rank, port, tmp)``, wait for
+    them within DP_TIMEOUT_S, stop any left; their results
+    (``<tmp>/rank<r>.pt``) in rank order. Any rank's error fails."""
     import torch
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")  # CUDA is initialised in this process
     port = free_port()
-    procs = [ctx.Process(target=dp_rank, args=(r, port, tmp))
-             for r in range(DP_WORLD)]
+    procs = [ctx.Process(target=target, args=(r, port, tmp))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + DP_TIMEOUT_S
@@ -4065,12 +4091,12 @@ def run_dp_ranks(tmp: str) -> list:
                 p.kill()
                 p.join(30)
     errors = {r: Path(f"{tmp}/rank{r}.err").read_text()
-              for r in range(DP_WORLD) if Path(f"{tmp}/rank{r}.err").exists()}
+              for r in range(world) if Path(f"{tmp}/rank{r}.err").exists()}
     codes = [p.exitcode for p in procs]
-    if errors or codes != [0] * DP_WORLD:
-        fail(f"phase 30b: ranks exited {codes}: {errors}")
+    if errors or codes != [0] * world:
+        fail(f"{tag}: ranks exited {codes}: {errors}")
     return [torch.load(f"{tmp}/rank{r}.pt", weights_only=True)
-            for r in range(DP_WORLD)]
+            for r in range(world)]
 
 
 def dp_phase(card: str, match_in: dict) -> dict:
@@ -4214,6 +4240,445 @@ def parallel_phase(card: str, keep: dict, match_in: dict) -> dict:
     print(f"phase 30: {seconds:.1f} s (one NCCL rank {t1 - t0:.1f}, gloo "
           f"ranks and matcher {seconds - (t1 - t0):.1f})", flush=True)
     return dict(nccl_one_rank=one_rank, gloo_ranks=ranks, seconds=seconds)
+
+
+# Phase 31, the model axis. (a): MP_WORLD model ranks of one data rank on
+# the one card over gloo, the flagship at the phase-30 batch of one rank
+MP_WORLD = 2
+MP_B = TRAIN_B
+MP_REQUESTS = 3
+MP_STEPS = 3
+# every flagship site at Hpg = 1 takes the kernels it takes at Hpg = 2, a
+# launch a site: tests/test_torch_model_parallel.py sums site_kernels over
+# every site at Hpg / 2 on every route against these
+MP_SERVE_COUNTS = dict(fused_site=FUSED_PER_FORWARD,
+                       lattice_bias=BIAS_PER_FORWARD)
+MP_TRAIN_COUNTS = TRAIN_COUNTS[(False, "nothing")]
+# one request on each folded site at one head a group, a rank: its render
+# equals the default route's bit for bit (each folded kernel equals its
+# per-head sibling, #4 equals #1)
+MP_FOLD_ROUTES = {
+    "fold_rows": (dict(site_fold_rows=True), FOLD_ROWS_PER_FORWARD),
+    "fold_heads": (dict(lattice_route="wide", site_prefetch=True,
+                        site_fold_heads=True), FOLD_HEADS_PER_FORWARD)}
+# one fused_bwd step a route at one head a group: #8 and #9, and #12
+MP_FUSED_ROUTES = {
+    "fused_bwd": (dict(), TRAIN_COUNTS[(True, "nothing")]),
+    "fused_bwd_fold": (dict(site_prefetch=True, site_fold_heads=True),
+                       FOLD_TRAIN_COUNTS)}
+# (b): 2 data x 2 model ranks, phase 5's small model. Its sites round K,
+# Q, p and V to bf16, and the split reorders float32 sums (ConvMLP's
+# partial outputs, the heads' batched products), so that some of those
+# roundings fall otherwise than in one process: on the CPU the split moves
+# its one-step loss by 5.8e-5 of itself, with float32 sites by 2.1e-7,
+# and one process from weights perturbed by DP_PERTURB by 1.7e-4. So (b) is
+# held to phase 30's spread rule with SMALL_DP_REL as its floor, where
+# data ranks alone (phase 30b) hold SMALL_DP_REL itself
+MP_SMALL_DATA = 2
+
+
+def mp_config(work_dir: str, fused_bwd: bool = False, **route):
+    """Phase 6's flagship step (``graph_config``) at B = MP_B, on a route."""
+    cfg = graph_config(fused_bwd, work_dir=work_dir)
+    for k, v in route.items():
+        setattr(cfg.model, k, v)
+    cfg.train.batch_size = MP_B
+    return cfg
+
+
+def mp_rank(rank: int, port: int, tmp: str) -> None:
+    """Phase 31, one of MP_SMALL_DATA x MP_WORLD spawned ranks on the shared
+    card: ranks below MP_WORLD first run (a) in a group of their own
+    (``mp_flagship``) while the others start up, then every rank joins
+    (b) (``mp_small``). Writes ``rank<r>.pt``."""
+    sys.path.insert(0, str(HERE))
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        if rank < MP_WORLD:
+            dist.init_process_group(
+                "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                world_size=MP_WORLD)
+            out = mp_flagship(rank, tmp)
+            dist.destroy_process_group()
+        port_b = int(Path(f"{tmp}/port_b").read_text())
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port_b}", rank=rank,
+            world_size=MP_SMALL_DATA * MP_WORLD)
+        out["small"] = mp_small(tmp)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    except BaseException:
+        Path(f"{tmp}/rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mp_flagship(rank: int, tmp: str) -> dict:
+    """Phase 31a on one of MP_WORLD model ranks of one data rank: serving,
+    the folded sites, MP_STEPS default-route steps and a ``fused_bwd`` step
+    a route, with the split heads and channels."""
+    import torch
+
+    from bevrender_tpu_torch.inference.register import RegistrationPipeline
+    from bevrender_tpu_torch.models.attention import set_site_options
+    from bevrender_tpu_torch.ops import kernels
+    from bevrender_tpu_torch.parallel import dist as pdist
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    pdist.init_model_parallel(MP_WORLD)
+    inputs = torch.load(f"{tmp}/inputs.pt", weights_only=True)
+    weights = torch.load(f"{tmp}/state.pt", weights_only=True)
+    out = {}
+    pipe = RegistrationPipeline(mp_config(tmp), weights, device="cuda")
+    batch = {k: v.cuda() for k, v in inputs["serve"].items()}
+    pipe.build_tile_database(list(inputs["tiles"].numpy()), batch_size=32)
+    pipe.register(batch, top_k=10)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    ms = []
+    for _ in range(MP_REQUESTS):
+        t0 = time.perf_counter()
+        render, idx, dist_ = pipe.register(batch, top_k=10)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["serve"] = dict(counts=kernels.counts(), ms=ms,
+                        render=render.float().cpu(), idx=idx.cpu(),
+                        dist=dist_.cpu(),
+                        equal=ranks_equal(render.float().reshape(-1)))
+    out["fold"] = {}
+    for name, (route, _) in MP_FOLD_ROUTES.items():
+        set_site_options(pipe.net,
+                         **mp_config(tmp, **route).model.site_options())
+        kernels.reset_counts()
+        fold_render = pipe.render(batch)
+        torch.cuda.synchronize()
+        out["fold"][name] = dict(
+            counts=kernels.counts(),
+            diff=float((fold_render.float().cpu()
+                        - out["serve"]["render"]).abs().max()))
+    del pipe, render, fold_render
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(mp_config(tmp), None, device="cuda")
+    state = trainer.create_state(state_dict=weights)
+    losses, equal, ms = [], [], []
+    kernels.reset_counts()
+    for b in inputs["train"]:
+        b = {k: v.cuda() for k, v in b.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m, _ = trainer.train_step(state, b, rng=7)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["train_batch_loss"]))
+        equal.append(ranks_equal(flat_params(state.net)))
+    out["train"] = dict(counts=kernels.counts(), losses=losses,
+                        equal=equal, ms=ms)
+    if rank == 0:
+        out["train"]["params"] = {n: p.detach().cpu() for n, p in
+                                  state.net.named_parameters()}
+    del trainer, state
+    out["fused"] = {}
+    for name, (route, _) in MP_FUSED_ROUTES.items():
+        trainer = Trainer(mp_config(tmp, True, **route), None,
+                          device="cuda")
+        state = trainer.create_state(state_dict=weights)
+        b = {k: v.cuda() for k, v in inputs["train"][0].items()}
+        kernels.reset_counts()
+        state, m, _ = trainer.train_step(state, b, rng=7)
+        torch.cuda.synchronize()
+        out["fused"][name] = dict(
+            counts=kernels.counts(), loss=float(m["train_batch_loss"]),
+            equal=ranks_equal(flat_params(state.net)))
+        del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_small(tmp: str) -> dict:
+    """Phase 31b on one of MP_SMALL_DATA x MP_WORLD ranks: phase 5's small
+    model, one step on its data rank's rows (``small_dp``)."""
+    from bevrender_tpu_torch.parallel import dist as pdist
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    pdist.init_model_parallel(MP_WORLD)
+    cfg, batch = small_dp(tmp)
+    rows = pdist.rank_rows(batch["camera"].shape[0], MP_SMALL_DATA,
+                           pdist.data_rank())
+    small = Trainer(cfg, None, device="cuda")
+    state, m, _ = small.train_step(small.create_state(seed=0), {
+        k: v[rows].cuda() for k, v in batch.items()}, rng=7)
+    return dict(loss=float(m["train_batch_loss"]),
+                equal=ranks_equal(flat_params(state.net)),
+                layout=(pdist.data_rank(), pdist.model_rank()))
+
+
+def mp_one_process(tmp: str) -> dict:
+    """Phase 31a's references in this process: the serving render and the
+    MP_STEPS steps from the seeded state, and again from weights perturbed
+    by DP_PERTURB (the spread); ms/request and ms/step on the host clock."""
+    import torch
+
+    from bevrender_tpu_torch.inference.register import RegistrationPipeline
+    from bevrender_tpu_torch.training.trainer import Trainer
+
+    inputs = torch.load(f"{tmp}/inputs.pt", weights_only=True)
+    weights = torch.load(f"{tmp}/state.pt", weights_only=True)
+    batch = {k: v.cuda() for k, v in inputs["serve"].items()}
+    serve = []
+    for run in range(2):
+        pipe = RegistrationPipeline(mp_config(tmp), weights, device="cuda")
+        if run == 1:
+            perturb_(pipe.net, DP_PERTURB)
+        pipe.build_tile_database(list(inputs["tiles"].numpy()), batch_size=32)
+        pipe.register(batch, top_k=10)
+        ms = []
+        for _ in range(MP_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render, _, _ = pipe.register(batch, top_k=10)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        serve.append(dict(render=render.float().cpu(), ms=ms))
+        del pipe, render
+    trainer = Trainer(mp_config(tmp), None, device="cuda")
+    train = []
+    for run in range(2):
+        state = trainer.create_state(state_dict=weights)
+        if run == 1:
+            perturb_(state.net, DP_PERTURB)
+        losses, ms = [], []
+        for b in inputs["train"]:
+            b = {k: v.cuda() for k, v in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m, _ = trainer.train_step(state, b, rng=7)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["train_batch_loss"]))
+        train.append(dict(losses=torch.tensor(losses), ms=ms, params={
+            n: p.detach().cpu() for n, p in state.net.named_parameters()}))
+    small_cfg, small_batch = small_dp(tmp)
+    small = Trainer(small_cfg, None, device="cuda")
+    small_loss = []
+    for run in range(2):
+        small_state = small.create_state(seed=0)
+        if run == 1:
+            perturb_(small_state.net, DP_PERTURB)
+        _, m, _ = small.train_step(small_state, {
+            k: v.cuda() for k, v in small_batch.items()}, rng=7)
+        small_loss.append(float(m["train_batch_loss"]))
+    del trainer, state, small, small_state
+    release()
+    return dict(serve=serve, train=train, small_loss=small_loss)
+
+
+def model_parallel_phase(card: str) -> dict:
+    """Phase 31: (a) MP_WORLD model ranks of the flagship against one
+    process; (b) MP_SMALL_DATA x MP_WORLD ranks of phase 5's small
+    model."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bevrender_tpu_torch.data.prefetch import collate
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.models.bevrender import BEVRenderNet
+    from bevrender_tpu_torch.models.layers import init_params
+
+    tag = "phase 31a model ranks"
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        cfg = mp_config(tmp)
+        torch.save({k: v.detach().clone() for k, v in init_params(
+            BEVRenderNet(cfg.model), 0).state_dict().items()},
+            f"{tmp}/state.pt")
+        ds = SyntheticDataset(n_items=(MP_STEPS + 1) * MP_B, num_views=3,
+                              window_num_imgs=1, img_height=224,
+                              img_width=224, seed=6)
+        items = [ds[i] for i in range(len(ds))]
+        rng = torch.Generator().manual_seed(1)
+        torch.save(dict(
+            serve={k: torch.as_tensor(v) for k, v in
+                   collate(items[:MP_B]).items()},
+            train=[{k: torch.as_tensor(v) for k, v in collate(
+                items[(i + 1) * MP_B:(i + 2) * MP_B]).items()}
+                for i in range(MP_STEPS)],
+            tiles=torch.rand(64, 224, 224, 3, generator=rng)),
+            f"{tmp}/inputs.pt")
+        one = mp_one_process(tmp)
+        t_one = time.perf_counter()
+        Path(f"{tmp}/port_b").write_text(str(free_port()))
+        everyone = run_dp_ranks(tmp, mp_rank, MP_SMALL_DATA * MP_WORLD,
+                                "phase 31")
+        t_ranks = time.perf_counter()
+        ranks, small = everyone[:MP_WORLD], [r["small"] for r in everyone]
+
+        # serving: the ranks agree, each launches a rank's kernels
+        want = expected(**{k: v * MP_REQUESTS
+                           for k, v in MP_SERVE_COUNTS.items()})
+        for r, res in enumerate(ranks):
+            sv = res["serve"]
+            if sv["counts"] != want:
+                fail(f"{tag}: rank {r} serving launches {sv['counts']} != "
+                     f"{want}")
+            if not (sv["equal"] and torch.equal(sv["render"],
+                                                ranks[0]["serve"]["render"])
+                    and torch.equal(sv["idx"], ranks[0]["serve"]["idx"])
+                    and torch.equal(sv["dist"], ranks[0]["serve"]["dist"])):
+                fail(f"{tag}: rank {r}'s render or top-k differ from rank 0's")
+        sv = ranks[0]["serve"]
+        if tuple(sv["render"].shape) != (MP_B, 224, 224, 3) or not bool(
+                torch.isfinite(sv["render"]).all()):
+            fail(f"{tag}: render shape {tuple(sv['render'].shape)} or "
+                 f"non-finite values")
+        if not bool(((sv["idx"] >= 0) & (sv["idx"] < 64)).all()) or not bool(
+                (sv["dist"][:, 1:] >= sv["dist"][:, :-1]).all()):
+            fail(f"{tag}: top-k indices out of range or not ascending")
+        r_render, _ = spread_ratio(
+            {"render": sv["render"]}, {"render": one["serve"][0]["render"]},
+            {"render": one["serve"][0]["render"]},
+            {"render": one["serve"][1]["render"]})
+        rank_req = statistics.median(sv["ms"])
+        one_req = statistics.median(one["serve"][0]["ms"])
+        print(f"{tag}: {MP_WORLD} model ranks, one head a group each "
+              f"(flagship bf16, B={MP_B}, T=2, V=3, 224x224): launches a "
+              f"rank a request {MP_SERVE_COUNTS}; renders and top-10 equal "
+              f"bit for bit on the ranks; render against one process, worst "
+              f"share of the spread tolerance (one process from weights "
+              f"perturbed by {DP_PERTURB}) {r_render:.3g}; {rank_req:.3f} "
+              f"ms/request a rank (median of {MP_REQUESTS}, host clock, gloo "
+              f"over the host, two ranks time-sharing one card), one "
+              f"process {one_req:.3f} [{card}]", flush=True)
+        if not r_render <= 1.0:
+            fail(f"{tag}: the ranks' render parts from one process beyond "
+                 f"its spread ({r_render})")
+        for name, (_, per) in MP_FOLD_ROUTES.items():
+            for r, res in enumerate(ranks):
+                got = res["fold"][name]
+                if got["counts"] != expected(**per):
+                    fail(f"{tag}: rank {r} {name} launches {got['counts']}"
+                         f" != {expected(**per)}")
+                if got["diff"] != 0.0:
+                    fail(f"{tag}: rank {r} {name} render differs from the "
+                         f"default route's by {got['diff']}")
+        print(f"{tag}: a request on each folded site at one head a group "
+              f"({ {n: per for n, (_, per) in MP_FOLD_ROUTES.items()} }): "
+              f"render equal to the default route's on every rank",
+              flush=True)
+
+        # training: the ranks agree after every step, within the spread
+        want = expected(**{k: v * MP_STEPS
+                           for k, v in MP_TRAIN_COUNTS.items()})
+        for r, res in enumerate(ranks):
+            if res["train"]["counts"] != want:
+                fail(f"{tag}: rank {r} training launches "
+                     f"{res['train']['counts']} != {want}")
+        tr = ranks[0]["train"]
+        if not all(all(res["train"]["equal"]) for res in ranks) or any(
+                res["train"]["losses"] != tr["losses"] for res in ranks):
+            fail(f"{tag}: the ranks' parameters or losses differ: "
+                 f"{[res['train']['equal'] for res in ranks]}")
+        got = torch.tensor(tr["losses"])
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{tag}: a non-finite loss {got}")
+        r_loss, _ = within_spread(
+            {"loss": got}, {"loss": one["train"][0]["losses"]},
+            {"loss": one["train"][1]["losses"]})
+        r_par, at = within_spread(tr["params"], one["train"][0]["params"],
+                                  one["train"][1]["params"])
+        rank_ms = statistics.mean(tr["ms"][1:])
+        one_ms = statistics.mean(one["train"][0]["ms"][1:])
+        print(f"{tag}: {MP_STEPS} steps (MSE, drop path 0.2): parameters "
+              f"equal bit for bit on the ranks after every step; launches a "
+              f"rank a step {MP_TRAIN_COUNTS}; losses "
+              f"{[round(x, 6) for x in tr['losses']]}, one process "
+              f"{[round(float(x), 6) for x in one['train'][0]['losses']]} / "
+              f"perturbed {[round(float(x), 6) for x in one['train'][1]['losses']]}"
+              f"; worst share of the spread tolerance: losses {r_loss:.3g}, "
+              f"parameters {r_par:.3g} ({at}); {rank_ms:.3f} ms/step a rank "
+              f"(steps 2-{MP_STEPS}, host clock), one process {one_ms:.3f} "
+              f"[{card}]", flush=True)
+        if not (r_loss <= 1.0 and r_par <= 1.0):
+            fail(f"{tag}: the ranks' steps part from one process beyond its "
+                 f"spread (losses {r_loss}, parameters {r_par} at {at})")
+        for name, (_, per) in MP_FUSED_ROUTES.items():
+            res = [rk["fused"][name] for rk in ranks]
+            for r, got in enumerate(res):
+                if got["counts"] != expected(**per):
+                    fail(f"{tag}: rank {r} {name} step launches "
+                         f"{got['counts']} != {expected(**per)}")
+            if not (all(g["equal"] for g in res)
+                    and len({g["loss"] for g in res}) == 1
+                    and math.isfinite(res[0]["loss"])):
+                fail(f"{tag}: {name} step: ranks differ or loss "
+                     f"{[g['loss'] for g in res]}")
+        print(f"{tag}: a fused_bwd step a route at one head a group, "
+              f"launches a rank "
+              f"{ {n: per for n, (_, per) in MP_FUSED_ROUTES.items()} }, "
+              f"losses "
+              f"{ {n: round(ranks[0]['fused'][n]['loss'], 6) for n in MP_FUSED_ROUTES} }"
+              f", parameters equal on the ranks", flush=True)
+
+        # (b) data and model ranks together on the small model
+        layouts = [res["layout"] for res in small]
+        if layouts != [(d, m) for d in range(MP_SMALL_DATA)
+                       for m in range(MP_WORLD)]:
+            fail(f"phase 31b: rank layout {layouts}")
+        one_small, pert_small = one["small_loss"]
+        small_rel = abs(small[0]["loss"] - one_small) / abs(one_small)
+        pert_rel = abs(pert_small - one_small) / abs(one_small)
+        r_small, _ = spread_ratio(
+            {"loss": torch.tensor([small[0]["loss"]])},
+            {"loss": torch.tensor([one_small])},
+            {"loss": torch.tensor([one_small])},
+            {"loss": torch.tensor([pert_small])})
+        print(f"phase 31b data x model ranks: {MP_SMALL_DATA} x {MP_WORLD} "
+              f"(rank d * {MP_WORLD} + m), phase 5's small model one step "
+              f"(MSE, drop path 0.2): loss {small[0]['loss']!r}, one process "
+              f"{one_small!r}, relative {small_rel:.3g}; one process from "
+              f"weights perturbed by {DP_PERTURB} {pert_rel:.3g}; worst share "
+              f"of the spread tolerance (floor {SMALL_DP_REL}) "
+              f"{r_small:.3g}; parameters equal on all ranks", flush=True)
+        if not (all(res["equal"] for res in small)
+                and len({res["loss"] for res in small}) == 1
+                and r_small <= 1.0):
+            fail(f"phase 31b: the ranks' step {[r['loss'] for r in small]} "
+                 f"against {one_small} (perturbed {pert_small})")
+        seconds = time.perf_counter() - t0
+        print(f"phase 31: {seconds:.1f} s (one process {t_one - t0:.1f}, "
+              f"the ranks of (a) and (b) {t_ranks - t_one:.1f}, the rest "
+              f"{seconds - (t_ranks - t0):.1f})", flush=True)
+        return dict(
+            world=MP_WORLD, rows=MP_B, requests=MP_REQUESTS, steps=MP_STEPS,
+            launches_rank_request=MP_SERVE_COUNTS,
+            launches_rank_step=MP_TRAIN_COUNTS,
+            launches_rank_fold={n: ranks[0]["fold"][n]["counts"]
+                                for n in MP_FOLD_ROUTES},
+            launches_rank_fused_step={n: ranks[0]["fused"][n]["counts"]
+                                      for n in MP_FUSED_ROUTES},
+            render_ratio=r_render, loss_ratio=r_loss, param_ratio=r_par,
+            losses=tr["losses"],
+            one_process_losses=[one["train"][0]["losses"].tolist(),
+                                one["train"][1]["losses"].tolist()],
+            rank_ms_per_request=rank_req, one_process_ms_per_request=one_req,
+            rank_ms_per_step=rank_ms, one_process_ms_per_step=one_ms,
+            small_model_loss_rel=small_rel,
+            small_model_perturbed_rel=pert_rel,
+            small_model_spread_ratio=r_small, seconds=seconds)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        release()
 
 
 def main() -> None:
@@ -4522,6 +4987,11 @@ def main() -> None:
     # the sharded matcher on them ----
     parallel = parallel_phase(card, keep, match_in)
 
+    stamp("phase 31")
+    # ---- the model axis: two model ranks of the flagship on the card,
+    # and data x model ranks of the small model ----
+    model_parallel = model_parallel_phase(card)
+
     def entry(name, route, src, replaces, data, launches, **more):
         per = "per_forward" if "per_forward" in data["rows"][0] else "per_step"
         top = max(data["rows"], key=lambda r: r[per] * r["ms"])
@@ -4542,6 +5012,16 @@ def main() -> None:
     stream_frame = {k: n // stream["frames"] for k, n in stream["counts"].items()}
     dp_step = {k: n // DP_STEPS for k, n in
                parallel["gloo_ranks"]["launches_a_rank"].items()}
+
+    def mp_launch(name, what):
+        """A model rank's launches of ``name`` in phase 31a: a request, a
+        default-route step, or the one request or step of a folded or
+        fused_bwd route."""
+        per = {"request": model_parallel["launches_rank_request"],
+               "step": model_parallel["launches_rank_step"],
+               **model_parallel["launches_rank_fold"],
+               **model_parallel["launches_rank_fused_step"]}[what]
+        return per.get(name, 0)
     record = {"kernels": [
         entry("lattice_bias", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias.cu",
@@ -4560,6 +5040,8 @@ def main() -> None:
               launches_graphed_step_fused_bwd=graphed["fused_bwd"][
                   "captured_per_step"]["lattice_bias"],
               launches_dp_rank_step=dp_step["lattice_bias"],
+              launches_mp_rank_request=mp_launch("lattice_bias", "request"),
+              launches_mp_rank_step=mp_launch("lattice_bias", "step"),
               per_shape_train=bias_bwd["fwd_rows"],
               per_shape_pyramid=pyr_bias["lattice_bias"]["rows"]),
         entry("fused_site", "cuda",
@@ -4574,7 +5056,9 @@ def main() -> None:
                   "fused_site"],
               launches_graphed_step=graphed["default"]["captured_per_step"][
                   "fused_site"],
-              launches_dp_rank_step=dp_step["fused_site"]),
+              launches_dp_rank_step=dp_step["fused_site"],
+              launches_mp_rank_request=mp_launch("fused_site", "request"),
+              launches_mp_rank_step=mp_launch("fused_site", "step")),
         entry("lattice_bias_bwd", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_bwd.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:829", bias_bwd,
@@ -4586,6 +5070,7 @@ def main() -> None:
               launches_graphed_step=graphed["default"]["captured_per_step"][
                   "lattice_bias_bwd"],
               launches_dp_rank_step=dp_step["lattice_bias_bwd"],
+              launches_mp_rank_step=mp_launch("lattice_bias_bwd", "step"),
               per_step_ms=bias_bwd["per_step_ms"],
               per_step_ms_pyramid=pyr_bias["lattice_bias_bwd"]["per_step_ms"],
               per_shape_pyramid=pyr_bias["lattice_bias_bwd"]["rows"]),
@@ -4594,13 +5079,17 @@ def main() -> None:
               "bevrender_tpu/ops/pallas/fused_attn.py:278", site_lse,
               train_fused["counts"]["fused_site_lse"],
               launches_graphed_step_fused_bwd=graphed["fused_bwd"][
-                  "captured_per_step"]["fused_site_lse"]),
+                  "captured_per_step"]["fused_site_lse"],
+              launches_mp_rank_step_fused_bwd=mp_launch(
+                  "fused_site_lse", "fused_bwd")),
         entry("fused_site_bwd", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site_bwd.cu",
               "bevrender_tpu/ops/pallas/fused_attn.py:429", site_bwd,
               train_fused["counts"]["fused_site_bwd"],
               launches_graphed_step_fused_bwd=graphed["fused_bwd"][
-                  "captured_per_step"]["fused_site_bwd"]),
+                  "captured_per_step"]["fused_site_bwd"],
+              launches_mp_rank_step_fused_bwd=mp_launch(
+                  "fused_site_bwd", "fused_bwd")),
         entry("lattice_bias_wide", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_bias_wide.cu",
               "bevrender_tpu/ops/pallas/lattice_bias.py:422",
@@ -4646,15 +5135,21 @@ def main() -> None:
         entry("fused_site_fold_heads", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site_fold_heads.cu",
               "bevrender_tpu/ops/pallas/experimental.py:439", site_heads,
-              fold_heads_serve["counts"]["fused_site_fold_heads"]),
+              fold_heads_serve["counts"]["fused_site_fold_heads"],
+              launches_mp_rank_request=mp_launch("fused_site_fold_heads",
+                                                 "fold_heads")),
         entry("fused_site_fold_heads_lse", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site_fold_heads.cu",
               "bevrender_tpu/ops/pallas/experimental.py:560", site_heads_lse,
-              fold_train["counts"]["fused_site_fold_heads_lse"]),
+              fold_train["counts"]["fused_site_fold_heads_lse"],
+              launches_mp_rank_step_fused_bwd=mp_launch(
+                  "fused_site_fold_heads_lse", "fused_bwd_fold")),
         entry("fused_site_fold_rows", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/fused_site_fold_rows.cu",
               "bevrender_tpu/ops/pallas/experimental.py:659", site_rows,
-              fold_rows_serve["counts"]["fused_site_fold_rows"]),
+              fold_rows_serve["counts"]["fused_site_fold_rows"],
+              launches_mp_rank_request=mp_launch("fused_site_fold_rows",
+                                                 "fold_rows")),
         entry("lattice_windows", "cuda",
               "bevrender_tpu_torch/ops/kernels/csrc/lattice_windows.cu",
               "bevrender_tpu/ops/pallas/lattice_win.py:169", win_fwd,
@@ -4679,6 +5174,7 @@ def main() -> None:
                     "pyramid_serving": pyr_windows, "bias": win_bias},
         "retrieval_head": head, "streaming": stream, "file_feed": feed,
         "graphed": graphed, "parallel": parallel,
+        "model_parallel": model_parallel,
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}

@@ -95,8 +95,10 @@ def test_layouts_are_mapped():
 
 
 def test_unknown_leaf_is_refused():
+    # ("gamma" is LayerScale's parameter since the reference API's layers
+    # were ported; "beta" names no parameter of either package)
     with pytest.raises(ValueError, match="unknown flax parameter"):
-        flax_to_state_dict({"params": {"x": {"gamma": np.zeros(3, np.float32)}}})
+        flax_to_state_dict({"params": {"x": {"beta": np.zeros(3, np.float32)}}})
     with pytest.raises(ValueError, match="rank 3"):
         flax_to_state_dict({"params": {"x": {"kernel": np.zeros((1, 2, 3))}}})
 

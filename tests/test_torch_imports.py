@@ -79,6 +79,13 @@ UTILS_GRAPH_MODULES = (
 PARALLEL_MODULES = ("parallel/dist.py",)
 
 
+# the model axis and the reference API: the losses package, which now
+# exports the reference API's loss classes (the model axis threads through
+# parallel/dist.py, models/attention.py, models/layers.py and the
+# projector's geometry/projection.py, named above)
+MODEL_AXIS_MODULES = ("losses/__init__.py",)
+
+
 def _port_files():
     return sorted((ROOT / "bevrender_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -113,7 +120,7 @@ def test_port_imports_no_jax():
                          + WIDE_ROUTE_MODULES + FOLD_MODULES
                          + WINDOWS_MODULES + RETRIEVAL_MODULES
                          + DATA_MODULES + UTILS_GRAPH_MODULES
-                         + PARALLEL_MODULES)
+                         + PARALLEL_MODULES + MODEL_AXIS_MODULES)
 def test_training_module_imports_no_jax(module):
     path = ROOT / "bevrender_tpu_torch" / module
     assert path.exists()
