@@ -1,0 +1,8 @@
+"""The allocator's counter ``torch.cuda.max_memory_allocated()`` over
+set-up and window, the largest over ranks, in GiB."""
+
+
+def read(rec):
+    if rec["kind"] != "register":
+        return None
+    return rec["peak"] / 2 ** 30
