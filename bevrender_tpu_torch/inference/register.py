@@ -36,6 +36,7 @@ from bevrender_tpu_torch.models.bevrender import BEVRenderNet
 from bevrender_tpu_torch.models.layers import init_params
 from bevrender_tpu_torch.parallel import dist as pdist
 from bevrender_tpu_torch.training.checkpoint import restore_model
+from bevrender_tpu_torch.utils.profiling import annotation
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
@@ -139,13 +140,18 @@ class RegistrationPipeline:
     def register(self, batch: Dict, top_k: int = 10
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Render, embed and match: (render, top-k tile indices, top-k
-        distances), nearest first."""
+        distances), nearest first. Spans: ``register`` around the whole
+        request, ``register.match`` around the embedding, the product with
+        the database and the top-k."""
         if self._tile_db is None:
             raise RuntimeError("call build_tile_database first")
         db = self._tile_db
-        out = self.net(*self._inputs(batch))
-        sims = torch.matmul(self.embed(out).to(db.dtype), db.T).float()
-        neg_dist, idx = torch.topk(-(2.0 - 2.0 * sims), min(top_k, db.shape[0]))
+        with annotation("register"):
+            out = self.net(*self._inputs(batch))
+            with annotation("register.match"):
+                sims = torch.matmul(self.embed(out).to(db.dtype), db.T).float()
+                neg_dist, idx = torch.topk(-(2.0 - 2.0 * sims),
+                                           min(top_k, db.shape[0]))
         return out, idx, -neg_dist
 
     def _frame_step(self, frame, prev_bev, pose_pair, vtype, tiles):

@@ -29,6 +29,7 @@ from bevrender_tpu_torch.models.decoder import BEVImageRenderDecoder
 from bevrender_tpu_torch.models.encoder import BEVEncoder
 from bevrender_tpu_torch.models.layers import compute_dtype, make_norm
 from bevrender_tpu_torch.models.retrieval import RetrievalHead
+from bevrender_tpu_torch.utils.profiling import annotation
 
 
 def reference_points(cfg: ModelConfig) -> list:
@@ -105,7 +106,7 @@ class BEVRenderNet(nn.Module):
             pose_pair = vehicle_pose[:, T - 2:T]
         bev = self.encoder(bev_query, images[:, -1], prev_bev, pose_pair,
                            ref_pts, align_history=not self.training)
-        return self.decoder(bev)
+        return self.decode(bev)
 
     def _history_pass(self, bev_query: torch.Tensor, frame: torch.Tensor,
                       prev_bev, pose_pair: torch.Tensor,
@@ -130,8 +131,10 @@ class BEVRenderNet(nn.Module):
             pose_pair, self._ref_pts(vehicle_type))
 
     def decode(self, bev: torch.Tensor) -> torch.Tensor:
-        """The render of a BEV (bevrender.py:174-175)."""
-        return self.decoder(bev)
+        """The render of a BEV (bevrender.py:174-175), in the span
+        ``model.decoder``."""
+        with annotation("model.decoder"):
+            return self.decoder(bev)
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """Retrieval embedding of renders or map tiles (bevrender.py:

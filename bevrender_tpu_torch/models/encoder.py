@@ -46,6 +46,7 @@ from bevrender_tpu_torch.models.layers import (
     compute_dtype,
     make_norm,
 )
+from bevrender_tpu_torch.utils.profiling import annotation
 
 
 class EncoderLayer(nn.Module):
@@ -153,15 +154,18 @@ class BEVEncoder(nn.Module):
         """images (B, V, H, W, 3); vehicle_pose (B, 2, 3) (previous,
         current); reference_points: per stage (V, h2, w * depth, 2)."""
         B, V = images.shape[:2]
-        feat = self.img_backbone(images.reshape((B * V,) + images.shape[2:]))
+        with annotation("encoder.backbone"):
+            feat = self.img_backbone(
+                images.reshape((B * V,) + images.shape[2:]))
         img_feat = feat.reshape((B, V) + feat.shape[1:])
         if prev_bev is not None and align_history:
             prev_bev = project_history_bev(prev_bev, vehicle_pose)
         x = bev_query
         for s in range(self.n_stages):
             fix = getattr(self, f"img_width_fix{s}", None)
-            x = getattr(self, f"stage{s}")(
-                x, img_feat if fix is None else fix(img_feat),
-                prev_bev if self.with_history[s] else None,
-                reference_points[s])
+            with annotation(f"encoder.stage{s}"):
+                x = getattr(self, f"stage{s}")(
+                    x, img_feat if fix is None else fix(img_feat),
+                    prev_bev if self.with_history[s] else None,
+                    reference_points[s])
         return x

@@ -76,6 +76,7 @@ from bevrender_tpu_torch.ops.kernels._launch import (
     window_width,
 )
 from bevrender_tpu_torch.parallel import dist as pdist
+from bevrender_tpu_torch.utils.profiling import annotation
 
 # float32 constants of the site kernels, which keep their scores in base 2
 LOG2E = float(np.float32(1.4426950408889634))
@@ -779,32 +780,38 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     v that one sample of the batch holds (its views, where they are folded
     into the batch), for the mask of a data-parallel rank; ``head_part``
     (m, M) says that q, k, v and the table hold model rank m's run of each
-    group's heads, for the mask of a model-parallel rank."""
-    use_dropout = dropout_rate > 0.0
-    options = SiteOptions(
-        fused_bwd=fused_bwd, site_remat=site_remat, lattice_route=lattice_route,
-        site_prefetch=site_prefetch, bias_forward=bias_forward,
-        site_fold_heads=site_fold_heads, site_fold_rows=site_fold_rows,
-        fused_fwd_fold=fused_fwd_fold)
-    kernel = site_kernels(q.shape, rpe_table.shape, H, W, options,
-                          training=not fuse_site, dropout=use_dropout)[0]
-    if kernel.endswith("_lse"):
-        return fused_site_train(q, k, v, k_pos, rpe_table, H, W, scale, kernel)
-    if kernel.startswith("fused_site"):
-        return fused_site(q, k, v, k_pos, rpe_table, H, W, scale, kernel)
-    keep = None
-    if use_dropout:
-        keep = _keep_mask(k.shape[:-1] + (q.shape[-2],), dropout_rate,
-                          generator, q.device, rows_per_sample, head_part)
+    group's heads, for the mask of a model-parallel rank. The span
+    ``site`` holds the call, outside the region that ``site_remat``
+    recomputes: the recompute neither takes it for an operation nor emits
+    it again."""
+    with annotation("site"):
+        use_dropout = dropout_rate > 0.0
+        options = SiteOptions(
+            fused_bwd=fused_bwd, site_remat=site_remat,
+            lattice_route=lattice_route, site_prefetch=site_prefetch,
+            bias_forward=bias_forward, site_fold_heads=site_fold_heads,
+            site_fold_rows=site_fold_rows, fused_fwd_fold=fused_fwd_fold)
+        kernel = site_kernels(q.shape, rpe_table.shape, H, W, options,
+                              training=not fuse_site, dropout=use_dropout)[0]
+        if kernel.endswith("_lse"):
+            return fused_site_train(q, k, v, k_pos, rpe_table, H, W, scale,
+                                    kernel)
+        if kernel.startswith("fused_site"):
+            return fused_site(q, k, v, k_pos, rpe_table, H, W, scale, kernel)
+        keep = None
+        if use_dropout:
+            keep = _keep_mask(k.shape[:-1] + (q.shape[-2],), dropout_rate,
+                              generator, q.device, rows_per_sample, head_part)
 
-    def full_site(q, k, v, k_pos, table):
-        if kernel == "lattice_windows":
-            bias = lattice_bias_windowed(table, k_pos, H, W)
-        else:
-            bias = lattice_bias(table, k_pos, H, W, kernel)
-        return site_consumer(q, k, v, bias, scale, keep, dropout_rate)
+        def full_site(q, k, v, k_pos, table):
+            if kernel == "lattice_windows":
+                bias = lattice_bias_windowed(table, k_pos, H, W)
+            else:
+                bias = lattice_bias(table, k_pos, H, W, kernel)
+            return site_consumer(q, k, v, bias, scale, keep, dropout_rate)
 
-    return _maybe_remat(full_site, site_remat, q, k, v, k_pos, rpe_table)
+        return _maybe_remat(full_site, site_remat, q, k, v, k_pos,
+                            rpe_table)
 
 
 def bilinear_table_lookup(table, disp) -> torch.Tensor:

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from bevrender_tpu_torch.parallel import dist as pdist
+from bevrender_tpu_torch.utils.profiling import annotation
 
 # the batch entries a training step reads
 STEP_INPUTS = ("camera", "vehicle_pose", "vehicle_type", "map")
@@ -153,10 +154,12 @@ class GraphedStep:
     def __call__(self, state, batch: Dict[str, torch.Tensor], seed: int):
         """One replay on ``batch`` (one step's slice, on the device) with
         the dropout generator seeded by ``seed``; returns fresh copies of
-        the step's metrics and render."""
-        for k, dst in self.static.items():
-            dst.copy_(batch[k], non_blocking=True)
-        self.trainer._gen.manual_seed(seed)
-        self.graph.replay()
-        return ({k: v.clone() for k, v in self.metrics.items()},
-                self.render.clone())
+        the step's metrics and render. The call is the span
+        ``train.replay``."""
+        with annotation("train.replay"):
+            for k, dst in self.static.items():
+                dst.copy_(batch[k], non_blocking=True)
+            self.trainer._gen.manual_seed(seed)
+            self.graph.replay()
+            return ({k: v.clone() for k, v in self.metrics.items()},
+                    self.render.clone())

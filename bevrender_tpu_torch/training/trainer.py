@@ -79,6 +79,7 @@ from bevrender_tpu_torch.training import checkpoint as ckpt
 from bevrender_tpu_torch.training.graph_step import GraphedStep, signature
 from bevrender_tpu_torch.training.metrics import MetricsLogger, get_logger
 from bevrender_tpu_torch.training.schedule import warmup_cosine_lambda
+from bevrender_tpu_torch.utils.profiling import annotation
 
 
 @dataclasses.dataclass
@@ -306,16 +307,22 @@ class Trainer:
         with one all-reduce before the clip, which then sees the global
         gradient: the model ranks of a data rank hold the same whole
         gradients (``parallel.dist.enter_model``), so the mean over every
-        rank is the data ranks' mean, with the same bits on every rank."""
+        rank is the data ranks' mean, with the same bits on every rank.
+        Spans: ``train.forward`` (net and losses), ``train.backward``
+        (the backward and the fill of missing gradients) and
+        ``train.optimizer`` (clip and AdamW)."""
         net.train()
-        out = net(batch["camera"], batch["vehicle_pose"], batch["vehicle_type"])
-        total, parts = losses_fn(net, out, batch)
-        opt.zero_grad(set_to_none=True)
-        total.backward()
+        with annotation("train.forward"):
+            out = net(batch["camera"], batch["vehicle_pose"],
+                      batch["vehicle_type"])
+            total, parts = losses_fn(net, out, batch)
         params = list(net.parameters())
-        for p in params:  # optax updates (and decays) every parameter
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        with annotation("train.backward"):
+            opt.zero_grad(set_to_none=True)
+            total.backward()
+            for p in params:  # optax updates (and decays) every parameter
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         losses = {"train_batch_loss": total.detach()}
         for k, v in parts.items():
             losses[f"train_batch_{k}_loss"] = v.detach()
@@ -323,9 +330,10 @@ class Trainer:
             losses = {k: v.clone() for k, v in losses.items()}
             pdist.all_reduce_mean_([p.grad for p in params]
                                    + list(losses.values()))
-        grad_norm = clip_by_global_norm_([p.grad for p in params],
-                                         self.tc.grad_clip_norm)
-        opt.step()
+        with annotation("train.optimizer"):
+            grad_norm = clip_by_global_norm_([p.grad for p in params],
+                                             self.tc.grad_clip_norm)
+            opt.step()
         metrics = {"train_batch_loss": losses.pop("train_batch_loss"),
                    "camera_encoder_grad_norm": grad_norm, **losses}
         return metrics, out.detach()
@@ -344,23 +352,27 @@ class Trainer:
         CUDA graph of the step (``graph_step.GraphedStep``, captured at the
         first call for a batch shape and again when the state's tensors
         change), which needs ``steps_per_dispatch`` > 1 (a capturable
-        AdamW); on the CPU each is a plain step."""
-        batches = self._to_device(batches)
-        k = next(iter(batches.values())).shape[0]
-        per_step = []
-        for i in range(k):
-            batch = {key: v[i] for key, v in batches.items()}
-            if self.device.type == "cuda":
-                state, metrics, render = self._graph_step(state, batch, rng)
-            else:
-                # a fresh tensor each, as ``train_step``'s batch is: a CPU
-                # kernel may sum in another order on a view at an offset
-                state, metrics, render = self._step_with(
-                    state, {key: v.clone() for key, v in batch.items()}, rng,
-                    self._forward_losses)
-            per_step.append(metrics)
-        metrics = {key: torch.stack([m[key] for m in per_step])
-                   for key in per_step[0]}
+        AdamW); on the CPU each is a plain step. The call is the span
+        ``train.dispatch``."""
+        with annotation("train.dispatch"):
+            batches = self._to_device(batches)
+            k = next(iter(batches.values())).shape[0]
+            per_step = []
+            for i in range(k):
+                batch = {key: v[i] for key, v in batches.items()}
+                if self.device.type == "cuda":
+                    state, metrics, render = self._graph_step(state, batch,
+                                                              rng)
+                else:
+                    # a fresh tensor each, as ``train_step``'s batch is: a
+                    # CPU kernel may sum in another order on a view at an
+                    # offset
+                    state, metrics, render = self._step_with(
+                        state, {key: v.clone() for key, v in batch.items()},
+                        rng, self._forward_losses)
+                per_step.append(metrics)
+            metrics = {key: torch.stack([m[key] for m in per_step])
+                       for key in per_step[0]}
         return state, metrics, render
 
     def _graph_step(self, state: TrainState, batch, rng: int):

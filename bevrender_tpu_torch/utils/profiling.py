@@ -1,7 +1,7 @@
 """Tracing and profiling hooks (counterpart of
 bevrender_tpu/utils/profiling.py): a ``torch.profiler`` trace, named
-ranges, a per-step timer that waits for the device, and the device's
-memory counters."""
+ranges (the port's spans), a per-step timer that waits for the device,
+and the device's memory counters."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from pathlib import Path
 from typing import Dict, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -31,11 +32,21 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{n}.json"))
 
 
-@contextlib.contextmanager
-def annotation(name: str) -> Iterator[None]:
-    """A named range in a ``trace`` (``torch.profiler.record_function``)."""
-    with torch.profiler.record_function(name):
-        yield
+# what ``annotation`` gives while no profiler runs: one shared, stateless
+# context, so that a span then costs one attribute read
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotation(name: str):
+    """The port's span: a named range in a ``trace``
+    (``torch.profiler.record_function``), which the profiler writes into
+    the same Chrome trace, on the same clock, as the device's activity.
+    Its start, end and enclosing spans (by nesting on its thread) are the
+    trace's. While no profiler runs it enters nothing: a shared null
+    context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _synchronize(result) -> None:

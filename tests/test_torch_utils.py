@@ -52,6 +52,29 @@ def test_trace_writes_a_file_with_the_annotation(tmp_path):
     assert any(e.get("name") == "port_annotation_probe" for e in events)
 
 
+def test_annotation_without_a_profiler_enters_nothing(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    first = tprof.annotation("a")
+    assert tprof.annotation("b") is first
+    with tprof.annotation("c"):
+        with tprof.annotation("d"):
+            torch.ones(2).add_(1)
+
+
+def test_annotation_under_a_profiler_is_a_named_range():
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        span = tprof.annotation("port_span_probe")
+        assert span is not tprof.annotation("port_span_probe")
+        with span:
+            torch.ones(2).add_(1)
+    assert "port_span_probe" in [e.key for e in prof.key_averages()]
+
+
 def test_device_memory_stats_of_the_cpu_is_none():
     assert tprof.device_memory_stats("cpu") is None
     assert tprof.device_memory_stats(torch.device("cpu")) is None
