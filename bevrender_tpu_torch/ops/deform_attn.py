@@ -14,16 +14,20 @@ starts plus fractions (``lattice_geometry``). Window starts are clipped, so
 a key displaced past the pad reads a clamped window, not zeros.
 
 Hand-written CUDA kernels carry this on the card (``ops/kernels``):
-``lattice_bias`` computes the bias alone (sites of head widths other than
-4 and 8, and every site of a training pass unless ``fused_bwd`` is chosen;
-scores, softmax and AV stay plain PyTorch there) and ``lattice_bias_bwd`` is
-its backward, or ``lattice_bias_wide`` and ``lattice_bias_wide_bwd`` where the
-table does not fit their shared memory (``bias_route``); ``fused_site``
+``lattice_bias`` computes the bias alone (eval sites of head widths other
+than 4, 8, 16 and 32, and every site of a training pass unless ``fused_bwd``
+is chosen; scores, softmax and AV stay plain PyTorch there) and
+``lattice_bias_bwd`` is its backward, or ``lattice_bias_wide`` and
+``lattice_bias_wide_bwd`` where the table does not fit their shared memory
+(``bias_route``); ``fused_site``
 computes bias, scores, an online softmax and AV in one pass (head width 4
 or 8, no gradient), ``fused_site_lse`` also returns the logsumexp and
 ``fused_site_bwd`` is the flash-style backward of that site;
 ``fused_site_wide`` and ``fused_site_wide_lse`` are the fused site on a
 table that does not fit ``fused_site``'s shared memory (``site_route``).
+``fused_site_mma`` is the eval site at head widths 16 and 32, on the tensor
+cores (no gradient; on the "auto" route where its shared memory holds the
+table, ``fused_site_mma.fits``).
 ``SiteOptions.lattice_route="wide"`` sends every site to the wide kernels,
 and ``site_prefetch`` / ``bias_forward="prefetch"`` take their variants
 that stage the key windows in shared memory by asynchronous copies
@@ -65,6 +69,7 @@ from torch.utils.checkpoint import (
 from bevrender_tpu_torch.ops.kernels import fused_site as _fused_site_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_bwd as _site_bwd_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_fold as _fold_kernel
+from bevrender_tpu_torch.ops.kernels import fused_site_mma as _mma_kernel
 from bevrender_tpu_torch.ops.kernels import fused_site_wide as _wide_site_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias as _bias_kernel
 from bevrender_tpu_torch.ops.kernels import lattice_bias_bwd as _bias_bwd_kernel
@@ -253,9 +258,9 @@ def site_plain(q, k, v, k_pos, table, H: int, W: int, scale: float,
                compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of the fused site kernels (``fused_site``,
     ``fused_site_wide``, ``fused_site_wide_prefetch``,
-    ``fused_site_fold_rows``, ``fused_site_fold_heads``; ``_site_xla`` with
-    the plain bias). Autograd through it is the plain version of the
-    ``fused_site_bwd`` kernel."""
+    ``fused_site_fold_rows``, ``fused_site_fold_heads``, ``fused_site_mma``;
+    ``_site_xla`` with the plain bias). Autograd through it is the plain
+    version of the ``fused_site_bwd`` kernel."""
     bias = lattice_bias_plain(table, k_pos, H, W, compute_dtype)
     return site_consumer(q, k, v, bias, scale)
 
@@ -459,12 +464,22 @@ def site_kernels(q_shape, table_shape, H: int, W: int, options: SiteOptions,
     ``fused_site_fold_rows`` for ``fused_site``, ``site_fold_heads``
     ``fused_site_fold_heads`` for ``fused_site_wide_prefetch``, and
     ``fold_train_forward`` the forward ``fused_site_fold_heads_lse`` of a
-    ``fused_bwd`` site on either route. ``streamed_deform_attention``
+    ``fused_bwd`` site on either route. An eval site of head width 16 or 32
+    (``fused_site_mma.HEAD_WIDTHS``) with no dropout takes
+    ``fused_site_mma`` on the "auto" route where one head's padded table
+    and that kernel's key stages fit a block (``fused_site_mma.fits``), so
+    ``bias_forward`` does not reach it, as it does not reach the narrow
+    fused sites; on "wide", over the fit, and in every training pass such a
+    site keeps the bias route. ``streamed_deform_attention``
     dispatches on the first name, so a run's launch counts follow from the
     shapes and the options alone."""
     ch = q_shape[-1]
     wide = options.lattice_route == "wide"
     _, Hpg, Ht, Wt = table_shape
+    if (not training and not dropout and not wide
+            and ch in _mma_kernel.HEAD_WIDTHS
+            and _mma_kernel.fits(Ht, padded_width(Wt), ch)):
+        return ("fused_site_mma",)
     fused = (ch in _fused_site_kernel.HEAD_WIDTHS and not dropout
              and (not training
                   or (options.fused_bwd and _site_bwd_fits(table_shape, W, ch))))
@@ -648,10 +663,10 @@ def fused_site(q, k, v, k_pos, table, H: int, W: int, scale: float,
                kernel: str | None = None) -> torch.Tensor:
     """Whole attention site (B, G, Hpg, M, ch) float32, no gradient: for
     CUDA tensors the fused CUDA kernel ``kernel`` ("fused_site",
-    "fused_site_wide", "fused_site_wide_prefetch", "fused_site_fold_rows" or
-    "fused_site_fold_heads"; by default as ``site_kernels`` chooses in
-    eval), the plain version for CPU. The site that trains is
-    ``fused_site_train``."""
+    "fused_site_wide", "fused_site_wide_prefetch", "fused_site_fold_rows",
+    "fused_site_fold_heads" or, at head widths 16 and 32, "fused_site_mma";
+    by default as ``site_kernels`` chooses in eval), the plain version for
+    CPU. The site that trains is ``fused_site_train``."""
     if not q.is_cuda:
         return site_plain(q, k, v, k_pos, table, H, W, scale)
     for t in (q, k, v, k_pos, table):
@@ -667,7 +682,8 @@ def fused_site(q, k, v, k_pos, table, H: int, W: int, scale: float,
     *geo, Xp = _kernel_args(table, k_pos, H, W)
     qkv = tuple(t.detach().to(bf).contiguous() for t in (q, k, v))
     with_xp = {"fused_site": _fused_site_kernel.fused_site_cuda,
-               "fused_site_fold_rows": _fold_kernel.fused_site_fold_rows_cuda}
+               "fused_site_fold_rows": _fold_kernel.fused_site_fold_rows_cuda,
+               "fused_site_mma": _mma_kernel.fused_site_mma_cuda}
     if kernel in with_xp:
         return with_xp[kernel](*geo, Xp, *qkv, H, W, float(scale))
     launch = {"fused_site_wide": _wide_site_kernel.fused_site_wide_cuda,
@@ -767,10 +783,12 @@ def streamed_deform_attention(q, k, v, k_pos, rpe_table, H: int, W: int, *,
     that the pass is an eval one (no gradient).
 
     The fused site (eval) and the fused training site are built for head
-    widths 4 and 8; a site of another head width takes the bias route, as
-    wider heads do. A site that takes the bias computes it alone (with the
-    bias kernels, or the windowed bias under ``bias_forward="windows"``)
-    and the plain consumer does the rest, under ``site_remat``: "nothing"
+    widths 4 and 8, the eval site on the tensor cores (``fused_site_mma``)
+    for 16 and 32; a site of another head width takes the bias route, as a
+    training site of width 16 or 32 does. A site that takes the bias
+    computes it alone (with the bias kernels, or the windowed bias under
+    ``bias_forward="windows"``) and the plain consumer does the rest, under
+    ``site_remat``: "nothing"
     saves the site's inputs only and recomputes bias, scores and softmax
     in the backward, "dots" also saves the scores and AV products and
     recomputes the bias and the elementwise tail, "none" lets autograd

@@ -6,6 +6,7 @@ from bevrender_tpu_torch.ops.kernels import (
     fused_site,
     fused_site_bwd,
     fused_site_fold,
+    fused_site_mma,
     fused_site_wide,
     lattice_bias,
     lattice_bias_bwd,
@@ -30,6 +31,7 @@ _COUNTERS = {
     "fused_site_fold_heads_lse": (fused_site_fold, "launches_heads_lse"),
     "lattice_windows": (lattice_windows, "launches"),
     "lattice_windows_bwd": (lattice_windows, "launches_bwd"),
+    "fused_site_mma": (fused_site_mma, "launches"),
 }
 
 

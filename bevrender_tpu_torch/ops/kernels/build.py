@@ -27,7 +27,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "bevrender_tpu_torc
 SOURCES = ("lattice_bias", "fused_site", "lattice_bias_bwd", "fused_site_bwd",
            "lattice_bias_wide", "lattice_bias_wide_bwd", "fused_site_wide",
            "fused_site_wide_prefetch", "lattice_bias_wide_prefetch",
-           "fused_site_fold_rows", "fused_site_fold_heads", "lattice_windows")
+           "fused_site_fold_rows", "fused_site_fold_heads", "lattice_windows",
+           "fused_site_mma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,7 +9,8 @@ Phases, each fatal on failure:
    source, all at once);
 3. the flagship render+register path (bf16, B=4, T=2, V=3, 224x224,
    64-tile database, seeded weights): the launch counters must show 24
-   fused-site and 64 bias launches per forward; time of a window of
+   fused-site and 64 ``fused_site_mma`` launches per forward (head widths
+   4 and 8; 16 and 32); time of a window of
    requests, its spread, the host's CPU time, peak memory and the
    device's idle share;
 4. each kernel against its plain PyTorch version at every shape the main
@@ -20,9 +21,16 @@ Phases, each fatal on failure:
    and the least time the card could take (bytes or operations over the
    H100's published peaks); the fused site's plan at each shape
    (``fused_site.site_plan``: strip, blocks, blocks an SM, waves);
+   ``fused_site_mma`` at the registration cell's call shapes (B=32) and
+   the pyramid's (MMA_SITES, MMA_CHECK_SITES) against its plain version
+   and ``site_consumer_online`` (MMA_ONLINE_TOL, MMA_FLIP_SHARE), its
+   time, picoseconds a pair, warps a block and blocks an SM beside the
+   plain version, the bias route (bias kernel and plain consumer),
+   SDPA with the bias as a mask and the bound (``check_mma_site``);
 5. a small 2-stage model at float32 through the kernels and through
    plain PyTorch that rounds as the kernels do: the renders must agree to
-   RENDER_TOL;
+   RENDER_TOL (its head-width-16 stage on ``fused_site_mma`` in both,
+   that kernel held to ``site_consumer_online`` at each of its calls);
 6. training, default route: ``Trainer`` on the flagship bf16 model, B=2,
    T=2, MSE loss, drop path 0.2 from a seeded generator, one warm-up step
    and TRAIN_STEPS steps on a fixed batch: exact launch counts per step,
@@ -43,15 +51,15 @@ Phases, each fatal on failure:
    (its order of sums in PyTorch), ``grid_sampler_2d_backward``'s time
    beside it, and its time summed over a step's launches;
 9. the small model's parameter gradients through the kernels against
-   plain PyTorch that rounds as the kernels do, under both routes; then
+   plain PyTorch that rounds as the kernels do (its history pass's
+   ``fused_site_mma`` in both), under both routes; then
    one K-fold epoch of ``Trainer.train`` on that model on the card, with
    the pinned-memory prefetch, validation, recall and checkpoints;
 10. the pyramid (``Config()``, the reference default: BEV 56-28-14-7-14-28-
     56, widths 64-512, ResNet-18, 3 views of 224 x 224) in bf16, serving:
     render+register at B=2, T=2 against 64 tiles, one warm-up and
-    PYR_REQUESTS requests with exact launch counts (no fused site; SCA at
-    BEV 56 on the wide bias kernel, every other site on the whole-table
-    one), the same measurements as phase 3;
+    PYR_REQUESTS requests with exact launch counts (every site of head
+    width 32 on ``fused_site_mma``), the same measurements as phase 3;
 11. the pyramid training: ``Trainer`` at B=2, T=2 as in phase 6, exact
     launch counts of the four bias kernels per step, every parameter
     (transitions, width fixes and rpe tables among them) with a finite
@@ -70,17 +78,18 @@ Phases, each fatal on failure:
     kernels against plain PyTorch with the kernels' roundings, as phase 9;
 14. the wide-table route: the flagship serving as phase 3 (WIDE_REQUESTS
     requests) with ``lattice_route="wide"``: exactly 24
-    ``fused_site_wide`` and 64 ``lattice_bias_wide`` launches per forward,
-    and the render equal to phase 3's;
+    ``fused_site_wide`` and 64 ``lattice_bias_wide`` launches per forward
+    (the wide heads keep the bias on "wide"), its render's distance to
+    phase 3's printed;
 15. the same with ``site_prefetch`` and ``bias_forward="prefetch"``: 24
     ``fused_site_wide_prefetch`` and 64 ``lattice_bias_wide_prefetch`` per
-    forward, the render equal to phase 3's;
+    forward, the render equal to phase 14's;
 16. flagship training on the wide route with ``fused_bwd``, as phase 7:
     the counts of phase 7 on the wide kernels (12 ``fused_site_wide_lse``
     and 12 ``fused_site_bwd`` per step);
-17. the pyramid serving as phase 10 with ``bias_forward="prefetch"``: 24
-    ``lattice_bias_wide_prefetch`` and 64 ``lattice_bias`` per forward, the
-    render equal to phase 10's;
+17. the pyramid serving as phase 10 with ``bias_forward="prefetch"``:
+    phase 10's 88 ``fused_site_mma`` per forward (no eval site takes the
+    bias), the render equal to phase 10's;
 18. each new kernel alone at every shape phases 14-17 give it, and
     ``fused_site_wide_prefetch`` also at a site of its ring path
     (PREFETCH_RING_SITE), at two table scales, against its plain version
@@ -98,9 +107,9 @@ Phases, each fatal on failure:
     (WIDE_REQUESTS requests) with ``lattice_route="wide"``,
     ``site_prefetch`` and ``site_fold_heads``: exactly 24
     ``fused_site_fold_heads`` and 64 ``lattice_bias_wide`` per forward, the
-    render equal to phase 3's;
+    render equal to phase 14's;
 20. the flagship serving with ``site_fold_rows`` on "auto" (WIDE_REQUESTS
-    requests): 24 ``fused_site_fold_rows`` and 64 ``lattice_bias`` per
+    requests): 24 ``fused_site_fold_rows`` and 64 ``fused_site_mma`` per
     forward, the render equal to phase 3's;
 21. flagship training as phase 7 (``fused_bwd``) with ``site_prefetch`` and
     ``site_fold_heads`` on "auto": phase 7's counts with 12
@@ -116,11 +125,11 @@ Phases, each fatal on failure:
     blocks per SM;
 23. the windowed bias (``bias_forward="windows"``): the flagship serving as
     phase 3 (WINDOWS_REQUESTS requests), exactly 24 ``fused_site`` and 64
-    ``lattice_windows`` per forward, the render equal (max abs 0) to the
-    same model's render with every window cut by ``lattice_windows_plain``
-    on the card;
+    ``fused_site_mma`` per forward (no eval site takes the bias on
+    "auto"), the render equal (max abs 0) to the same model's render with
+    every window cut by ``lattice_windows_plain`` on the card;
 24. flagship training as phase 6 with ``bias_forward="windows"``: phase
-    6's counts with ``lattice_windows`` for ``lattice_bias`` (120 per step)
+    6's counts with ``lattice_windows`` for ``lattice_bias`` (88 per step)
     and ``lattice_windows_bwd`` for ``lattice_bias_bwd`` (44);
 25. the window kernels alone: ``lattice_windows`` equal to its plain
     version at every shape the bias sees (the flagship's serving and
@@ -133,7 +142,7 @@ Phases, each fatal on failure:
     ``lattice_bias_wide.cu``; kernel,
     plain, library and bound times; then the pyramid serving with
     ``bias_forward="windows"`` (PYR_WINDOWS_REQUESTS requests): 88
-    ``lattice_windows`` per forward, the render equal to its plain-windows
+    ``fused_site_mma`` per forward, the render equal to its plain-windows
     render;
 26. registering through the retrieval head: the flagship of phase 3 with
     ``retrieval_embed_dim=256`` (widths 32-256; the trunk draws phase 3's
@@ -149,7 +158,7 @@ Phases, each fatal on failure:
     sequence of STREAM_FRAMES frames whose first two are phase 3's window;
     the streaming step over those two frames (the JAX package's pose-pair
     rule) gives phase 3's render (max abs 0); over the whole sequence,
-    exactly 12 ``fused_site`` and 32 ``lattice_bias`` launches a frame,
+    exactly 12 ``fused_site`` and 32 ``fused_site_mma`` launches a frame,
     ms a frame beside phase 3's ms a request; ``make_replay_scan`` over it
     returns the chain's tile indices and final BEV bit for bit; after a
     first replay (its host synchronisations printed) STREAM_RUNS timed
@@ -205,7 +214,8 @@ Phases, each fatal on failure:
     (B=2, T=2, drop path 0.2), the ranks' renders, top-k and parameters
     equal bit for bit, held against one process by phase 30's spread rule,
     exact launches a rank a request and a step; a request on each folded
-    site (render equal to the default route's) and a ``fused_bwd`` step
+    site (render equal to its route's: the rows fold's "auto", the heads
+    fold's "wide") and a ``fused_bwd`` step
     with and without the folded forward, with their launches; (b) 2 data
     x 2 model ranks: phase 5's small model one step against one process,
     held to phase 30's spread rule with SMALL_DP_REL as its floor.
@@ -243,40 +253,47 @@ TRAIN_STEPS = 10
 TRAIN_B = 2
 # launches per training step of the flagship at T=2. History pass (eval, no
 # gradient): 12 fused sites (stages 2-4: 6 layers x (TSA + folded SCA)) and
-# 32 bias launches (stages 0, 1, 5, 6: 8 layers x (TSA + 3 views)). Final
-# pass, default route: every site takes the bias kernel, 32 + 12 = 44
-# forward and 44 backward, and 44 more forward when the backward recomputes
-# the site (site_remat "nothing"). With fused_bwd the 12 narrow sites take
-# the logsumexp forward and the site backward instead.
+# 32 wide-head fused sites (stages 0, 1, 5, 6, head widths 32 and 16: 8
+# layers x (TSA + 3 views)). Final pass, default route: every site takes
+# the bias kernel, 32 + 12 = 44 forward and 44 backward, and 44 more
+# forward when the backward recomputes the site (site_remat "nothing").
+# With fused_bwd the 12 narrow sites take the logsumexp forward and the
+# site backward instead.
 TRAIN_COUNTS = {
-    (False, "nothing"): dict(fused_site=12, lattice_bias=32 + 44 + 44,
-                             lattice_bias_bwd=44),
-    (False, "none"): dict(fused_site=12, lattice_bias=32 + 44,
+    (False, "nothing"): dict(fused_site=12, fused_site_mma=32,
+                             lattice_bias=44 + 44, lattice_bias_bwd=44),
+    (False, "none"): dict(fused_site=12, fused_site_mma=32, lattice_bias=44,
                           lattice_bias_bwd=44),
-    (True, "nothing"): dict(fused_site=12, lattice_bias=32 + 32 + 32,
-                            lattice_bias_bwd=32, fused_site_lse=12,
-                            fused_site_bwd=12),
+    (True, "nothing"): dict(fused_site=12, fused_site_mma=32,
+                            lattice_bias=32 + 32, lattice_bias_bwd=32,
+                            fused_site_lse=12, fused_site_bwd=12),
 }
 SERVE_B = 4
 FUSED_PER_FORWARD = 24
+# sites of head width 32 or 16 a serving forward (T=2): fused_site_mma on
+# the "auto" route, the bias kernels on "wide"
 BIAS_PER_FORWARD = 64
+MMA_PER_FORWARD = BIAS_PER_FORWARD
 # The pyramid (Config(): BEV 56-28-14-7-14-28-56, widths 64-512, heads
 # 2-4-8-16-8-4-2, groups 1-2-4-8-4-2-1, depth 2). Head width 32 at every
-# stage: no fused site, every site takes the bias kernels. Per pass, per
-# layer: stages 0, 1, 5, 6 one TSA and three SCA sites (G < 4, one per
-# view), stages 2-4 one TSA and one SCA with the views folded; 22 per layer,
-# 44 per pass. SCA at BEV 56 (stages 0 and 6, 12 per pass) takes the wide
-# kernels (ops.deform_attn.bias_route), the 32 others the whole-table ones.
+# stage: no narrow fused site. Per pass, per layer: stages 0, 1, 5, 6 one
+# TSA and three SCA sites (G < 4, one per view), stages 2-4 one TSA and one
+# SCA with the views folded; 22 per layer, 44 per pass. In eval every site
+# takes fused_site_mma (its shared memory holds every table, the SCA at BEV
+# 56's too). In training the sites take the bias kernels: SCA at BEV 56
+# (stages 0 and 6, 12 per pass) the wide ones (ops.deform_attn.bias_route),
+# the 32 others the whole-table ones.
 PYR_B = 2
 PYR_REQUESTS = 10
-PYR_PER_FORWARD = dict(lattice_bias=2 * 32, lattice_bias_wide=2 * 12)  # T=2
+PYR_PER_FORWARD = dict(fused_site_mma=2 * 44)  # T=2
 # a training step at T=2: the history pass (eval, no gradient), the final
 # pass, and with site_remat "nothing" every site's bias again in the
 # backward; fused_bwd changes nothing (head width 32)
 PYR_TRAIN_COUNTS = {
-    "nothing": dict(lattice_bias=32 * 3, lattice_bias_wide=12 * 3,
-                    lattice_bias_bwd=32, lattice_bias_wide_bwd=12),
-    "none": dict(lattice_bias=32 * 2, lattice_bias_wide=12 * 2,
+    "nothing": dict(fused_site_mma=44, lattice_bias=32 * 2,
+                    lattice_bias_wide=12 * 2, lattice_bias_bwd=32,
+                    lattice_bias_wide_bwd=12),
+    "none": dict(fused_site_mma=44, lattice_bias=32, lattice_bias_wide=12,
                  lattice_bias_bwd=32, lattice_bias_wide_bwd=12),
 }
 # The wide-table route (ModelConfig.lattice_route="wide"): every flagship
@@ -290,21 +307,32 @@ WIDE_PER_FORWARD = dict(fused_site_wide=FUSED_PER_FORWARD,
 WIDE_PREFETCH_PER_FORWARD = dict(fused_site_wide_prefetch=FUSED_PER_FORWARD,
                                  lattice_bias_wide_prefetch=BIAS_PER_FORWARD)
 # a training step under "wide" with fused_bwd (phase 16): the counts of
-# TRAIN_COUNTS[(True, "nothing")] on the wide kernels; the site backward
-# stays fused_site_bwd, whose shared memory holds the flagship's tables
+# TRAIN_COUNTS[(True, "nothing")] on the wide kernels, where the history
+# pass's wide heads take the bias too; the site backward stays
+# fused_site_bwd, whose shared memory holds the flagship's tables
 WIDE_NAMES = dict(fused_site="fused_site_wide",
                   fused_site_lse="fused_site_wide_lse",
+                  fused_site_mma="lattice_bias_wide",
                   lattice_bias="lattice_bias_wide",
                   lattice_bias_bwd="lattice_bias_wide_bwd",
                   fused_site_bwd="fused_site_bwd")
-WIDE_TRAIN_COUNTS = {WIDE_NAMES[k]: v
-                     for k, v in TRAIN_COUNTS[(True, "nothing")].items()}
-# the pyramid with bias_forward "prefetch" (phase 17): its SCA at BEV 56, the
-# one site that takes the wide bias on the "auto" route, on the prefetch
-# variant
-PYR_PREFETCH_PER_FORWARD = dict(lattice_bias=PYR_PER_FORWARD["lattice_bias"],
-                                lattice_bias_wide_prefetch=PYR_PER_FORWARD[
-                                    "lattice_bias_wide"])
+
+
+def renamed(counts: dict, names: dict) -> dict:
+    """Launch counts with each kernel renamed by ``names`` (others kept), the
+    counts of two names that become one summed."""
+    out: dict = {}
+    for k, v in counts.items():
+        out[names.get(k, k)] = out.get(names.get(k, k), 0) + v
+    return out
+
+
+WIDE_TRAIN_COUNTS = renamed(TRAIN_COUNTS[(True, "nothing")], WIDE_NAMES)
+# the pyramid with bias_forward "prefetch" (phase 17): in eval every site
+# takes fused_site_mma, so the prefetch variant of the wide bias (its SCA
+# at BEV 56) runs only in training, and a serving forward's launches are
+# phase 10's
+PYR_PREFETCH_PER_FORWARD = dict(PYR_PER_FORWARD)
 # The folded fused sites (phases 19-21). Every flagship fused site has two
 # heads per group on rows of 28 queries (Hpg * W = 56 <= 128), so each one
 # folds: site_fold_heads with site_prefetch on "wide" takes
@@ -316,22 +344,25 @@ PYR_PREFETCH_PER_FORWARD = dict(lattice_bias=PYR_PER_FORWARD["lattice_bias"],
 FOLD_HEADS_PER_FORWARD = dict(fused_site_fold_heads=FUSED_PER_FORWARD,
                               lattice_bias_wide=BIAS_PER_FORWARD)
 FOLD_ROWS_PER_FORWARD = dict(fused_site_fold_rows=FUSED_PER_FORWARD,
-                             lattice_bias=BIAS_PER_FORWARD)
+                             fused_site_mma=MMA_PER_FORWARD)
 FOLD_TRAIN_COUNTS = {
     ("fused_site_fold_heads_lse" if k == "fused_site_lse" else k): v
     for k, v in TRAIN_COUNTS[(True, "nothing")].items()}
 # The windowed bias (ModelConfig.bias_forward="windows", phases 23-25): every
 # site that takes the bias takes lattice_windows in its forward and
-# lattice_windows_bwd in its backward; the fused sites do not change
+# lattice_windows_bwd in its backward; the fused sites do not change. On
+# the "auto" route no eval site takes the bias (head widths 4 and 8 the
+# fused site, 16 and 32 fused_site_mma), so serving launches no window
+# kernel; training's final pass does
 WINDOWS_REQUESTS = 10
 WINDOWS_PER_FORWARD = dict(fused_site=FUSED_PER_FORWARD,
-                           lattice_windows=BIAS_PER_FORWARD)
+                           fused_site_mma=MMA_PER_FORWARD)
 WINDOW_NAMES = dict(lattice_bias="lattice_windows",
                     lattice_bias_bwd="lattice_windows_bwd")
 WINDOWS_TRAIN_COUNTS = {WINDOW_NAMES.get(k, k): v
                         for k, v in TRAIN_COUNTS[(False, "nothing")].items()}
 PYR_WINDOWS_REQUESTS = 3
-PYR_WINDOWS_PER_FORWARD = dict(lattice_windows=sum(PYR_PER_FORWARD.values()))
+PYR_WINDOWS_PER_FORWARD = dict(PYR_PER_FORWARD)
 # the retrieval head (phase 26): the shipped head on the flagship, a tile
 # database made from a seed, phase 3's renders inserted at known rows (one
 # a request item)
@@ -351,7 +382,7 @@ HEAD_SELF_DIST = 1e-5
 STREAM_FRAMES = 8
 STREAM_RUNS = 3
 STREAM_PER_FRAME = dict(fused_site=FUSED_PER_FORWARD // 2,
-                        lattice_bias=BIAS_PER_FORWARD // 2)
+                        fused_site_mma=MMA_PER_FORWARD // 2)
 BIAS_ULP = 2.0 ** -7   # one bf16 ulp of x is at most |x| * 2^-7
 # windowed bias against the bias kernels, as a share of the largest entry a
 # of the bf16 table: the windowed bias lerps in bf16, each operation rounded
@@ -795,14 +826,173 @@ def check_site(da, kernel_mod) -> dict:
     return dict(rows=rows, worst=worst, worst_online=worst_online)
 
 
+# The wide-head eval site (fused_site_mma, head widths 16 and 32) at the
+# flagship's call shapes in the registration cell (B=32 windows, T=4: four
+# encoder passes a request, SCA view by view): (name, batch, G, ch, N, table
+# width, launches of this shape a request)
+MMA_SITES = [
+    ("tsa_g1_ch32_n16", 32, 1, 32, 16, 55, 16),
+    ("tsa_g2_ch16_n49", 32, 2, 16, 49, 55, 16),
+    ("sca_g1_ch32_n1960", 32, 1, 32, 1960, 279, 48),
+    ("sca_g2_ch16_n1960", 32, 2, 16, 1960, 279, 48),
+]
+# more shapes held to the plain versions: the pyramid's SCA at BEV 56 (its
+# largest table), and its BEV 7 sites (an odd side: the last row's lower
+# query masked); (name, batch, G, ch, N, table width, side)
+MMA_CHECK_SITES = [
+    ("pyr_sca56_g1_ch32_n7840", 2, 1, 32, 7840, 559, 56),
+    ("pyr_sca7_g8_ch32_n140", 6, 8, 32, 140, 69, 7),
+    ("pyr_tsa7_g8_ch32_n49", 2, 8, 32, 49, 13, 7),
+]
+# fused_site_mma against site_consumer_online, which rounds where the kernel
+# rounds but sums q . k as an fmaf chain where the kernel's tensor cores sum
+# in their own order: s moves by a few float32 ulps of the products' sum,
+# which now and then flips the bf16 rounding of one p by one bf16 ulp (2^-7
+# of p at most), moving the output by at most 2^-7 of that key's share of
+# the p-weighted |v|. So every element is held to 2^-7 of the p-weighted
+# |v| (one flip) and the share of elements beyond 2^-12 of it, which only
+# flips reach, to MMA_FLIP_SHARE.
+MMA_ONLINE_TOL = 2.0 ** -7
+MMA_FLIP_TOL = 2.0 ** -12
+MMA_FLIP_SHARE = 1e-3
+
+
+def mma_errors(da, kernel_mod, seed, B, G, ch, N, Wt, table_std, side=H):
+    """Run ``fused_site_mma`` once at one shape and hold it against its
+    plain version (``site_consumer`` on the float32 bias of the bf16 table)
+    and against ``site_consumer_online``."""
+    import torch
+
+    table, k_pos, q, k, v = site_inputs(seed, B, G, ch, N, Wt, table_std,
+                                        side)
+    scale = ch ** -0.5
+    bf = torch.bfloat16
+    kargs = da._kernel_args(table, k_pos, side, side) + (
+        q.to(bf).contiguous(), k.to(bf).contiguous(), v.to(bf).contiguous())
+    out = kernel_mod.fused_site_mma_cuda(*kargs, side, side, scale)
+    tb = table.bfloat16().float()
+    bias = da.lattice_bias_plain(tb, k_pos, side, side, torch.float32)
+    ref = da.site_consumer(q, k, v, bias, scale)
+    wabs = da.site_consumer(q, k, v.abs(), bias, scale)  # p-weighted |v|
+    d_plain = (out - ref).abs()
+    d_online = (out - da.site_consumer_online(q, k, v, bias, scale)).abs()
+    torch.cuda.synchronize()
+    flips = float((d_online > MMA_FLIP_TOL * wabs + 1e-7).float().mean())
+    return dict(
+        err=float(d_plain.max()), rel=float(d_plain.max() / ref.abs().max()),
+        err_online=float(d_online.max()),
+        online_over_wabs=float((d_online / wabs.clamp(min=1e-30)).max()),
+        flip_share=flips,
+        ok=bool((d_plain <= SITE_P_ROUND * wabs + 1e-5).all()),
+        ok_online=bool((d_online <= MMA_ONLINE_TOL * wabs + 1e-6).all())
+        and flips <= MMA_FLIP_SHARE,
+        inputs=(table, k_pos, q, k, v, tb, kargs, scale))
+
+
+def check_mma_site(da, kernels, warps_sweep: bool = False) -> dict:
+    """``fused_site_mma`` at the registration cell's call shapes
+    (``MMA_SITES``) and the pyramid's (``MMA_CHECK_SITES``) against its
+    plain version and ``site_consumer_online`` at both table scales; at the
+    cell's shapes its time, picoseconds a (query, key) pair, the plain
+    version's time, the bias route (``lattice_bias`` and ``site_consumer``
+    on its bf16 bias, which these sites took before the kernel), SDPA with
+    the bias as a mask, and the bound; with ``warps_sweep`` its time at
+    every block size."""
+    import torch
+
+    mod = kernels.fused_site_mma
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, checks, worst, worst_online, bad = [], [], 0.0, 0.0, []
+    shapes = ([(n, B, G, ch, N, Wt, H) for n, B, G, ch, N, Wt, _ in MMA_SITES]
+              + MMA_CHECK_SITES)
+    for i, (name, B, G, ch, N, Wt, side) in enumerate(shapes):
+        for std in SITE_TABLE_STDS:
+            e = mma_errors(da, mod, 40 + i, B, G, ch, N, Wt, std, side)
+            print(f"fused_site_mma {name} table std {std}: max_abs_err "
+                  f"{e['err']:.3g} (rel {e['rel']:.3g}, "
+                  f"{'ok' if e['ok'] else 'FAIL'}); vs site_consumer_online "
+                  f"{e['err_online']:.3g}, {e['online_over_wabs']:.3g} of "
+                  f"p-weighted |v|, share beyond 2^-12 of it "
+                  f"{e['flip_share']:.3g} "
+                  f"({'ok' if e['ok_online'] else 'FAIL'})", flush=True)
+            checks.append(dict(site=name, table_std=std, err=e["err"],
+                               err_online=e["err_online"],
+                               online_over_wabs=e["online_over_wabs"],
+                               flip_share=e["flip_share"]))
+            if not (e["ok"] and e["ok_online"]):
+                bad.append(f"{name} std {std}")
+            worst = max(worst, e["err"])
+            worst_online = max(worst_online, e["err_online"])
+            if std == SITE_TABLE_STDS[0]:
+                kept = e
+            del e
+        if i >= len(MMA_SITES):
+            continue
+        per_req = MMA_SITES[i][-1]
+        table, k_pos, q, k, v, tb, kargs, scale = kept.pop("inputs")
+        warps = mod.plan(B * G * HPG, H, W, sms)
+        smem = mod.smem_bytes(2 * H - 1, kargs[7], ch)
+        launch = lambda: mod.fused_site_mma_cuda(*kargs, H, W, scale)  # noqa: E731
+        ms = queued_ms(launch, 20)
+        ev = events_ms(launch, 20)
+        sweep = {}
+        if warps_sweep:
+            for nw in range(1, mod.MAX_WARPS + 1):
+                sweep[nw] = queued_ms(lambda: mod.fused_site_mma_cuda(
+                    *kargs, H, W, scale, warps=nw), 10)
+        plain = queued_ms(lambda: da.site_plain(q, k, v, k_pos, tb, H, W,
+                                                scale, torch.float32), 3)
+        route = queued_ms(lambda: da.site_consumer(
+            q, k, v, kernels.lattice_bias.lattice_bias_cuda(*kargs[:8], H, W),
+            scale), 3)
+        bias = da.lattice_bias_plain(tb, k_pos, H, W, torch.float32)
+        lib = sdpa_ms(q, k, v, bias, scale, 10)
+        bound, by = site_bound(B, G, ch, N, Wt)
+        pairs = B * G * HPG * H * W * N
+        rows.append(dict(site=name, ms=ms, events_ms=ev, plain_ms=plain,
+                         bias_route_ms=route, library_ms=lib,
+                         bound_ms=bound, bound_by=by, per_request=per_req,
+                         ps_a_pair=ms * 1e9 / pairs, warps=warps, smem=smem,
+                         blocks_per_sm=mod.occupancy(ch, warps, smem),
+                         warps_sweep_ms=sweep,
+                         max_abs_err=kept["err"], rel_err=kept["rel"],
+                         max_abs_err_online=kept["err_online"]))
+        print(f"fused_site_mma {name}: kernel {ms:.4f} ms (events {ev:.4f}; "
+              f"{ms * 1e9 / pairs:.3f} ps a pair) plain {plain:.4f} ms, the "
+              f"bias route (lattice_bias + site_consumer) {route:.4f} "
+              f"ms, sdpa+mask {lib:.4f} ms, bound {bound:.4f} ms ({by}) "
+              f"x{per_req}/request; {warps} warps a block, {smem} B, "
+              f"{rows[-1]['blocks_per_sm']} blocks an SM"
+              + (f"; by warps {sweep}" if sweep else ""), flush=True)
+        del table, k_pos, q, k, v, tb, kargs, bias, kept
+        torch.cuda.empty_cache()
+    total = sum(r["ms"] * r["per_request"] for r in rows)
+    print(f"fused_site_mma over a registration request (B=32, T=4): "
+          f"{total:.3f} ms; the bias route "
+          f"{sum(r['bias_route_ms'] * r['per_request'] for r in rows):.3f} "
+          f"ms", flush=True)
+    if bad:
+        fail(f"fused_site_mma beyond tolerance at {bad}")
+    return dict(rows=rows, checks=checks, worst=worst,
+                worst_online=worst_online, per_request_ms=total)
+
+
 @contextlib.contextmanager
-def plain_sites(da, online: bool = False):
+def plain_sites(da, online: bool = False, keep_mma: bool = False):
     """Route every lattice site through plain PyTorch on the card, fed as
     the kernels are (bf16-rounded table, float32 lerps, bf16 bias), with
     autograd. The fused sites take ``site_consumer`` (p rounded after
     normalising, as the JAX package's ``_site_xla``) or, with ``online``,
     the kernels' own roundings (``site_consumer_online`` forward,
-    ``site_bwd_online`` backward)."""
+    ``site_bwd_online`` backward). With ``keep_mma`` the eval sites of
+    head widths 16 and 32 keep ``fused_site_mma``: its tensor-core sums of
+    q . k differ from the mirror's fmaf chains in the last bits, which the
+    small models carry to O(0.1) of a render or a gradient through the
+    floors of their sampling positions (phase 5: 0.05 from sites within
+    6e-7 of their mirror, where the two placements of p's rounding move it
+    by 0.135), so a whole-model comparison holds every other site to
+    its mirror and that kernel to its own, call by call
+    (``mma_sites_checked``)."""
     import torch
 
     def rounded(t):
@@ -815,6 +1005,8 @@ def plain_sites(da, online: bool = False):
                                      torch.float32).bfloat16()
 
     def site(q, k, v, p, t, h, w, scale, kernel=None):
+        if keep_mma and kernel == "fused_site_mma":
+            return saved[1](q, k, v, p, t, h, w, scale, kernel)
         b = da.lattice_bias_plain(rounded(t), p, h, w, torch.float32)
         consumer = da.site_consumer_online if online else da.site_consumer
         return consumer(q, k, v, b, scale)
@@ -849,6 +1041,39 @@ def plain_sites(da, online: bool = False):
         yield
     finally:
         da.lattice_bias, da.fused_site, da.fused_site_train = saved
+
+
+@contextlib.contextmanager
+def mma_sites_checked(da):
+    """Hold every ``fused_site_mma`` call made inside the context to
+    ``site_consumer_online`` on its own inputs (MMA_ONLINE_TOL, MMA_FLIP_TOL,
+    MMA_FLIP_SHARE), returning the kernel's output; yields the list of
+    {shape, keys, online_over_wabs, flip_share, ok}, one a call."""
+    import torch
+
+    real, calls = da.fused_site, []
+
+    def site(q, k, v, p, t, h, w, scale, kernel=None):
+        out = real(q, k, v, p, t, h, w, scale, kernel)
+        if kernel == "fused_site_mma":
+            bias = da.lattice_bias_plain(t.detach().bfloat16().float(), p, h,
+                                         w, torch.float32)
+            d = (out - da.site_consumer_online(q, k, v, bias, scale)).abs()
+            wabs = da.site_consumer(q, k, v.abs(), bias, scale)
+            flips = float((d > MMA_FLIP_TOL * wabs + 1e-7).float().mean())
+            calls.append(dict(
+                shape=tuple(q.shape), keys=k.shape[-2],
+                online_over_wabs=float((d / wabs.clamp(min=1e-30)).max()),
+                flip_share=flips,
+                ok=bool((d <= MMA_ONLINE_TOL * wabs + 1e-6).all())
+                and flips <= MMA_FLIP_SHARE))
+        return out
+
+    da.fused_site = site
+    try:
+        yield calls
+    finally:
+        da.fused_site = real
 
 
 # Sites of one flagship training step at B=2 (final pass, V=3):
@@ -2349,7 +2574,7 @@ def head_phase(card: str, auto_render) -> tuple:
     ms = marks[0].elapsed_time(marks[-1]) / HEAD_REQUESTS
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     want = expected(fused_site=FUSED_PER_FORWARD * HEAD_REQUESTS,
-                    lattice_bias=BIAS_PER_FORWARD * HEAD_REQUESTS)
+                    fused_site_mma=MMA_PER_FORWARD * HEAD_REQUESTS)
     print(f"head serving launches over {HEAD_REQUESTS} requests: {counts} "
           f"(expected {want})", flush=True)
     if counts != want:
@@ -2743,9 +2968,10 @@ def small_model_grads(da, kernels, fused_bwd: bool, wide: bool = False) -> dict:
     all drop rates 0) through the kernels and through plain PyTorch with the
     kernels' roundings. The model: BEV 8 x 8 at width 32 (stage 1 of head
     width 4 with G=4: fused site and views folded); with ``wide``, BEV
-    56 -> 28 -> 56 at width 32 with 2 heads (head width 16, bias kernels and
-    plain consumer) and depth 5, 224 x 224 images, whose SCA table at BEV 56
-    (2 x 111 x 559) takes the wide kernels."""
+    56 -> 28 -> 56 at width 32 with 2 heads (head width 16: bias kernels and
+    plain consumer in the final pass, ``fused_site_mma`` in the history
+    pass, which the mirror run keeps) and depth 5, 224 x 224 images, whose
+    SCA table at BEV 56 (2 x 111 x 559) takes the wide kernels."""
     import torch
 
     from bevrender_tpu_torch.config import tiny_model_config
@@ -2788,7 +3014,7 @@ def small_model_grads(da, kernels, fused_bwd: bool, wide: bool = False) -> dict:
     kernels.reset_counts()
     g_k = grads()
     used = kernels.counts()
-    with plain_sites(da, online=True):
+    with plain_sites(da, online=True, keep_mma=True):
         g_o = grads()
     torch.cuda.synchronize()
     g_k2 = grads()  # the kernels again: their atomics sum in another order
@@ -3225,7 +3451,7 @@ def file_feed_phase(card: str, train_default: dict) -> dict:
         torch.cuda.synchronize()
         counts = kernels.counts()
         want = expected(fused_site=FUSED_PER_FORWARD,
-                        lattice_bias=BIAS_PER_FORWARD)
+                        fused_site_mma=MMA_PER_FORWARD)
         ok = (tuple(idx.shape) == (SERVE_B, 5)
               and bool(((idx >= 0) & (idx < len(tiles))).all())
               and bool(torch.isfinite(dist).all())
@@ -4252,15 +4478,18 @@ MP_STEPS = 3
 # launch a site: tests/test_torch_model_parallel.py sums site_kernels over
 # every site at Hpg / 2 on every route against these
 MP_SERVE_COUNTS = dict(fused_site=FUSED_PER_FORWARD,
-                       lattice_bias=BIAS_PER_FORWARD)
+                       fused_site_mma=MMA_PER_FORWARD)
 MP_TRAIN_COUNTS = TRAIN_COUNTS[(False, "nothing")]
 # one request on each folded site at one head a group, a rank: its render
-# equals the default route's bit for bit (each folded kernel equals its
-# per-head sibling, #4 equals #1)
+# equals its route's bit for bit (each folded kernel equals its per-head
+# sibling, #4 equals #1): the rows fold the default route's, the heads fold
+# (on "wide") a render on the "wide" route, whose wide heads take the bias
+# where the default route takes fused_site_mma
 MP_FOLD_ROUTES = {
-    "fold_rows": (dict(site_fold_rows=True), FOLD_ROWS_PER_FORWARD),
+    "fold_rows": (dict(site_fold_rows=True), FOLD_ROWS_PER_FORWARD, None),
     "fold_heads": (dict(lattice_route="wide", site_prefetch=True,
-                        site_fold_heads=True), FOLD_HEADS_PER_FORWARD)}
+                        site_fold_heads=True), FOLD_HEADS_PER_FORWARD,
+                   dict(lattice_route="wide"))}
 # one fused_bwd step a route at one head a group: #8 and #9, and #12
 MP_FUSED_ROUTES = {
     "fused_bwd": (dict(), TRAIN_COUNTS[(True, "nothing")]),
@@ -4354,7 +4583,12 @@ def mp_flagship(rank: int, tmp: str) -> dict:
                         dist=dist_.cpu(),
                         equal=ranks_equal(render.float().reshape(-1)))
     out["fold"] = {}
-    for name, (route, _) in MP_FOLD_ROUTES.items():
+    for name, (route, _, ref_route) in MP_FOLD_ROUTES.items():
+        ref = out["serve"]["render"]
+        if ref_route is not None:
+            set_site_options(pipe.net,
+                             **mp_config(tmp, **ref_route).model.site_options())
+            ref = pipe.render(batch).float().cpu()
         set_site_options(pipe.net,
                          **mp_config(tmp, **route).model.site_options())
         kernels.reset_counts()
@@ -4362,8 +4596,7 @@ def mp_flagship(rank: int, tmp: str) -> dict:
         torch.cuda.synchronize()
         out["fold"][name] = dict(
             counts=kernels.counts(),
-            diff=float((fold_render.float().cpu()
-                        - out["serve"]["render"]).abs().max()))
+            diff=float((fold_render.float().cpu() - ref).abs().max()))
     del pipe, render, fold_render
     torch.cuda.empty_cache()
 
@@ -4563,18 +4796,18 @@ def model_parallel_phase(card: str) -> dict:
         if not r_render <= 1.0:
             fail(f"{tag}: the ranks' render parts from one process beyond "
                  f"its spread ({r_render})")
-        for name, (_, per) in MP_FOLD_ROUTES.items():
+        for name, (_, per, _) in MP_FOLD_ROUTES.items():
             for r, res in enumerate(ranks):
                 got = res["fold"][name]
                 if got["counts"] != expected(**per):
                     fail(f"{tag}: rank {r} {name} launches {got['counts']}"
                          f" != {expected(**per)}")
                 if got["diff"] != 0.0:
-                    fail(f"{tag}: rank {r} {name} render differs from the "
-                         f"default route's by {got['diff']}")
+                    fail(f"{tag}: rank {r} {name} render differs from its "
+                         f"route's by {got['diff']}")
         print(f"{tag}: a request on each folded site at one head a group "
-              f"({ {n: per for n, (_, per) in MP_FOLD_ROUTES.items()} }): "
-              f"render equal to the default route's on every rank",
+              f"({ {n: per for n, (_, per, _) in MP_FOLD_ROUTES.items()} }): "
+              f"render equal to its route's on every rank",
               flush=True)
 
         # training: the ranks agree after every step, within the spread
@@ -4725,12 +4958,13 @@ def main() -> None:
     serve = serving_phase(card, "flagship", flagship_config(dtype="bfloat16"),
                           SERVE_B, N_REQUESTS,
                           dict(fused_site=FUSED_PER_FORWARD,
-                               lattice_bias=BIAS_PER_FORWARD))
+                               fused_site_mma=MMA_PER_FORWARD))
     counts = serve["counts"]
 
     with torch.no_grad():
         bias = check_bias(da, kernels.lattice_bias)
         site = check_site(da, kernels.fused_site)
+        mma = check_mma_site(da, kernels)
     print(f"lattice_bias over a flagship serving forward: "
           f"{sum_text(bias['rows'], 'per_forward')} [{card}]", flush=True)
 
@@ -4738,8 +4972,9 @@ def main() -> None:
     # ---- reference: a small model through the kernels and through plain
     # PyTorch on the card. The flagship at random weights is chaotic over
     # two frames (its render moves O(1e-1) under a 1e-6 input change), a
-    # 2-stage model is not. Stage 0 has head width 16 (bias kernel, views
-    # one by one), stage 1 head width 4 with G=4 (fused site, views folded).
+    # 2-stage model is not. Stage 0 has head width 16 (fused_site_mma,
+    # views one by one), stage 1 head width 4 with G=4 (fused site, views
+    # folded).
     small = Config()
     small.model = tiny_model_config(embed_dims=(32, 32, 32), n_heads=(2, 8),
                                     n_groups=(1, 4))
@@ -4748,23 +4983,33 @@ def main() -> None:
         n_items=2, num_views=2, window_num_imgs=1, img_height=32,
         img_width=32, seed=3).batch(2).items()}
     kernels.reset_counts()
-    out_k = ref_pipe.render(sb)
+    with mma_sites_checked(da) as mma_calls:
+        out_k = ref_pipe.render(sb)
     used = kernels.counts()
-    with plain_sites(da, online=True):
+    with plain_sites(da, online=True, keep_mma=True):
         out_o = ref_pipe.render(sb)
     with plain_sites(da):
         out_p = ref_pipe.render(sb)
-    # the kernels against plain PyTorch that rounds as they do; the distance
-    # to the plain versions (p rounded after normalising) is printed beside
-    # it: it shows how far that one rounding moves this render
+    # the kernels against plain PyTorch that rounds as they do, the head
+    # width 16 stage's fused_site_mma in both and held to its mirror call by
+    # call; the distance to the plain versions (p rounded after
+    # normalising) is printed beside it: it shows how far that one rounding
+    # moves this render
     d_kernel = float((out_k - out_o).abs().max())
     d_round = float((out_k - out_p).abs().max())
     print(f"small model (2 stages, f32, B=2, T=2) render, kernels {used}: max "
           f"abs diff to plain PyTorch with the kernels' roundings {d_kernel:.3g} "
           f"(tolerance {RENDER_TOL}); to the plain versions (p rounded after "
-          f"normalising) {d_round:.3g}", flush=True)
-    if not (used["lattice_bias"] > 0 and used["fused_site"] > 0):
+          f"normalising) {d_round:.3g}; fused_site_mma against its mirror at "
+          f"its {len(mma_calls)} calls: at most "
+          f"{max(c['online_over_wabs'] for c in mma_calls):.3g} of the "
+          f"p-weighted |v|, flip share "
+          f"{max(c['flip_share'] for c in mma_calls):.3g}", flush=True)
+    if not (used["fused_site_mma"] > 0 and used["fused_site"] > 0):
         fail(f"small reference model missed a kernel: {used}")
+    if not all(c["ok"] for c in mma_calls):
+        fail(f"fused_site_mma beyond its mirror's tolerance in the small "
+             f"model: {mma_calls}")
     if not (d_kernel <= RENDER_TOL and bool(torch.isfinite(out_k).all())):
         fail(f"render through kernels differs from plain path by {d_kernel}")
 
@@ -4843,7 +5088,11 @@ def main() -> None:
     # kernels, the pyramid with the prefetch bias, and each new kernel
     # alone. Every site kernel of these routes equals its sibling bit for
     # bit and the convolutions pick the same cuDNN algorithms for the same
-    # shapes, so each render equals the "auto" route's exactly ----
+    # shapes, so the prefetch render equals the "wide" route's exactly, and
+    # the pyramid's prefetch render (fused_site_mma at every eval site on
+    # both) phase 10's. The "auto" route takes fused_site_mma at the wide
+    # heads where "wide" takes the bias and the plain consumer, which sum
+    # in another order: the distance is printed ----
     auto_render, pyr_render = serve.pop("render"), pyr_serve.pop("render")
 
     def flagship_route(**route):
@@ -4864,18 +5113,19 @@ def main() -> None:
     pyr_prefetch_cfg.model.bias_forward = "prefetch"
     pyr_prefetch = serving_phase(card, "pyramid prefetch", pyr_prefetch_cfg,
                                  PYR_B, PYR_REQUESTS, PYR_PREFETCH_PER_FORWARD)
+    wide_render = wide_serve.pop("render")
     render_diff = {
-        "flagship_wide": float((wide_serve.pop("render")
-                                - auto_render).abs().max()),
         "flagship_wide_prefetch": float((prefetch_serve.pop("render")
-                                         - auto_render).abs().max()),
+                                         - wide_render).abs().max()),
         "pyramid_prefetch": float((pyr_prefetch.pop("render")
                                    - pyr_render).abs().max())}
-    print(f"renders against the \"auto\" route's, same weights and batch "
-          f"(max abs difference): {render_diff}", flush=True)
+    wide_to_auto = float((wide_render - auto_render).abs().max())
+    print(f"renders against the \"wide\" route's (flagship) and phase 10's "
+          f"(pyramid), same weights and batch (max abs difference): "
+          f"{render_diff}; the \"wide\" render against the \"auto\" "
+          f"route's {wide_to_auto:.3g}", flush=True)
     if any(d != 0.0 for d in render_diff.values()):
-        fail(f"a wide-route render differs from the auto route's: "
-             f"{render_diff}")
+        fail(f"a prefetch render differs from its route's: {render_diff}")
     with torch.no_grad():
         site_wide, site_prefetch = check_wide_site(da, kernels)
         site_wide_lse = check_wide_site_lse(da, kernels)
@@ -4888,7 +5138,8 @@ def main() -> None:
     # site_fold_rows; TrainConfig.fused_fwd_fold follows site_fold_heads):
     # the flagship serving on each, its fused_bwd step with the folded
     # forward, and each folded kernel alone. Each equals its per-head
-    # sibling bit for bit, so each render equals the "auto" route's ----
+    # sibling bit for bit, so the rows-folded render equals the "auto"
+    # route's and the heads-folded one (on "wide") the "wide" route's ----
     fold_heads_serve = serving_phase(
         card, "flagship fold heads",
         flagship_route(lattice_route="wide", site_prefetch=True,
@@ -4906,13 +5157,14 @@ def main() -> None:
           f"{train_fused['loss_first']:.6f}", flush=True)
     fold_diff = {
         "flagship_fold_heads": float((fold_heads_serve.pop("render")
-                                      - auto_render).abs().max()),
+                                      - wide_render).abs().max()),
         "flagship_fold_rows": float((fold_rows_serve.pop("render")
                                      - auto_render).abs().max())}
-    print(f"folded renders against the \"auto\" route's, same weights and "
-          f"batch (max abs difference): {fold_diff}", flush=True)
+    print(f"folded renders against their route's (rows \"auto\", heads "
+          f"\"wide\"), same weights and batch (max abs difference): "
+          f"{fold_diff}", flush=True)
     if any(d != 0.0 for d in fold_diff.values()):
-        fail(f"a folded render differs from the auto route's: {fold_diff}")
+        fail(f"a folded render differs from its route's: {fold_diff}")
     with torch.no_grad():
         site_rows, site_heads, site_heads_lse = check_fold_sites(da, kernels)
 
@@ -5176,6 +5428,12 @@ def main() -> None:
         "graphed": graphed, "parallel": parallel,
         "model_parallel": model_parallel,
         "small_model_grad_err": [grads_default["worst"], grads_fused["worst"]],
+        "fused_site_mma": dict(
+            mma, source="bevrender_tpu_torch/ops/kernels/csrc/"
+            "fused_site_mma.cu", replaces=None, launches=counts[
+                "fused_site_mma"],
+            launches_train=train_default["counts"]["fused_site_mma"],
+            launches_pyramid_serving=pyr_serve["counts"]["fused_site_mma"]),
         "build_s": build_s, "serving": serve,
         "render_diff_online": d_kernel, "render_diff_plain": d_round}
     stamp("record")

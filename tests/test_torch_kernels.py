@@ -90,6 +90,133 @@ def test_fused_site_kernel_matches_plain(cuda_device, ch, N, Wt, table_std):
     assert kernels.counts()["fused_site"] == before + 1
 
 
+# fused_site_mma (head widths 16 and 32) against site_consumer_online, which
+# rounds where the kernel rounds but sums q . k as an fmaf chain where the
+# kernel's tensor cores sum in their own order: s moves by a few float32
+# ulps of the products' sum, which now and then flips the bf16 rounding of
+# one p by one bf16 ulp (2^-7 of p at most) and so moves the output by at
+# most 2^-7 of that key's share of the p-weighted |v|. Every element is
+# held to one such flip, and the share of elements beyond 2^-12 of the
+# p-weighted |v|, which only flips reach, to MMA_FLIP_SHARE (chip_smoke's
+# MMA_* constants).
+MMA_ONLINE_TOL = 2.0 ** -7
+MMA_FLIP_TOL = 2.0 ** -12
+MMA_FLIP_SHARE = 1e-3
+# (B, G, ch, N, Wt, H): the flagship's stage-0 and stage-1 SCA view calls and
+# its two TSA calls at the registration cell's B=32, the pyramid's SCA at
+# BEV 56 (its largest table) and at BEV 7 (an odd side: the last row's
+# lower query masked)
+MMA_SITES = [(32, 1, 32, 1960, 279, 28), (32, 2, 16, 1960, 279, 28),
+             (32, 1, 32, 16, 55, 28), (32, 2, 16, 49, 55, 28),
+             (2, 1, 32, 7840, 559, 56), (6, 8, 32, 140, 69, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_std", [0.01, 1.0])
+@pytest.mark.parametrize("B,G,ch,N,Wt,H", MMA_SITES)
+def test_mma_site_matches_plain_and_online(cuda_device, B, G, ch, N, Wt, H,
+                                           table_std):
+    """The eval site at a wide head takes ``fused_site_mma`` (one launch)
+    and computes the plain version's site (p rounded before normalising,
+    2^-7 of the p-weighted |v| as for the narrow fused site) and
+    ``site_consumer_online``'s within the flips of its tensor-core sums."""
+    table, k_pos, q, k, v = _inputs(40, B, G, 2, H, H, Wt, N, ch,
+                                    cuda_device, table_std)
+    scale = ch ** -0.5
+    before = kernels.counts()["fused_site_mma"]
+    with torch.no_grad():
+        out = tda.streamed_deform_attention(q, k, v, k_pos, table, H, H,
+                                            scale=scale, fuse_site=True)
+        assert kernels.counts()["fused_site_mma"] == before + 1
+        bias = tda.lattice_bias_plain(table.bfloat16().float(), k_pos, H, H,
+                                      torch.float32)
+        ref = tda.site_consumer(q, k, v, bias, scale)
+        wabs = tda.site_consumer(q, k, v.abs(), bias, scale)
+        d_plain = (out - ref).abs()
+        d_online = (out - tda.site_consumer_online(q, k, v, bias,
+                                                   scale)).abs()
+    torch.cuda.synchronize()
+    assert out.shape == (B, G, 2, H * H, ch)
+    assert bool((d_plain <= 2.0 ** -7 * wabs + 1e-5).all())
+    assert bool((d_online <= MMA_ONLINE_TOL * wabs + 1e-6).all())
+    flips = float((d_online > MMA_FLIP_TOL * wabs + 1e-7).float().mean())
+    assert flips <= MMA_FLIP_SHARE
+
+
+@pytest.mark.cuda
+def test_mma_site_over_its_fit_keeps_the_bias_route(cuda_device):
+    """A head width 32 at BEV 64 with depth 5 (a 127 x 639 table) overflows
+    the kernel's block: the wrapper refuses it, and the eval site takes the
+    wide bias kernel with the plain consumer, which computes the same
+    site."""
+    H, Wt = 64, 639
+    table, k_pos, q, k, v = _inputs(41, 1, 1, 1, H, H, Wt, 40, 32,
+                                    cuda_device)
+    scale = 32 ** -0.5
+    kargs = _site_kargs(table, k_pos, q, k, v, H, H)
+    before = kernels.counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_site_mma.fused_site_mma_cuda(*kargs, H, H, scale)
+    with torch.no_grad():
+        out = tda.streamed_deform_attention(q, k, v, k_pos, table, H, H,
+                                            scale=scale, fuse_site=True)
+        ref = tda.site_plain(q, k, v, k_pos, table.bfloat16().float(), H, H,
+                             scale, torch.float32)
+        wabs = tda.site_consumer(q, k, v.abs(), tda.lattice_bias_plain(
+            table.bfloat16().float(), k_pos, H, H, torch.float32), scale)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["fused_site_mma"] == before["fused_site_mma"]
+    assert after["lattice_bias_wide"] == before["lattice_bias_wide"] + 1
+    # both round the normalised p to bf16, from biases that differ by the
+    # bias kernel's bf16 rounding of its output: where that flips a p's
+    # rounding, one bf16 ulp of p (2^-7 of the p-weighted |v|), and the
+    # scores' shift itself (under 2^-9 of a bias of |table| <= 0.05) far
+    # below another 2^-7
+    assert bool(((out - ref).abs() <= 2.0 ** -6 * wabs + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_mma_history_pass_replays_in_a_cuda_graph(cuda_device):
+    """A streaming encoder pass (``encode_step``, the history pass) of a
+    small model whose stage 0 has head width 16, captured in a CUDA graph:
+    the capture launches ``fused_site_mma``, and a replay equals the eager
+    pass bit for bit."""
+    from bevrender_tpu_torch.config import Config, tiny_model_config
+    from bevrender_tpu_torch.data.synthetic import SyntheticDataset
+    from bevrender_tpu_torch.inference.register import RegistrationPipeline
+
+    cfg = Config()
+    cfg.model = tiny_model_config(embed_dims=(32, 32, 32), n_heads=(2, 8),
+                                  n_groups=(1, 4))
+    pipe = RegistrationPipeline(cfg, device="cuda", seed=0)
+    batch = SyntheticDataset(n_items=2, num_views=2, window_num_imgs=1,
+                             img_height=32, img_width=32,
+                             map_tile=32).batch(2)
+    frame = pipe._device(batch["camera"])[:, 0].contiguous()
+    pose = pipe._device(batch["vehicle_pose"])[:, 0:2].contiguous()
+    vtype = pipe._device(batch["vehicle_type"])
+    net = pipe.net
+    with torch.no_grad():
+        eager = net.encode_step(frame, None, pose, vtype)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                net.encode_step(frame, None, pose, vtype)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.counts()["fused_site_mma"]
+        with torch.cuda.graph(graph):
+            out = net.encode_step(frame, None, pose, vtype)
+        captured = kernels.counts()["fused_site_mma"] - before
+        out.zero_()
+        graph.replay()
+    torch.cuda.synchronize()
+    assert captured > 0
+    assert torch.equal(out, eager)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_bad_inputs(cuda_device):
     table, k_pos, q, k, v = _inputs(3, 2, 1, 2, 8, 8, 15, 10, 4, cuda_device)
@@ -1320,7 +1447,7 @@ def test_cpu_gradients_take_the_plain_versions():
                            "lattice_bias_wide_prefetch",
                            "fused_site_fold_rows", "fused_site_fold_heads",
                            "fused_site_fold_heads_lse", "lattice_windows",
-                           "lattice_windows_bwd"}
+                           "lattice_windows_bwd", "fused_site_mma"}
 
 
 @pytest.mark.parametrize("which", ["bias_bwd", "site_bwd", "site_lse"])

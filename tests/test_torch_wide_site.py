@@ -163,7 +163,7 @@ def _launches(mc, B: int, options, training: bool) -> dict:
 FLAGSHIP = tcfg.flagship_config().model
 PYRAMID = tcfg.Config().model
 AUTO_SERVING = dict(fused_site=chip_smoke.FUSED_PER_FORWARD,
-                    lattice_bias=chip_smoke.BIAS_PER_FORWARD)
+                    fused_site_mma=chip_smoke.MMA_PER_FORWARD)
 
 
 @pytest.mark.parametrize("route,prefetch,want", [
@@ -214,9 +214,9 @@ def test_flagship_training_prefetch_kernels():
     (False, True, "none", chip_smoke.PYR_TRAIN_COUNTS["none"])])
 def test_pyramid_kernels(prefetch, training, remat, want):
     """The pyramid (B=2, T=2) on "auto": serving as chip_smoke's phases 10
-    and 17 count (``bias_forward="prefetch"`` moves its SCA at BEV 56 to
-    the prefetch bias), training as phase 11; ``fused_bwd`` changes nothing (head
-    width 32)."""
+    and 17 count (every eval site on ``fused_site_mma``, so
+    ``bias_forward="prefetch"`` changes nothing there), training as phase
+    11; ``fused_bwd`` changes nothing (head width 32)."""
     for fused_bwd in (False, True):
         opts = tda.SiteOptions(fused_bwd=fused_bwd, site_remat=remat,
                                bias_forward=("prefetch" if prefetch
@@ -227,24 +227,29 @@ def test_pyramid_kernels(prefetch, training, remat, want):
 @pytest.mark.parametrize("model,training,remat,want", [
     ("flagship", False, "nothing", chip_smoke.WINDOWS_PER_FORWARD),
     ("flagship", True, "nothing", chip_smoke.WINDOWS_TRAIN_COUNTS),
-    ("flagship", True, "none", dict(fused_site=12, lattice_windows=32 + 44,
+    ("flagship", True, "none", dict(fused_site=12, fused_site_mma=32,
+                                    lattice_windows=44,
                                     lattice_windows_bwd=44)),
     ("pyramid", False, "nothing", chip_smoke.PYR_WINDOWS_PER_FORWARD)])
 def test_windowed_bias_kernels(model, training, remat, want):
     """With ``bias_forward="windows"`` every site that took a bias kernel
     takes the window kernels, on either route, as chip_smoke's phases 23-25 count
-    them: the flagship's 64 bias launches per forward and its training
-    step's 120 forward and 44 backward ones, the pyramid's 88 per forward
-    (its SCA at BEV 56 included); the fused sites stay."""
+    them: on "auto" the final training pass's 88 forward and 44 backward
+    ones, where every eval site is fused (``fused_site``,
+    ``fused_site_mma``); on "wide", where the wide heads take the bias in
+    eval too, also the flagship's 64 eval launches a forward and the
+    pyramid's 88 (its SCA at BEV 56 included); the fused sites stay."""
     mc, B = ((FLAGSHIP, chip_smoke.TRAIN_B if training else chip_smoke.SERVE_B)
              if model == "flagship" else (PYRAMID, chip_smoke.PYR_B))
     for route in tda.LATTICE_ROUTES:
         opts = tda.SiteOptions(site_remat=remat, bias_forward="windows",
                                lattice_route=route)
         got = _launches(mc, B, opts, training)
-        if route == "wide":  # the fused sites take their wide kernels
-            want = {("fused_site_wide" if k == "fused_site" else k): v
-                    for k, v in want.items()}
+        if route == "wide":  # the fused sites take their wide kernels, the
+            # wide heads the bias
+            want = chip_smoke.renamed(want, dict(
+                fused_site="fused_site_wide",
+                fused_site_mma="lattice_windows"))
         assert got == want
 
 

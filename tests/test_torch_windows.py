@@ -411,7 +411,8 @@ def test_bias_windows_route_and_options():
     the bias, on either route and whatever the table's size (they need no
     shared memory): the forward in eval; under ``site_remat`` "nothing"
     the forward twice and the backward, under "none" once each. Fused
-    sites do not change. The field takes one of its three values; the
+    sites do not change: on "auto" an eval site of head width 32 is one
+    (``fused_site_mma``). The field takes one of its three values; the
     config hands it to every site."""
     wide_table = (1, 2, 111, 559)  # the pyramid's SCA at BEV 56
     for route in tda.LATTICE_ROUTES:
@@ -419,7 +420,8 @@ def test_bias_windows_route_and_options():
             q = (2, table[0], 2, H * H, 32)
             opts = tda.SiteOptions(lattice_route=route, bias_forward="windows")
             assert tda.site_kernels(q, table, H, H, opts, training=False) == (
-                "lattice_windows",)
+                ("fused_site_mma",) if route == "auto"
+                else ("lattice_windows",))
             assert tda.site_kernels(q, table, H, H, opts, training=True) == (
                 "lattice_windows", "lattice_windows", "lattice_windows_bwd")
             none = tda.SiteOptions(lattice_route=route, bias_forward="windows",
